@@ -1,0 +1,220 @@
+"""The port's traces and scheduling engine against the reference's, plus
+the port's import hygiene and device default.
+
+Same config → same jobs; the same trace through
+``repro_torch.runtime.SchedulingEngine(M, make_policy("wf_torch", o))``
+and ``repro.runtime.SchedulingEngine(M, make_policy("wf_jax", o))`` →
+the same schedule (``jct``, ``makespan``, ``failed_jobs``).
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.runtime as ref_runtime
+import repro.traces as ref_traces
+from repro_torch import backend, convert
+from repro_torch.kernels import waterlevel as wl
+from repro_torch.runtime import SchedulingEngine, make_policy
+from repro_torch.traces import generate, list_scenarios
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+BURSTY = dict(n_jobs=40, total_tasks=4_000, n_servers=50, seed=1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cpu_one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with backend.set_backend(device="cpu"):
+        yield
+    torch.set_num_threads(threads)
+
+
+def _job_fields(job):
+    return (
+        job.job_id,
+        job.arrival,
+        [(g.size, g.servers) for g in job.groups],
+        np.asarray(job.mu).tolist(),
+    )
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize(
+    "scenario,overrides",
+    [
+        ("alibaba", dict(n_jobs=30, total_tasks=3_000, n_servers=40)),
+        ("alibaba", dict(n_jobs=25, total_tasks=2_500, n_servers=20, zipf_alpha=1.6)),
+        ("bursty", dict(n_jobs=30, total_tasks=3_000, n_servers=40)),
+        ("bursty", dict(n_jobs=40, total_tasks=5_000, n_servers=64, mean_burst=9.0)),
+    ],
+)
+def test_traces_identical_to_reference(scenario, overrides, seed):
+    want = ref_traces.generate(scenario, seed=seed, **overrides)
+    got = generate(scenario, seed=seed, **overrides)
+    assert [_job_fields(j) for j in got] == [_job_fields(j) for j in want]
+    assert [_job_fields(j) for j in convert.from_reference_jobs(want)] == [
+        _job_fields(j) for j in want
+    ]
+
+
+def test_scenario_registry():
+    assert list_scenarios() == ["alibaba", "bursty"]
+    with pytest.raises(KeyError, match="unknown trace scenario"):
+        generate("pareto_diurnal")
+
+
+def _same_schedule(got, want):
+    assert got.jct == want.jct
+    assert got.makespan == want.makespan
+    assert got.failed_jobs == want.failed_jobs
+
+
+@pytest.mark.parametrize("ordering", ["fifo", "ocwf-acc"])
+def test_engine_wf_torch_matches_reference_wf_jax(ordering):
+    ref_jobs = ref_traces.generate("bursty", **BURSTY)
+    want = ref_runtime.SchedulingEngine(
+        BURSTY["n_servers"], ref_runtime.make_policy("wf_jax", ordering)
+    ).run(ref_jobs)
+    jobs = convert.from_reference_jobs(ref_jobs)
+    wl.reset_counts()
+    got = SchedulingEngine(
+        BURSTY["n_servers"],
+        make_policy("wf_torch", ordering),
+        debug=True,
+        on_slot=lambda cluster, slot: cluster.assert_invariant(),
+    ).run(jobs)
+    _same_schedule(got, want)
+    assert wl.COUNTS["plain"] > 0  # the device path ran (its CPU version here)
+    assert len(got.overhead_s) == len(jobs)
+
+
+@pytest.mark.parametrize("ordering", ["fifo", "ocwf", "ocwf-acc", "setf"])
+def test_engine_batched_equals_per_arrival_and_host_wf(ordering):
+    jobs = generate("bursty", n_jobs=24, total_tasks=3_000, n_servers=20, seed=7)
+    assert len({j.arrival for j in jobs}) < len(jobs), "trace must contain bursts"
+    batched = SchedulingEngine(20, make_policy("wf_torch", ordering)).run(jobs)
+    per_arrival = SchedulingEngine(
+        20, make_policy("wf_torch", ordering), batch_arrivals=False
+    ).run(jobs)
+    host = SchedulingEngine(20, make_policy("wf", ordering), debug=True).run(jobs)
+    _same_schedule(batched, per_arrival)
+    _same_schedule(batched, host)
+
+
+def test_engine_wf_torch_torch_route_matches_host_wf():
+    jobs = generate("alibaba", n_jobs=20, total_tasks=2_500, n_servers=20, seed=11)
+    host = SchedulingEngine(20, "wf").run(jobs)
+    with backend.set_backend(waterlevel="torch"):
+        dev = SchedulingEngine(20, "wf_torch").run(jobs)
+    _same_schedule(dev, host)
+
+
+def test_make_policy_rejects_unknown_names():
+    with pytest.raises(KeyError):
+        make_policy("not-a-policy")
+    with pytest.raises(ValueError):
+        make_policy("wf", "not-an-ordering")
+    assert make_policy("wf_torch").batch_assigner is not None
+    assert make_policy("wf").batch_assigner is None
+
+
+# ---- import hygiene -----------------------------------------------------------
+
+
+def _forbidden(name: str) -> bool:
+    return name in ("jax", "repro") or name.startswith(("jax.", "repro."))
+
+
+@pytest.mark.parametrize(
+    "path", sorted(PORT.rglob("*.py")), ids=lambda p: p.relative_to(PORT).as_posix()
+)
+def test_port_source_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            assert not any(_forbidden(a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert not _forbidden(node.module or "")
+
+
+def test_importing_every_port_module_loads_no_jax_or_repro():
+    modules = sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts).removesuffix(
+            ".__init__"
+        )
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+        "or m.startswith(('jax.', 'repro.')))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    out = _run_port(code)
+    assert out.returncode == 0, out.stderr
+
+
+# ---- device default -----------------------------------------------------------
+
+
+def _run_port(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        capture_output=True,
+        text=True,
+        timeout=120,
+    )
+
+
+def test_entry_point_without_a_cpu_scope_does_not_run_on_the_cpu():
+    """With no ``set_backend(device="cpu")`` scope the entry points place
+    their tensors on ``cuda``; without a GPU torch itself refuses."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    code = (
+        "import numpy as np\n"
+        "from repro_torch import backend\n"
+        "from repro_torch.core import AssignmentProblem, TaskGroup\n"
+        "from repro_torch.core.wf_torch import water_filling_torch\n"
+        "assert str(backend.device()) == 'cuda'\n"
+        "p = AssignmentProblem(busy=np.zeros(4), mu=np.ones(4),\n"
+        "                      groups=(TaskGroup(3, (0, 1)),))\n"
+        "try:\n"
+        "    water_filling_torch(p)\n"
+        "except (AssertionError, RuntimeError) as exc:\n"
+        "    print('refused:', exc)\n"
+        "else:\n"
+        "    raise SystemExit('ran without a device')\n"
+        "with backend.set_backend(device='cpu'):\n"
+        "    assert water_filling_torch(p).alloc == [{0: 2, 1: 1}]\n"
+    )
+    out = _run_port(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "refused:" in out.stdout
