@@ -11,14 +11,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels — each kernel against its plain PyTorch version on the card,
    bit for bit, at widths up to the kernel's 32768-lane ceiling;
-4. main path — the online scheduler (``SchedulingEngine`` with
+4. rd kernel — the RD strip kernel against its plain version on the
+   card, bit for bit, over the reference's slot geometries;
+5. main path — the online scheduler (``SchedulingEngine`` with
    ``wf_torch``) on a bursty trace at 4096 servers under ``fifo`` (the
    burst chain) and ``ocwf-acc``, each schedule identical to the host
    ``wf`` on the same trace; then the independent-problems batch entry
    point ``water_filling_torch_batch`` over the trace's bursts.  Launch
    counts are zeroed just before each path and read just after;
-5. timings — CUDA-event times of the kernel and its plain version, and
-   the chained burst admission's wall time.
+6. rd main path — the same engine with ``rd_torch`` on the same trace's
+   first jobs (three same-slot bursts through the device RD chain, then
+   the first burst again one arrival at a time), each schedule identical
+   to the host ``rd``, with no plain strip and no host re-run, and the
+   most slots each job held live against its slot capacity;
+7. timings — CUDA-event times of the kernels and their plain versions,
+   the chained burst admissions' wall times and device busy shares.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
@@ -28,6 +35,7 @@ the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,8 +50,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.core import AssignmentProblem, water_filling  # noqa: E402
-from repro_torch.core import wf_torch  # noqa: E402
+from repro_torch.core import rd_torch, wf_torch  # noqa: E402
+from repro_torch.core.rd import host_commit_walk  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import rd as rdk  # noqa: E402
 from repro_torch.kernels import waterlevel as wl  # noqa: E402
 from repro_torch.runtime import SchedulingEngine, make_policy  # noqa: E402
 from repro_torch.traces import generate  # noqa: E402
@@ -55,10 +65,27 @@ M_SERVERS = 4096
 N_JOBS = 1000
 TOTAL_TASKS = 4_655_227
 
+# the RD main path: the trace's first RD_JOBS jobs (three same-slot bursts)
+# through the chain, then its first burst one arrival at a time
+RD_JOBS = 18
+RD_PER_ARRIVAL_JOBS = 5
+# the chain profiled for device time: jobs 2-3 of the third burst (the
+# shortest), ~1,600 strips — the profiler's per-event cost makes a whole
+# burst (8,000 strips, ~2M events) take minutes
+RD_PROFILED_BURST = 2
+RD_PROFILED_JOBS = slice(1, 3)
+
 KERNEL_WIDTHS = (1, 100, 4096, 16384, 32768)
 KERNEL_BATCHES = (1, 8)
 KERNEL_CASES = ("random", "ties", "one-available", "demand0", "boundary")
 TIMED = ((4096, 1), (16384, 1), (32768, 1), (4096, 8))
+RD_LANES = (128, 1024, 4096, 8192, 16384)
+RD_ROWS = (4, 11, 24)
+RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extremes")
+# (key rows, slot lanes) of the main path: its 18 jobs' capacities are
+# 512 to 4096 lanes, 2048 and 4096 the most common; the whole trace's
+# reach 8192
+RD_TIMED = ((11, 2048), (11, 4096), (11, 8192))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
 # rate outside the tensor cores (the table's fp32 entry; the kernel's
@@ -107,6 +134,59 @@ def sm_smem_bound_us(n: int, sm_clock_hz: float) -> float:
     (two 12-byte lanes read and written per compare-exchange) at one SM's
     shared-memory bandwidth."""
     return compare_exchanges(n) * 4 * 12 / (SMEM_BYTES_PER_CLOCK * sm_clock_hz) * 1e6
+
+
+def rd_card_bound_ms(n_rows: int, n_lanes: int) -> tuple[float, str]:
+    """Least time for one strip on the whole card: the key block and the
+    sizes read once, the takes and the permutation written once, over
+    HBM; or, at most, R + 1 word compares and 3 selects per
+    compare-exchange over the card's 32-bit rate (a compare stops at the
+    first row that differs, so the data may need fewer)."""
+    nbytes = (n_rows + 1) * n_lanes * 4 + 8 * n_lanes + 4
+    ops = compare_exchanges(n_lanes) * (n_rows + 1 + 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_32BIT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rd_network_traffic(keys: np.ndarray) -> tuple[np.ndarray, int, int]:
+    """Run the kernel's bitonic network on the host over one key block:
+    the permutation it yields, the key rows its compares read (each
+    compare stops at the first row that differs, the lane index breaking
+    a full tie) and its swaps — the data-dependent work of one strip."""
+    n_rows, n = keys.shape
+    idx = np.arange(n)
+    i = np.arange(n // 2)
+    rows_read = swaps = 0
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
+            hi = lo + j
+            a, c = idx[lo], idx[hi]
+            diff = keys[:, a] != keys[:, c]
+            some = diff.any(0)
+            first = np.where(some, diff.argmax(0), n_rows - 1)
+            rows_read += int((first + 1).sum())
+            gt = np.where(some, keys[first, a] > keys[first, c], a > c)
+            swap = gt == ((lo & k) == 0)
+            swaps += int(swap.sum())
+            idx[lo[swap]], idx[hi[swap]] = c[swap], a[swap]
+            j //= 2
+        k *= 2
+    return idx, rows_read, swaps
+
+
+def rd_sm_smem_bound_us(
+    n_lanes: int, rows_read: int, swaps: int, sm_clock_hz: float
+) -> float:
+    """The one-block design's own floor with the keys staged in shared
+    memory: two lane indices read per compare-exchange, two key words per
+    row compared, two indices written per swap, at one SM's
+    shared-memory bandwidth."""
+    nbytes = 8 * compare_exchanges(n_lanes) + 8 * rows_read + 8 * swaps
+    return nbytes / (SMEM_BYTES_PER_CLOCK * sm_clock_hz) * 1e6
 
 
 # ---- inputs ------------------------------------------------------------------
@@ -160,6 +240,55 @@ def main_path_rows(rng: np.random.Generator, n: int, bsz: int):
     d = rng.integers(100, 5000, bsz).astype(np.int32)
     dev = torch.device("cuda")
     return tuple(torch.from_numpy(x).to(dev) for x in (b, w, d))
+
+
+def rd_block(rng: np.random.Generator, n_rows: int, n_lanes: int, case: str):
+    """A strip key block (masked -count, alt, packed words, group), member
+    counts and a quota, on the card, for the kernel-vs-plain check."""
+    keys = rng.integers(0, 4, (n_rows, n_lanes)).astype(np.int32)
+    keys[0] = np.where(rng.random(n_lanes) < 0.3, -rng.integers(2, 5, n_lanes), rdk.BIG)
+    size = rng.integers(0, 30, n_lanes).astype(np.int32)
+    quota = np.array([rng.integers(1, 200)], np.int32)
+    if case == "ties":  # every key row equal: only the lane breaks ties
+        keys[:] = keys[:, :1]
+        keys[0] = -3
+    elif case == "no-candidates":
+        keys[0] = rdk.BIG
+    elif case == "quota-past-total":
+        quota[0] = int(size.sum()) + 1000
+    elif case == "int32-extremes":
+        top = np.iinfo(np.int32).max - rng.integers(0, 3, (n_rows - 1, n_lanes))
+        bottom = np.iinfo(np.int32).min + rng.integers(0, 3, (n_rows - 1, n_lanes))
+        keys[1:] = np.where(rng.random((n_rows - 1, n_lanes)) < 0.5, top, bottom)
+    dev = torch.device("cuda")
+    return [torch.from_numpy(x).to(dev) for x in (keys, size, quota)]
+
+
+def rd_main_path_block(rng: np.random.Generator, n_rows: int, n_lanes: int):
+    """A key block shaped like a mid-run strip of the 4096-server path:
+    a quarter of the slots allocated (8-12 holders each), 5 % of those
+    candidates; unallocated slots carry the pad row (all ids M), the
+    sentinel alt and group 0, as ``rd_torch`` builds them."""
+    a_pad = 2 * (n_rows - 3)
+    holders = np.full((n_lanes, a_pad), M_SERVERS, np.int64)
+    n_alloc = n_lanes // 4
+    for r in range(n_alloc):
+        width = int(rng.integers(8, 13))
+        holders[r, :width] = np.sort(rng.choice(M_SERVERS, width, replace=False))
+    packed = (holders[:, 0::2] << 15) | holders[:, 1::2]
+    cnt = (holders < M_SERVERS).sum(1)
+    cand = (np.arange(n_lanes) < n_alloc) & (rng.random(n_lanes) < 0.05)
+    keys = np.empty((n_rows, n_lanes), np.int64)
+    keys[0] = np.where(cand, -cnt, rdk.BIG)
+    keys[1] = np.where(np.arange(n_lanes) < n_alloc, rng.integers(0, 300, n_lanes), rdk.BIG)
+    keys[2:-1] = packed.T
+    keys[-1] = np.where(np.arange(n_lanes) < n_alloc, rng.integers(0, 9, n_lanes), 0)
+    size = np.where(np.arange(n_lanes) < n_alloc, rng.integers(1, 200, n_lanes), 0)
+    dev = torch.device("cuda")
+    return keys.astype(np.int32), [
+        torch.from_numpy(x.astype(np.int32)).to(dev)
+        for x in (keys, size, np.array([4]))
+    ]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -259,14 +388,17 @@ def phase_kernels(seed: int) -> dict[str, int]:
     return worst
 
 
-def phase_main_path(seed: int) -> tuple[list, dict]:
-    jobs = generate(
+def main_path_trace(seed: int) -> list:
+    return generate(
         "bursty",
         n_servers=M_SERVERS,
         n_jobs=N_JOBS,
         total_tasks=TOTAL_TASKS,
         seed=seed,
     )
+
+
+def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
     bursts = bursts_of(jobs)
     n_arrivals = sum(len(b) for b in bursts)
     launches = {"waterlevel": 0, "waterlevel_batch": 0}
@@ -342,6 +474,224 @@ def phase_main_path(seed: int) -> tuple[list, dict]:
     return bursts, launches
 
 
+def phase_rd_kernel(seed: int) -> int:
+    """The RD strip kernel vs its plain version on identical inputs;
+    returns the max abs error over both outputs."""
+    rng = np.random.default_rng(seed + 3)
+    worst = 0
+    for n_lanes in RD_LANES:
+        for n_rows in RD_ROWS:
+            for case in RD_CASES:
+                args = rd_block(rng, n_rows, n_lanes, case)
+                got = rdk.rd_strip_takes(*args)
+                want = rdk.rd_strip_takes_plain(*args)
+                torch.cuda.synchronize()
+                err = max(
+                    int((g.long() - p.long()).abs().max()) for g, p in zip(got, want)
+                )
+                worst = max(worst, err)
+                if err != 0:
+                    raise AssertionError(
+                        f"rd_strip disagrees with its plain version: C={n_lanes} "
+                        f"R={n_rows} case={case} max_abs_err={err}"
+                    )
+    emit({
+        "phase": "rd_kernel",
+        "held": ["rd_strip"],
+        "tolerance": 0,
+        "cases": len(RD_LANES) * len(RD_ROWS) * len(RD_CASES),
+        "lanes": list(RD_LANES),
+        "key_rows": list(RD_ROWS),
+        "kinds": list(RD_CASES),
+        "max_abs_err": worst,
+    })
+    return worst
+
+
+def phase_rd_main_path(jobs: list) -> tuple[int, list]:
+    """``rd_torch`` in the engine on the trace's first jobs, against the
+    host ``rd``; returns the strip kernel's launches and the bursts the
+    chain admitted (their problems, as the engine handed them over)."""
+    head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:RD_JOBS]
+    zeros = np.zeros(M_SERVERS, np.int64)
+    capacities = [
+        rd_torch.rd_slot_capacity(AssignmentProblem(busy=zeros, mu=j.mu, groups=j.groups))
+        for j in head
+    ]
+    reduced = {
+        "jobs": f"the first {RD_JOBS} of {N_JOBS} jobs: in eager PyTorch each "
+        "strip is one Python iteration of ~100 device ops and one kernel "
+        "launch, and the whole trace needs ~12M strips, past the run's "
+        "time limit",
+        "orderings": "no ocwf-acc: each rescan re-runs RD for every "
+        "outstanding candidate",
+    }
+    per_arrival_cut = {
+        "per_arrival_jobs": f"the first {RD_PER_ARRIVAL_JOBS} jobs (the first "
+        "burst) again one arrival at a time, to drive the per-problem "
+        "adapter within the time limit",
+    }
+    admitted: list[list] = []
+    policy = make_policy("rd_torch")
+    chain = policy.batch_assigner
+
+    def recorded_chain(problems: list) -> list:
+        admitted.append(problems)
+        return chain(problems)
+
+    policy = dataclasses.replace(policy, batch_assigner=recorded_chain)
+    launches = 0
+    for label, sub, batched in (
+        ("chain", head, True),
+        ("per_arrival", head[:RD_PER_ARRIVAL_JOBS], False),
+    ):
+        t_phase = time.perf_counter()
+        torch.cuda.synchronize()
+        rdk.reset_counts()
+        rd_torch.reset_counts()
+        wl.reset_counts()
+        t0 = time.perf_counter()
+        dev = SchedulingEngine(M_SERVERS, policy, batch_arrivals=batched).run(sub)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(rdk.COUNTS)
+        reruns = rd_torch.COUNTS["host_reruns"]
+        peaks = list(rd_torch.SLOT_PEAKS)
+        t0 = time.perf_counter()
+        host = SchedulingEngine(M_SERVERS, make_policy("rd")).run(sub)
+        host_wall = time.perf_counter() - t0
+        identical = (
+            dev.jct == host.jct
+            and dev.makespan == host.makespan
+            and dev.failed_jobs == host.failed_jobs
+        )
+        strips = counts["rd_strip"]
+        emit({
+            "phase": "rd_main_path",
+            "seconds": time.perf_counter() - t_phase,
+            "admission": label,
+            "ordering": "fifo",
+            "servers": M_SERVERS,
+            "jobs": len(sub),
+            "tasks": sum(j.n_tasks for j in sub),
+            "bursts": len(bursts_of(sub)),
+            "slot_capacities": capacities[: len(sub)],
+            # (capacity, most slots live at once) per job the device solved
+            "slot_peaks": peaks,
+            "max_slot_fill": max(peak / c for c, peak in peaks) if peaks else None,
+            "mean_jct": dev.mean_jct,
+            "makespan": dev.makespan,
+            "failed_jobs": len(dev.failed_jobs),
+            "engine_wall_s": wall,
+            "host_rd_wall_s": host_wall,
+            "launches": counts,
+            "host_reruns": reruns,
+            "strips_per_arrival": strips / len(sub),
+            "host_wall_per_strip_ms": wall / strips * 1e3 if strips else None,
+            "identical_to_host_rd": identical,
+            "reduced": reduced if batched else {**reduced, **per_arrival_cut},
+        })
+        if not identical:
+            raise AssertionError(f"rd_torch ({label}) schedule differs from host rd")
+        if sorted(c for c, _ in peaks) != sorted(capacities[: len(sub)]):
+            raise AssertionError(f"rd main path ({label}): slot peaks {peaks}")
+        if strips == 0 or counts["plain"] != 0 or reruns != 0:
+            raise AssertionError(
+                f"rd main path ({label}) went around the kernel: {counts}, "
+                f"{reruns} host re-runs"
+            )
+        launches += strips
+    return launches, admitted
+
+
+def phase_rd_timings(seed: int, admitted: list, sm_clock_hz: float) -> dict:
+    rng = np.random.default_rng(seed + 4)
+    props = torch.cuda.get_device_properties(0)
+    smem_optin = getattr(props, "shared_memory_per_block_optin", 232_448)
+    rows = []
+    by_shape = {}
+    for n_rows, n_lanes in RD_TIMED:
+        host_keys, (k, s, q) = rd_main_path_block(rng, n_rows, n_lanes)
+
+        def kernel():
+            return rdk.rd_strip_takes(k, s, q)
+
+        def plain():
+            return rdk.rd_strip_takes_plain(k, s, q)
+
+        # interleaved kernel, plain, plain, kernel on the same inputs
+        k1 = cuda_ms(kernel, 100)
+        p1 = cuda_ms(plain, 100)
+        p2 = cuda_ms(plain, 100)
+        k2 = cuda_ms(kernel, 100)
+        perm, rows_read, swaps = rd_network_traffic(host_keys)
+        if not np.array_equal(perm, kernel()[1].cpu().numpy()):
+            raise AssertionError("host replay of the network differs from the kernel")
+        bound, bound_by = rd_card_bound_ms(n_rows, n_lanes)
+        staged = (n_rows + 2) * n_lanes * 4 <= smem_optin - 1024
+        row = {
+            "key_rows": n_rows,
+            "n_lanes": n_lanes,
+            "kernel_ms": (k1 + k2) / 2,
+            "kernel_ms_runs": [k1, k2],
+            "plain_ms": (p1 + p2) / 2,
+            "plain_ms_runs": [p1, p2],
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "keys_in_shared_memory": staged,
+            "mean_rows_per_compare": rows_read / compare_exchanges(n_lanes),
+            "swaps": swaps,
+            # the keys-in-shared-memory floor; without staging the keys
+            # come from L2 and this counts only the index traffic's share
+            "sm_smem_bound_ms": rd_sm_smem_bound_us(
+                n_lanes, rows_read if staged else 0, swaps, sm_clock_hz
+            ) / 1e3,
+        }
+        rows.append(row)
+        by_shape[(n_rows, n_lanes)] = row
+
+    # a chain of the main path's problems, as the engine handed them over
+    # (one pre-burst busy vector): host wall, then the same call under the
+    # profiler for device time
+    problems = admitted[RD_PROFILED_BURST][RD_PROFILED_JOBS]
+    rdk.reset_counts()
+    rd_torch.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = rd_torch.replica_deletion_torch_chain(problems)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    strips = rdk.COUNTS["rd_strip"]
+    if rd_torch.COUNTS["host_reruns"]:
+        raise AssertionError("the profiled burst re-ran on the host")
+    for a, b in zip(got, host_commit_walk(problems)):
+        if a.alloc != b.alloc or a.phi != b.phi:
+            raise AssertionError("replica_deletion_torch_chain differs from host rd")
+    t0 = time.perf_counter()
+    device = profile_device_us(
+        lambda: rd_torch.replica_deletion_torch_chain(problems), cpu_ops=False
+    )
+    profile_s = time.perf_counter() - t0
+    device_ms = {key: v / 1e3 for key, v in device.items()}
+    total = sum(device_ms.values())
+    emit({
+        "phase": "rd_timings",
+        "kernels": rows,
+        "chain": f"burst {RD_PROFILED_BURST + 1}, jobs "
+        f"{RD_PROFILED_JOBS.start + 1}-{RD_PROFILED_JOBS.stop}",
+        "chain_jobs": len(problems),
+        "profile_s": profile_s,
+        "chain_ms": wall_ms,
+        "chain_strips": strips,
+        "chain_ms_per_strip": wall_ms / strips,
+        "chain_device_ms": total,
+        "chain_device_busy_share": total / wall_ms if total else None,
+        "chain_device_ms_by_kernel": dict(
+            sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
+        ),
+    })
+    return by_shape
+
+
 def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
     rng = np.random.default_rng(seed + 2)
     rows = []
@@ -411,13 +761,18 @@ def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
     return by_shape
 
 
-def profile_device_us(fn) -> dict[str, float]:
+def profile_device_us(fn, cpu_ops: bool = True) -> dict[str, float]:
     """Device time per kernel name (µs) over one run of ``fn``, from
-    ``torch.profiler``; empty when the profiler records no device time."""
+    ``torch.profiler``; empty when the profiler records no device time.
+    ``cpu_ops=False`` leaves the host-side op events out (a third of the
+    events to record and aggregate)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if cpu_ops:
+        activities.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     out: dict[str, float] = {}
@@ -435,12 +790,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.cuda.set_device(0)
     dev = phase_device()
     phase_build()
     worst = phase_kernels(args.seed)
-    bursts, launches = phase_main_path(args.seed)
-    timed = phase_timings(args.seed, bursts, dev["max_sm_clock_mhz"] * 1e6)
+    rd_worst = phase_rd_kernel(args.seed)
+    jobs = main_path_trace(args.seed)
+    bursts, launches = phase_main_path(args.seed, jobs)
+    rd_launches, rd_admitted = phase_rd_main_path(jobs)
+    sm_clock_hz = dev["max_sm_clock_mhz"] * 1e6
+    timed = phase_timings(args.seed, bursts, sm_clock_hz)
+    rd_timed = phase_rd_timings(args.seed, rd_admitted, sm_clock_hz)
     source = "src/repro_torch/kernels/csrc/waterlevel.cu"
     summary = []
     for name, replaces, shape in (
@@ -461,6 +822,23 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes this function
         })
+    row = rd_timed[(11, 4096)]
+    summary.append({
+        "name": "rd_strip",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rd_strip.cu",
+        "replaces": "src/repro/kernels/rd.py:194",
+        "launches": rd_launches,
+        "max_abs_err": rd_worst,
+        "ms": row["kernel_ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        # no single PyTorch call computes a multi-key lexsort with a
+        # masked prefix clamp
+        "library_ms": None,
+    })
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)
     emit({

@@ -1,13 +1,18 @@
-"""Task assignment for the port: the paper's WF and the job orderings.
+"""Task assignment for the port: the paper's WF and RD, and the orderings.
 
 - :func:`water_filling` — the host K_c-approximate water-filling (a copy
   of the reference's, the oracle the device path is held against);
 - :mod:`repro_torch.core.wf_torch` — water-filling with the water level
   on the card (registered as ``wf_torch``);
+- :func:`replica_deletion` — the host Replica-Deletion (registered as
+  ``rd``; the oracle of the device RD);
+- :mod:`repro_torch.core.rd_torch` — Replica-Deletion with its strips on
+  the card (registered as ``rd_torch``);
 - :func:`reorder_schedule` — OCWF / OCWF-ACC job reordering.
 
 ``instance``, ``waterlevel``, ``bounds``, ``wf`` and ``reorder`` are
-copies of the reference's modules of the same names.
+copies of the reference's modules of the same names; ``rd`` is a copy
+of the host parts of the reference's ``rd``.
 """
 
 from .. import registry
@@ -26,6 +31,7 @@ from .reorder import (
     priority_schedule,
     reorder_schedule,
 )
+from .rd import replica_deletion
 from .waterlevel import water_fill_alloc, water_level
 from .wf import water_filling, wf_phi
 
@@ -44,15 +50,32 @@ def _wf_torch_chain(problems: list[AssignmentProblem]) -> list[Assignment]:
     return water_filling_torch_chain(problems)
 
 
+def _rd_torch(problem: AssignmentProblem) -> Assignment:
+    """Lazy import so the host algorithms load without the device path."""
+    from .rd_torch import replica_deletion_torch
+
+    return replica_deletion_torch(problem)
+
+
+def _rd_torch_chain(problems: list[AssignmentProblem]) -> list[Assignment]:
+    """Lazy import so the host algorithms load without the device path."""
+    from .rd_torch import replica_deletion_torch_chain
+
+    return replica_deletion_torch_chain(problems)
+
+
 # module-level views of the registry's own storage
 ALGORITHMS = registry.kind_dict("algorithm")
 BATCH_ALGORITHMS = registry.kind_dict("batch_algorithm")
 
 registry.register("algorithm", "wf", water_filling, overwrite=True)
 registry.register("algorithm", "wf_torch", _wf_torch, overwrite=True)
-# a native many-problems admission path: one call places a whole
+registry.register("algorithm", "rd", replica_deletion, overwrite=True)
+registry.register("algorithm", "rd_torch", _rd_torch, overwrite=True)
+# native many-problems admission paths: one call places a whole
 # same-slot burst with eq. 2 commits between jobs
 registry.register("batch_algorithm", "wf_torch", _wf_torch_chain, overwrite=True)
+registry.register("batch_algorithm", "rd_torch", _rd_torch_chain, overwrite=True)
 
 __all__ = [
     "ALGORITHMS",
@@ -70,6 +93,7 @@ __all__ = [
     "commit_busy",
     "priority_schedule",
     "reorder_schedule",
+    "replica_deletion",
     "water_fill_alloc",
     "water_level",
     "water_filling",

@@ -150,6 +150,14 @@ def test_port_source_imports_neither_jax_nor_repro(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def test_isolation_checks_cover_the_rd_slice():
+    """The RD slice's modules and kernel source are among the files the
+    import checks above and below walk."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    assert {"core/rd.py", "core/rd_torch.py", "kernels/rd.py"} <= walked
+    assert (PORT / "kernels" / "csrc" / "rd_strip.cu").is_file()
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     for node in ast.walk(tree):
@@ -214,7 +222,18 @@ def test_entry_point_without_a_cpu_scope_does_not_run_on_the_cpu():
         "    raise SystemExit('ran without a device')\n"
         "with backend.set_backend(device='cpu'):\n"
         "    assert water_filling_torch(p).alloc == [{0: 2, 1: 1}]\n"
+        "from repro_torch.core.rd_torch import replica_deletion_torch\n"
+        "try:\n"
+        "    replica_deletion_torch(p)\n"
+        "except (AssertionError, RuntimeError) as exc:\n"
+        "    print('rd refused:', exc)\n"
+        "else:\n"
+        "    raise SystemExit('rd ran without a device')\n"
+        "with backend.set_backend(device='cpu'):\n"
+        "    from repro_torch.core.rd import replica_deletion\n"
+        "    assert replica_deletion_torch(p).alloc == replica_deletion(p).alloc\n"
     )
     out = _run_port(code)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "refused:" in out.stdout
+    assert "rd refused:" in out.stdout
