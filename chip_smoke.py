@@ -24,8 +24,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the first burst again one arrival at a time), each schedule identical
    to the host ``rd``, with no plain strip and no host re-run, and the
    most slots each job held live against its slot capacity;
-7. timings — CUDA-event times of the kernels and their plain versions,
-   the chained burst admissions' wall times and device busy shares.
+7. model kernels — the RMSNorm, decode-attention and flash-attention
+   kernels against their plain versions on the card, in float32 and
+   bfloat16, at the serving path's shapes, at Qwen3-32B's head layout
+   (64 query / 8 KV heads) and at ragged lengths;
+8. serve parity — the port's ``ServeEngine`` on the card (kernels)
+   against the port on the CPU (plain versions) on both smoke configs in
+   float32: identical tokens, and the logits' largest difference;
+9. serve main path — Qwen1.5-4B at full width (40 layers, bf16, random
+   seeded weights): two ``ServeEngine`` replicas behind
+   ``RoutedServePool`` with ``ReplicaRouter(policy="wf_torch")`` serve
+   16 requests; every request finishes with its 32 tokens, through the
+   kernels, with no plain call;
+10. prefill path — ``make_prefill_step`` on 4 prompts of 2048 tokens,
+    one decode step from its cache, held against a prefill over the 2049
+    tokens;
+11. model timings — CUDA-event times of the three kernels, their plain
+    versions and one PyTorch library call each, with their bounds;
+12. timings — CUDA-event times of the scheduler kernels and their plain
+    versions, the chained burst admissions' wall times and device busy
+    shares.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
@@ -35,6 +53,7 @@ the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import subprocess
@@ -49,13 +68,26 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch.backend import set_backend  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import AssignmentProblem, water_filling  # noqa: E402
 from repro_torch.core import rd_torch, wf_torch  # noqa: E402
 from repro_torch.core.rd import host_commit_walk  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as dak  # noqa: E402
+from repro_torch.kernels import flash_attention as fak  # noqa: E402
 from repro_torch.kernels import rd as rdk  # noqa: E402
+from repro_torch.kernels import rmsnorm as rnk  # noqa: E402
 from repro_torch.kernels import waterlevel as wl  # noqa: E402
+from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.runtime import SchedulingEngine, make_policy  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    ReplicaRouter,
+    Request,
+    RoutedServePool,
+    ServeEngine,
+    make_prefill_step,
+)
 from repro_torch.traces import generate  # noqa: E402
 
 # main-path configuration: ~4,000 machines as in Alibaba's
@@ -87,11 +119,33 @@ RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extrem
 # reach 8192
 RD_TIMED = ((11, 2048), (11, 4096), (11, 8192))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the 32-bit
-# rate outside the tensor cores (the table's fp32 entry; the kernel's
-# arithmetic is 32-bit integer, which issues no faster)
+# the serving main path: Qwen1.5-4B (the launcher's default arch) at full
+# width, two replicas of 4 slots and 1024 positions each
+SERVE_ARCH = "qwen1.5-4b"
+SERVE_REPLICAS = 2
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 1024
+SERVE_REQUESTS = 16
+SERVE_PROMPT = (32, 256)  # prompt lengths drawn in [32, 256]
+SERVE_NEW = 32
+# the prefill path: 4 prompts of 2048 tokens, cache room for 128 more
+PREFILL_BATCH = 4
+PREFILL_LEN = 2048
+PREFILL_MAX_LEN = 2176
+# largest |prefill-over-S+1 - decode-from-prefill| logit over the logits'
+# largest magnitude, in bf16 over 40 layers (set from measured runs)
+PREFILL_REL_TOL = 0.05
+# kernel-vs-plain tolerances: float32 sums in another order; bfloat16 2e-2
+# plus one bfloat16 rounding step of the value
+MODEL_TOL = {"float32": (5e-5, 0.0), "bfloat16": (2e-2, 2**-7)}
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
+# outside the tensor cores (the table's fp32 entry; the scheduler
+# kernels' arithmetic is 32-bit integer, which issues no faster), and the
+# dense bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 PEAK_32BIT_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
 SMEM_BYTES_PER_CLOCK = 128  # one SM's shared-memory bandwidth
 OPS_PER_COMPARE_EXCHANGE = 3  # one 64-bit compare, two selects
 OPS_PER_LANE = 12  # scans, ceiling division, segment test, caps, clamp
@@ -783,6 +837,412 @@ def profile_device_us(fn, cpu_ops: bool = True) -> dict[str, float]:
     return out
 
 
+# ---- the dense model: kernels, serving and prefill ---------------------------
+
+
+def _model_counts() -> dict[str, dict[str, int]]:
+    return {
+        "rmsnorm": dict(rnk.COUNTS),
+        "decode_attention": dict(dak.COUNTS),
+        "flash_attention": dict(fak.COUNTS),
+        "waterlevel": dict(wl.COUNTS),
+    }
+
+
+def _reset_model_counts() -> None:
+    for mod in (rnk, dak, fak, wl):
+        mod.reset_counts()
+
+
+def _randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+
+
+def _model_err(got: torch.Tensor, want: torch.Tensor, dtype_name: str) -> tuple[float, bool]:
+    """Largest |kernel - plain| and whether every element is within the
+    dtype's tolerance (atol + rtol * |plain|)."""
+    atol, rtol = MODEL_TOL[dtype_name]
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    return float(diff.max()), ok
+
+
+def phase_model_kernels(seed: int) -> dict[str, float]:
+    """K4, K5 and K6 against their plain versions on the card; returns the
+    largest error per kernel (each case also within its tolerance)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    cfg = get_config(SERVE_ARCH)
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q3 = get_config("qwen3-32b")
+    worst = {"rmsnorm": 0.0, "decode_attention": 0.0, "flash_attention": 0.0}
+    cases = []
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for label, shape in (
+            ("decode rows", (SERVE_SLOTS, 1, d)),
+            ("prefill rows", (PREFILL_BATCH, PREFILL_LEN, d)),
+            ("qk-norm rows", (PREFILL_BATCH, 2049, q3.n_heads, q3.head_dim_)),
+            ("tail rows", (3, 7, 1000)),
+        ):
+            x, g = _randn(gen, shape, dt), _randn(gen, shape[-1:], dt)
+            err, ok = _model_err(rnk.rmsnorm(x, g, cfg.norm_eps),
+                                 rnk.rmsnorm_plain(x, g, cfg.norm_eps), dtype_name)
+            cases.append({"kernel": "rmsnorm", "case": label, "shape": list(shape),
+                          "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+        for label, (b, nh, nkv, t, dh) in (
+            ("serve", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd)),
+            ("qwen3-32b heads", (SERVE_SLOTS, q3.n_heads, q3.n_kv_heads, SERVE_MAX_LEN,
+                                 q3.head_dim_)),
+            ("tail T=1000", (3, h, hkv, 1000, hd)),
+        ):
+            q = _randn(gen, (b, nh, dh), dt)
+            k, v = _randn(gen, (b, nkv, t, dh), dt), _randn(gen, (b, nkv, t, dh), dt)
+            pos = torch.randint(0, t, (b,), generator=gen, device="cuda", dtype=torch.int32)
+            pos[0] = 0
+            pos[-1] = t - 1
+            err, ok = _model_err(dak.decode_attention(q, k, v, pos),
+                                 dak.decode_attention_plain(q, k, v, pos), dtype_name)
+            cases.append({"kernel": "decode_attention", "case": label,
+                          "shape": [b, nh, nkv, t, dh], "dtype": dtype_name,
+                          "max_abs_err": err, "ok": ok})
+        for label, (b, nh, nkv, sl, dh), causal in (
+            ("prefill", (PREFILL_BATCH, h, hkv, PREFILL_LEN, hd), True),
+            ("qwen3-32b heads", (1, q3.n_heads, q3.n_kv_heads, 1024, q3.head_dim_), True),
+            ("tail S=2049", (1, h, hkv, PREFILL_LEN + 1, hd), True),
+            ("tail S=2049, not causal", (1, h, hkv, PREFILL_LEN + 1, hd), False),
+        ):
+            q = _randn(gen, (b, nh, sl, dh), dt)
+            k, v = _randn(gen, (b, nkv, sl, dh), dt), _randn(gen, (b, nkv, sl, dh), dt)
+            err, ok = _model_err(fak.flash_attention(q, k, v, causal=causal),
+                                 fak.flash_attention_plain(q, k, v, causal=causal),
+                                 dtype_name)
+            cases.append({"kernel": "flash_attention", "case": label,
+                          "shape": [b, nh, nkv, sl, dh], "causal": causal,
+                          "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+    torch.cuda.synchronize()
+    for c in cases:
+        worst[c["kernel"]] = max(worst[c["kernel"]], c["max_abs_err"])
+    emit({
+        "phase": "model_kernels",
+        "held": list(worst),
+        "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in MODEL_TOL.items()},
+        "cases": cases,
+        "max_abs_err": worst,
+    })
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"model kernels disagree with their plain versions: {bad}")
+    return worst
+
+
+def phase_serve_parity(seed: int) -> None:
+    """Both smoke configs in float32, the same seeded weights: the port's
+    ServeEngine on the card against the port on the CPU."""
+    rows = []
+    for arch in ("qwen1.5-4b", "qwen3-32b"):
+        cfg = get_smoke_config(arch)
+        with set_backend(device="cpu"):
+            cpu_params = init_params(torch.Generator().manual_seed(seed), cfg)
+        rng = np.random.default_rng(seed + 20)
+        reqs = [(i, rng.integers(1, cfg.vocab, int(rng.integers(2, 40))).astype(np.int32),
+                 int(rng.integers(4, 12))) for i in range(6)]
+        prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 150)).astype(np.int32))
+        steps = [torch.from_numpy(rng.integers(1, cfg.vocab, (2, 1)).astype(np.int32))
+                 for _ in range(4)]
+        tokens, logits = {}, {}
+        for dev in ("cpu", "cuda"):
+            params = cpu_params if dev == "cpu" else copy.deepcopy(cpu_params).to(dev)
+            with set_backend(device=dev):
+                _reset_model_counts()
+                eng = ServeEngine(params, cfg, batch_slots=2, max_len=256, eos_token=-1)
+                for rid, p, n in reqs:
+                    eng.submit(Request(rid, p.copy(), max_new_tokens=n))
+                done = []
+                while len(done) < len(reqs):
+                    done += eng.step()
+                tokens[dev] = {r.request_id: r.generated for r in done}
+                out, cache = prefill(params, cfg, {"tokens": prompt.to(dev)}, max_len=160)
+                got = [out]
+                for tok in steps:
+                    out, cache = decode_step(params, cfg, tok.to(dev), cache)
+                    got.append(out)
+                logits[dev] = torch.cat([x.cpu() for x in got], 1)
+                counts = _model_counts()
+            if dev == "cuda":
+                card_counts = counts
+        err = float((logits["cuda"] - logits["cpu"]).abs().max())
+        identical = tokens["cuda"] == tokens["cpu"]
+        rows.append({"arch": arch, "requests": len(reqs), "identical_tokens": identical,
+                     "max_abs_logit_err": err, "card_launches": card_counts})
+        if not identical:
+            raise AssertionError(f"{arch}: tokens on the card differ from the CPU")
+        for name in ("rmsnorm", "decode_attention", "flash_attention"):
+            if card_counts[name][name] == 0 or card_counts[name]["plain"] != 0:
+                raise AssertionError(f"{arch}: serve parity on the card bypassed {name}")
+    emit({"phase": "serve_parity", "dtype": "float32", "rows": rows})
+
+
+def phase_serve_main_path(seed: int) -> tuple[dict, object]:
+    """Qwen1.5-4B at full width behind a WF-routed pool of two replicas."""
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engines = {
+        i: ServeEngine(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       eos_token=-1)
+        for i in range(SERVE_REPLICAS)
+    }
+    rng = np.random.default_rng(seed + 30)
+    reqs = [
+        Request(i, rng.integers(1, cfg.vocab, int(rng.integers(SERVE_PROMPT[0],
+                                                               SERVE_PROMPT[1] + 1))
+                                ).astype(np.int32), max_new_tokens=SERVE_NEW)
+        for i in range(SERVE_REQUESTS)
+    ]
+    torch.cuda.synchronize()
+    _reset_model_counts()
+    t0 = time.perf_counter()
+    pool = RoutedServePool(engines, ReplicaRouter(SERVE_REPLICAS, policy="wf_torch"))
+    replicas = [pool.submit(r) for r in reqs]
+    done, slots = [], 0
+    while pool.busy():
+        done += pool.step()
+        slots += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _model_counts()
+    steps = counts["decode_attention"]["decode_attention"] // cfg.n_layers
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    new_tokens = sum(len(r.generated) for r in done)
+    emit({
+        "phase": "serve_main_path",
+        "arch": SERVE_ARCH,
+        "layers": cfg.n_layers,
+        "dtype": cfg.dtype,
+        "params": sum(p.numel() for p in params.parameters()),
+        "init_params_s": init_s,
+        "replicas": SERVE_REPLICAS,
+        "batch_slots": SERVE_SLOTS,
+        "max_len": SERVE_MAX_LEN,
+        "requests": len(reqs),
+        "prompt_tokens": prompt_tokens,
+        "replica_of_request": replicas,
+        "finished": len(done),
+        "new_tokens": new_tokens,
+        "pool_steps": slots,
+        "decode_steps": steps,
+        "wall_s": wall,
+        "new_tokens_per_s": new_tokens / wall,
+        "tokens_per_s": (prompt_tokens + new_tokens) / wall,
+        "ms_per_decode_step": wall / steps * 1e3 if steps else None,
+        "launches": counts,
+        "rmsnorm_per_step": counts["rmsnorm"]["rmsnorm"] / steps if steps else None,
+        "decode_attention_per_step": counts["decode_attention"]["decode_attention"] / steps
+        if steps else None,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "reduced": {"traffic": f"{SERVE_REQUESTS} requests, prompts "
+                    f"{SERVE_PROMPT[0]}-{SERVE_PROMPT[1]} tokens, {SERVE_NEW} new each"},
+    })
+    if len(done) != len(reqs) or any(len(r.generated) != SERVE_NEW for r in done):
+        raise AssertionError("serve main path: a request did not finish with its tokens")
+    if steps == 0 or any(counts[k][k] == 0 or counts[k]["plain"] != 0
+                         for k in ("rmsnorm", "decode_attention")):
+        raise AssertionError(f"serve main path went around the kernels: {counts}")
+    if counts["waterlevel"]["waterlevel"] == 0 or counts["waterlevel"]["plain"] != 0:
+        raise AssertionError(f"serve routing went around the water-level kernel: {counts}")
+    if counts["rmsnorm"]["rmsnorm"] != (2 * cfg.n_layers + 1) * steps:
+        raise AssertionError(f"serve main path: {counts['rmsnorm']} RMSNorm launches "
+                             f"for {steps} decode steps")
+    return counts, params
+
+
+def phase_decode_profile(params, seed: int) -> None:
+    """Where one decode step's time goes: host wall against device time
+    under torch.profiler, at the serving shape (4 slots, ~300 cached
+    positions)."""
+    cfg = get_config(SERVE_ARCH)
+    eng = ServeEngine(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      eos_token=-1)
+    eng._pos[:] = 300
+    tokens = torch.ones(SERVE_SLOTS, 1, dtype=torch.int32, device="cuda")
+    n = 5
+
+    def steps():
+        for _ in range(n):
+            decode_step(params, cfg, tokens, eng._with_pos())
+        torch.cuda.synchronize()
+
+    steps()  # warm up
+    t0 = time.perf_counter()
+    steps()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    device = profile_device_us(steps)
+    device_ms = {k: v / n / 1e3 for k, v in device.items()}
+    total = sum(device_ms.values())
+    emit({
+        "phase": "decode_profile",
+        "steps": n,
+        "step_wall_ms": wall_ms,
+        "step_device_ms": total,
+        "device_busy_share": total / wall_ms if total else None,
+        "step_device_ms_by_kernel": dict(
+            sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]
+        ),
+    })
+
+
+def phase_prefill_path(params, seed: int) -> dict:
+    """The batched prefill entry point at 2048 tokens (K6 + K4), one decode
+    step from its cache, held against a prefill over the 2049 tokens."""
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    toks = torch.randint(1, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    step = make_prefill_step(cfg, max_len=PREFILL_MAX_LEN)
+    torch.cuda.synchronize()
+    _reset_model_counts()
+    t0 = time.perf_counter()
+    _, cache = step(params, {"tokens": toks[:, :PREFILL_LEN]})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = _model_counts()
+    _reset_model_counts()
+    got, _ = decode_step(params, cfg, toks[:, PREFILL_LEN:], cache)
+    decode_counts = _model_counts()
+    del cache
+    _reset_model_counts()
+    want, _ = prefill(params, cfg, {"tokens": toks})
+    tail_counts = _model_counts()
+    got, want = got[:, 0].float(), want[:, 0].float()
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > PREFILL_REL_TOL * scale
+    agree = got.argmax(-1) == want.argmax(-1)
+    emit({
+        "phase": "prefill_path",
+        "batch": PREFILL_BATCH,
+        "prompt_len": PREFILL_LEN,
+        "max_len": PREFILL_MAX_LEN,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / prefill_s,
+        "launches": counts,
+        "decode_launches": decode_counts,
+        "check_prefill_launches": tail_counts,
+        "max_abs_logit": scale,
+        "max_rel_err": rel,
+        "tolerance": PREFILL_REL_TOL,
+        "argmax_agree": agree.tolist(),
+        "argmax_gap_clear": clear.tolist(),
+    })
+    if rel > PREFILL_REL_TOL or not bool(agree[clear].all()):
+        raise AssertionError("decode after prefill disagrees with prefill over S + 1")
+    for name in ("rmsnorm", "flash_attention"):
+        if counts[name][name] == 0 or counts[name]["plain"] != 0:
+            raise AssertionError(f"prefill path went around {name}: {counts}")
+    if tail_counts["flash_attention"]["flash_attention"] != cfg.n_layers:
+        raise AssertionError("the 2049-token prefill did not run K6 on every layer")
+    return counts
+
+
+def _bound(nbytes: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_ms_per_call(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` (every kernel it launches, summed,
+    without the gaps between launches), from ``torch.profiler``."""
+    fn()
+    device = profile_device_us(lambda: [fn() for _ in range(iters)], cpu_ops=False)
+    if not device:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sum(device.values()) / iters / 1e3
+
+
+def _time_three(kernel, plain, library, iters: int) -> dict:
+    """Kernel, plain version and library call on the same inputs: device
+    time per call under the profiler (the ``*_ms`` the summary reports),
+    and CUDA events over back-to-back calls, kernel, plain, library,
+    library, plain, kernel (``*_event_ms``: for a call shorter than its
+    host-side launch cost, this is the host's rate, not the card's)."""
+    k1 = cuda_ms(kernel, iters)
+    p1 = cuda_ms(plain, iters)
+    l1 = cuda_ms(library, iters)
+    l2 = cuda_ms(library, iters)
+    p2 = cuda_ms(plain, iters)
+    k2 = cuda_ms(kernel, iters)
+    return {
+        "kernel_ms": device_ms_per_call(kernel, iters),
+        "plain_ms": device_ms_per_call(plain, iters),
+        "library_ms": device_ms_per_call(library, iters),
+        "kernel_event_ms": [k1, k2],
+        "plain_event_ms": [p1, p2],
+        "library_event_ms": [l1, l2],
+    }
+
+
+def phase_model_timings(seed: int) -> dict:
+    """Times of K4/K5/K6 at the serving path's shapes in bf16 (device time
+    per call, and CUDA events), beside their plain versions, one PyTorch
+    call each and the bound:
+    bytes (each input read once, each output written once) over HBM, or
+    operations over the peak of their type (fp32 CUDA cores for the
+    norm's arithmetic, dense bf16 tensor cores for attention's products),
+    whichever is larger."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50)
+    cfg = get_config(SERVE_ARCH)
+    d, h, hkv, hd, eps = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.norm_eps
+    bf16 = torch.bfloat16
+    rows = {}
+    for label, n_rows in (("rmsnorm decode", 2 * SERVE_SLOTS), ("rmsnorm prefill",
+                                                                2 * PREFILL_BATCH * 1024)):
+        x, g = _randn(gen, (n_rows, d), bf16), _randn(gen, (d,), bf16)
+        t = _time_three(lambda: rnk.rmsnorm(x, g, eps), lambda: rnk.rmsnorm_plain(x, g, eps),
+                        lambda: F.rms_norm(x, (d,), g, eps), 200)
+        bound, by = _bound(2 * (2 * n_rows * d + d), 4 * n_rows * d, PEAK_32BIT_OPS_PER_S)
+        rows[label] = {"shape": [n_rows, d], **t, "bound_ms": bound, "bound_by": by}
+    b, t_len = SERVE_SLOTS, SERVE_MAX_LEN
+    q = _randn(gen, (b, h, hd), bf16)
+    k, v = _randn(gen, (b, hkv, t_len, hd), bf16), _randn(gen, (b, hkv, t_len, hd), bf16)
+    pos = torch.full((b,), t_len - 1, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    t = _time_three(
+        lambda: dak.decode_attention(q, k, v, pos),
+        lambda: dak.decode_attention_plain(q, k, v, pos),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        200,
+    )
+    keys = int(pos.sum()) + b  # the keys t <= pos this run reads
+    bound, by = _bound(2 * (2 * b * h * hd + 2 * keys * hkv * hd) + 4 * b,
+                       4 * keys * h * hd, PEAK_BF16_FLOPS)
+    rows["decode_attention"] = {"shape": [b, h, hkv, t_len, hd], **t, "bound_ms": bound,
+                                "bound_by": by}
+    b, s = PREFILL_BATCH, PREFILL_LEN
+    q = _randn(gen, (b, h, s, hd), bf16)
+    k, v = _randn(gen, (b, hkv, s, hd), bf16), _randn(gen, (b, hkv, s, hd), bf16)
+    t = _time_three(
+        lambda: fak.flash_attention(q, k, v, causal=True),
+        lambda: fak.flash_attention_plain(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        5,
+    )
+    pairs = b * h * s * (s + 1) // 2  # (query, key) pairs the causal mask keeps
+    bound, by = _bound(2 * (2 * b * h * s * hd + 2 * b * hkv * s * hd), 4 * pairs * hd,
+                       PEAK_BF16_FLOPS)
+    rows["flash_attention"] = {"shape": [b, h, hkv, s, hd], "causal": True, **t,
+                               "bound_ms": bound, "bound_by": by}
+    emit({"phase": "model_timings", "dtype": "bfloat16", "kernels": rows})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -799,6 +1259,15 @@ def main() -> int:
     jobs = main_path_trace(args.seed)
     bursts, launches = phase_main_path(args.seed, jobs)
     rd_launches, rd_admitted = phase_rd_main_path(jobs)
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity: full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    model_worst = phase_model_kernels(args.seed)
+    phase_serve_parity(args.seed)
+    serve_counts, params = phase_serve_main_path(args.seed)
+    phase_decode_profile(params, args.seed)
+    prefill_counts = phase_prefill_path(params, args.seed)
+    del params
+    model_timed = phase_model_timings(args.seed)
     sm_clock_hz = dev["max_sm_clock_mhz"] * 1e6
     timed = phase_timings(args.seed, bursts, sm_clock_hz)
     rd_timed = phase_rd_timings(args.seed, rd_admitted, sm_clock_hz)
@@ -838,6 +1307,29 @@ def main() -> int:
         # masked prefix clamp
         "library_ms": None,
     })
+    for name, replaces, row, launches in (
+        ("rmsnorm", "src/repro/kernels/rmsnorm.py:40", model_timed["rmsnorm decode"],
+         serve_counts["rmsnorm"]["rmsnorm"] + prefill_counts["rmsnorm"]["rmsnorm"]),
+        ("decode_attention", "src/repro/kernels/decode_attention.py:67",
+         model_timed["decode_attention"],
+         serve_counts["decode_attention"]["decode_attention"]),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:91",
+         model_timed["flash_attention"],
+         prefill_counts["flash_attention"]["flash_attention"]),
+    ):
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": model_worst[name],
+            "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+        })
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

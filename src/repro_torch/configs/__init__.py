@@ -1,0 +1,54 @@
+"""Architecture registry: ``get_config(arch_id)`` / ``ARCHS``.
+
+The port's counterpart of ``repro/configs``.  One module per
+architecture the port runs; each exports ``CONFIG`` (the exact published
+shape) and ``smoke_config()`` (a reduced same-family config for CPU
+tests).  So far the port runs the dense family; the reference's other
+architectures wait for the slice that ports their family, and asking
+for one raises a ``KeyError`` that names that slice.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+__all__ = ["ARCHS", "WAITING", "get_config", "get_smoke_config"]
+
+ARCHS = (
+    "qwen2.5-32b",
+    "qwen2-72b",
+    "qwen3-32b",
+    "qwen1.5-4b",
+)
+
+# the reference's other architectures, and the slice each waits for
+WAITING = {
+    "mamba2-130m": "the Mamba2 slice (models/ssm.py and the SSD scan kernel)",
+    "zamba2-2.7b": "the Mamba2 slice, then the zamba2 hybrid stack",
+    "qwen3-moe-235b-a22b": "the MoE family slice",
+    "deepseek-v3-671b": "the MLA + MoE family slice",
+    "llava-next-mistral-7b": "the VLM family slice",
+    "whisper-medium": "the encoder-decoder family slice",
+}
+
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
+
+
+def _module(arch: str):
+    if arch in WAITING:
+        raise KeyError(
+            f"arch {arch!r} is not ported yet: it waits for {WAITING[arch]}"
+        )
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
+    return importlib.import_module(f"{__name__}.{_MODULES[arch]}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

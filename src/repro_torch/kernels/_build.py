@@ -21,7 +21,8 @@ from pathlib import Path
 __all__ = ["BuildResult", "SOURCES", "build_all", "find_nvcc", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("waterlevel", "rd_strip")  # csrc/<name>.cu -> lib<name>-<hash>.so
+# csrc/<name>.cu -> lib<name>-<hash>.so
+SOURCES = ("waterlevel", "rd_strip", "rmsnorm", "decode_attention", "flash_attention")
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-O3",

@@ -1,0 +1,21 @@
+"""The model's entry points to its kernels.
+
+Counterpart of ``repro/kernels/ops.py``.  Each name is its kernel's
+wrapper: it launches the hand-written CUDA kernel for CUDA tensors (or
+raises) and takes the kernel's plain PyTorch version only for CPU
+tensors; there is no knob that routes a CUDA tensor elsewhere.
+
+- ``flash_attention(q, k, v, *, causal=True)``: q (B,H,S,hd), k/v
+  (B,Hkv,T,hd) → (B,H,S,hd);
+- ``decode_attention(q, k, v, pos)``: q (B,H,hd), k/v (B,Hkv,T,hd), pos
+  (B,) int32 → (B,H,hd);
+- ``rmsnorm_fused(x, g, eps=1e-6)``: RMSNorm over the last axis.
+"""
+
+from __future__ import annotations
+
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention
+from .rmsnorm import rmsnorm as rmsnorm_fused
+
+__all__ = ["decode_attention", "flash_attention", "rmsnorm_fused"]

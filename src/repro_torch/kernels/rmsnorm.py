@@ -1,0 +1,100 @@
+"""The RMSNorm kernel's wrapper, its plain PyTorch version, and counts.
+
+Counterpart of ``repro/kernels/rmsnorm.py``.  The TPU kernel
+``_rmsnorm_kernel`` (launched by ``rmsnorm_pallas`` over 128-row blocks)
+is ``csrc/rmsnorm.cu`` here: one warp per row for rows of width <= 1024,
+one block per row past that, any row count, built from source at first
+use (:mod:`._build`).
+
+Both functions compute ``x * rsqrt(mean(x**2, -1) + eps) * g`` with fp32
+math and the result cast back to ``x``'s dtype, over the last axis of
+``x`` of any shape; ``g`` has shape ``(d,)`` and ``x``'s dtype.
+
+- :func:`rmsnorm` launches the kernel for a CUDA tensor, or raises; it
+  takes the plain version only for a tensor on the CPU.
+- :func:`rmsnorm_plain` is the same function in plain PyTorch (the
+  port's copy of ``repro/kernels/ref.py::rmsnorm_ref``).
+
+``COUNTS`` holds plain integers: ``rmsnorm`` counts kernel launches,
+``plain`` counts calls of the plain version.  :func:`reset_counts`
+zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from ._tensors import check_device, check_dtype
+
+__all__ = ["COUNTS", "reset_counts", "rmsnorm", "rmsnorm_plain"]
+
+COUNTS = {"rmsnorm": 0, "plain": 0}
+
+
+def reset_counts() -> None:
+    for key in COUNTS:
+        COUNTS[key] = 0
+
+
+def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The kernel's function in plain PyTorch."""
+    COUNTS["plain"] += 1
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * g.float()).to(x.dtype)
+
+
+def _check(x: torch.Tensor, g: torch.Tensor) -> None:
+    if x.dim() < 1 or x.shape[-1] < 1 or x.numel() == 0:
+        raise ValueError(f"rmsnorm: x of shape {tuple(x.shape)} has no rows")
+    if g.shape != x.shape[-1:]:
+        raise ValueError(
+            f"rmsnorm: g of shape {tuple(g.shape)} does not match x's last "
+            f"axis {x.shape[-1]}"
+        )
+
+
+@functools.cache
+def _launcher():
+    fn = _build.library("rmsnorm").rmsnorm_launch
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_int, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Launch the CUDA kernel over the rows of ``x``; CPU tensors take
+    :func:`rmsnorm_plain`.  Launches on the current stream and does not
+    synchronise."""
+    _check(x, g)
+    code = check_dtype("rmsnorm", x, g)
+    if check_device("rmsnorm", x, g) == "cpu":
+        return rmsnorm_plain(x, g, eps)
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("rmsnorm: x and g must be contiguous")
+    d = x.shape[-1]
+    rows = x.numel() // d
+    y = torch.empty_like(x)
+    err = _launcher()(
+        x.data_ptr(),
+        g.data_ptr(),
+        y.data_ptr(),
+        rows,
+        d,
+        float(eps),
+        code,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"rmsnorm kernel launch failed with CUDA error {err} "
+            f"(rows={rows}, d={d}, dtype={x.dtype})"
+        )
+    COUNTS["rmsnorm"] += 1
+    return y

@@ -1,0 +1,259 @@
+"""Serving engine: prefill/decode steps + continuous batching.
+
+The port's counterpart of ``repro/serve/engine.py``.  ``ServeEngine``
+keeps a fixed-capacity decode batch; requests join at free slots (their
+prompt fed into the shared cache at the slot's rows, token by token)
+and leave on EOS/length.  Request→replica routing for multi-replica
+deployments uses the paper's WF (each inference replica = a server; its
+queued tokens = busy time) via :class:`ReplicaRouter`; with
+``policy="wf_torch"`` the water level runs on the card.
+
+Left for later slices: the reference's ``debug=`` buffer-aliasing guard,
+its observability hooks around decode, and routing by model / adapter
+through a placement store.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import backend
+from ..core import AssignmentProblem, TaskGroup
+from ..models import ModelConfig, decode_step, init_decode_cache, prefill
+from ..models.model import DenseLM
+from ..runtime.policies import AssignFn, get_assigner
+
+__all__ = [
+    "make_prefill_step",
+    "make_decode_step",
+    "Request",
+    "ServeEngine",
+    "ReplicaRouter",
+    "RoutedServePool",
+]
+
+
+def make_prefill_step(cfg: ModelConfig, *, max_len: int | None = None) -> Callable:
+    def step(params, batch):
+        return prefill(params, cfg, batch, max_len=max_len)
+
+    return step
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    def step(params, tokens, cache):
+        return decode_step(params, cfg, tokens, cache)
+
+    return step
+
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int
+    generated: list[int] = dataclasses.field(default_factory=list)  # new only
+    done: bool = False
+    _last: int = -1  # last token fed to the model (prompt tail, then new)
+
+
+class ServeEngine:
+    """Single-replica continuous batching over a shared decode cache.
+
+    Runs on :func:`repro_torch.backend.device` (``cuda`` unless scoped);
+    ``params`` must already live there.  The cache is updated in place
+    by every decode step.
+    """
+
+    def __init__(
+        self,
+        params: DenseLM,
+        cfg: ModelConfig,
+        *,
+        batch_slots: int = 8,
+        max_len: int = 512,
+        eos_token: int = 0,
+    ):
+        self.params = params
+        self.cfg = cfg
+        self.device = backend.device()
+        self.slots: list[Request | None] = [None] * batch_slots
+        self.max_len = max_len
+        self.eos = eos_token
+        self.cache = init_decode_cache(params, cfg, batch_slots, max_len)
+        self._pos = np.zeros(batch_slots, np.int32)
+        self._pending: list[Request] = []
+
+    def submit(self, req: Request) -> None:
+        self._pending.append(req)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot is not None or not self._pending:
+                continue
+            req = self._pending.pop(0)
+            # prefill the prompt into this slot's cache rows, token by token
+            # (batched prompt prefill for a single slot of a shared cache)
+            toks = req.prompt
+            for t in toks[:-1]:
+                self._step_single(i, int(t))
+            req._last = int(toks[-1])
+            self.slots[i] = req
+
+    def _decode(self, tokens: np.ndarray) -> torch.Tensor:
+        tokens = torch.from_numpy(tokens).to(self.device)
+        logits, self.cache = decode_step(self.params, self.cfg, tokens, self._with_pos())
+        return logits
+
+    def _step_single(self, slot: int, token: int) -> int:
+        """Advance one slot by one token (other slots fed a pad token —
+        masked out of their caches by per-slot positions)."""
+        tokens = np.zeros((len(self.slots), 1), np.int32)
+        tokens[slot, 0] = token
+        logits = self._decode(tokens)
+        # only commit slot's position advance
+        self._pos[slot] += 1
+        return int(logits[slot, 0].argmax())
+
+    def _with_pos(self) -> dict:
+        cache = dict(self.cache)
+        # torch.tensor copies: _step_single / step mutate self._pos in
+        # place right after dispatch, so the step must not read a view of
+        # it (torch.from_numpy would share the buffer — the reference's
+        # PR 5 race, shifted decode outputs under load)
+        cache["pos"] = torch.tensor(self._pos, device=self.device)
+        return cache
+
+    def step(self) -> list[Request]:
+        """One decode step over all active slots; returns finished requests."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return []
+        tokens = np.zeros((len(self.slots), 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self.slots[i]._last
+        logits = self._decode(tokens)
+        nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        finished = []
+        for i in active:
+            req = self.slots[i]
+            self._pos[i] += 1
+            req.generated.append(int(nxt[i]))
+            req._last = int(nxt[i])
+            if (
+                int(nxt[i]) == self.eos
+                or len(req.generated) >= req.max_new_tokens
+                or self._pos[i] >= self.max_len - 1
+            ):
+                req.done = True
+                finished.append(req)
+                self.slots[i] = None
+        return finished
+
+
+class ReplicaRouter:
+    """Route request batches across inference replicas with a registered
+    assignment policy (the paper's WF by default).
+
+    Replicas = servers; a request batch = a single-group job whose
+    available servers are the eligible replicas; busy time = queued
+    tokens / replica throughput (eq. 2 analogue).  ``policy`` is any name
+    the port's :func:`~repro_torch.runtime.policies.get_assigner` knows
+    (``"wf"``, ``"wf_torch"``, ``"rd"``, ``"rd_torch"``) or a callable
+    assignment function.
+    """
+
+    def __init__(
+        self,
+        n_replicas: int,
+        tokens_per_step: int = 1024,
+        *,
+        policy: str | AssignFn = "wf",
+    ):
+        self.n = n_replicas
+        self.rate = np.full(n_replicas, tokens_per_step, np.int64)
+        self.queued = np.zeros(n_replicas, np.int64)
+        self.assign = get_assigner(policy) if isinstance(policy, str) else policy
+
+    def route(
+        self, n_tokens: int, eligible: tuple[int, ...] | None = None
+    ) -> dict[int, int]:
+        """Assign ``n_tokens`` of work; returns {replica: tokens}.  Without
+        ``eligible``, every replica is eligible."""
+        eligible = eligible or tuple(range(self.n))
+        busy = -(-self.queued // self.rate)  # slots, eq. 2
+        prob = AssignmentProblem(
+            busy=busy,
+            mu=self.rate,
+            groups=(TaskGroup(n_tokens, eligible),),
+        )
+        assignment = self.assign(prob)
+        out: dict[int, int] = {}
+        for per in assignment.alloc:
+            for m, cnt in per.items():
+                self.queued[m] += cnt
+                out[m] = out.get(m, 0) + cnt
+        return out
+
+    def drain(self) -> None:
+        """One time step: each replica consumes up to its rate."""
+        self.queued = np.maximum(self.queued - self.rate, 0)
+
+
+class RoutedServePool:
+    """A fleet of :class:`ServeEngine` replicas behind one
+    :class:`ReplicaRouter`.
+
+    Each request is costed at ``len(prompt) + max_new_tokens`` tokens,
+    routed by the registered policy over the eligible replicas, and
+    admitted to the replica that received the bulk of the routed tokens.
+    One :meth:`step` is one slot: every replica decodes once.
+    """
+
+    def __init__(self, engines: dict[int, ServeEngine], router: ReplicaRouter):
+        if router.n < 1 + max(engines, default=0) or not engines:
+            raise ValueError("router must span every replica id in engines")
+        self.engines = engines
+        self.router = router
+
+    def submit(self, req: Request, *, eligible: tuple[int, ...] | None = None) -> int:
+        """Route ``req`` and admit it to a replica; returns the replica id."""
+        if eligible is None:
+            eligible = tuple(self.engines)
+        cost = len(req.prompt) + req.max_new_tokens
+        out = self.router.route(cost, eligible)
+        # a discrete request runs on ONE replica: the one the policy gave
+        # the bulk of its tokens (splits only arise at the water level)
+        routed = [kv for kv in out.items() if kv[0] in self.engines]
+        if not routed:
+            raise ValueError(
+                f"request {req.request_id} routed to replicas {sorted(out)} "
+                f"but no engine serves any of them"
+            )
+        replica = max(routed, key=lambda kv: (kv[1], -kv[0]))[0]
+        self.engines[replica].submit(req)
+        return replica
+
+    def step(self) -> list[Request]:
+        """One slot: every replica decodes once, the router drains once."""
+        finished: list[Request] = []
+        for engine in self.engines.values():
+            finished.extend(engine.step())
+        self.router.drain()
+        return finished
+
+    def busy(self) -> bool:
+        return (
+            bool(self.router.queued.any())
+            or any(e._pending for e in self.engines.values())
+            or any(
+                slot is not None
+                for e in self.engines.values()
+                for slot in e.slots
+            )
+        )

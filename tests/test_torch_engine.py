@@ -158,6 +158,25 @@ def test_isolation_checks_cover_the_rd_slice():
     assert (PORT / "kernels" / "csrc" / "rd_strip.cu").is_file()
 
 
+def test_isolation_checks_cover_the_model_slice():
+    """The dense model / serving slice's modules and kernel sources are
+    among the files the import checks above and below walk."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    expected = {
+        "models/__init__.py", "models/config.py", "models/layers.py", "models/rope.py",
+        "models/attention.py", "models/ffn.py", "models/model.py",
+        "serve/__init__.py", "serve/engine.py",
+        "kernels/rmsnorm.py", "kernels/decode_attention.py",
+        "kernels/flash_attention.py", "kernels/ops.py",
+        "configs/__init__.py", "configs/qwen1_5_4b.py", "configs/qwen3_32b.py",
+        "configs/qwen2_5_32b.py", "configs/qwen2_72b.py",
+        "launch/__init__.py", "launch/serve.py",
+    }
+    assert expected <= walked
+    for name in ("rmsnorm", "decode_attention", "flash_attention"):
+        assert (PORT / "kernels" / "csrc" / f"{name}.cu").is_file()
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     for node in ast.walk(tree):
@@ -237,3 +256,40 @@ def test_entry_point_without_a_cpu_scope_does_not_run_on_the_cpu():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "refused:" in out.stdout
     assert "rd refused:" in out.stdout
+
+
+def test_model_entry_points_without_a_cpu_scope_do_not_run_on_the_cpu():
+    """``init_params`` and ``ServeEngine`` place their tensors on ``cuda``
+    unless scoped: with no GPU, torch refuses; CPU parameters taken out
+    of their scope are refused too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    code = (
+        "import torch\n"
+        "from repro_torch import backend\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.models import init_params\n"
+        "from repro_torch.serve.engine import ServeEngine\n"
+        "cfg = get_smoke_config('qwen1.5-4b')\n"
+        "for build in (lambda: init_params(torch.Generator(), cfg),\n"
+        "              lambda: init_params(torch.Generator(device='cuda'), cfg)):\n"
+        "    try:\n"
+        "        build()\n"
+        "    except (AssertionError, RuntimeError) as exc:\n"
+        "        print('init refused:', exc)\n"
+        "    else:\n"
+        "        raise SystemExit('init_params ran without a device')\n"
+        "with backend.set_backend(device='cpu'):\n"
+        "    params = init_params(torch.Generator(), cfg)\n"
+        "    ServeEngine(params, cfg, batch_slots=2, max_len=8)\n"
+        "try:\n"
+        "    ServeEngine(params, cfg, batch_slots=2, max_len=8)\n"
+        "except ValueError as exc:\n"
+        "    print('engine refused:', exc)\n"
+        "else:\n"
+        "    raise SystemExit('ServeEngine ran on the CPU without a scope')\n"
+    )
+    out = _run_port(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("init refused:") == 2
+    assert "engine refused:" in out.stdout

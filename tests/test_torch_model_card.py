@@ -1,0 +1,160 @@
+"""The model kernels (RMSNorm, decode and flash attention) against their
+plain versions, and the dense model on the card against the CPU.
+
+Needs a CUDA device (the kernels have no CPU mode), so it skips
+elsewhere; run it on a GPU machine with
+``python -m pytest -m gpu tests/test_torch_model_card.py``.  It imports
+only the port, so it runs where jax is not installed.  ``chip_smoke.py``
+makes the same checks at the serving path's shapes.
+
+Tolerances: 5e-5 for float32 (sums taken in another order); for
+bfloat16 2e-2 plus one bfloat16 rounding step (2**-7 of the value),
+since kernel and plain version round the same fp32 result and may land
+on either side of a rounding boundary.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.backend import set_backend
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import decode_attention as dak
+from repro_torch.kernels import flash_attention as fak
+from repro_torch.kernels import rmsnorm as rnk
+from repro_torch.models import decode_step, init_params, prefill
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _tol(dtype) -> dict:
+    if dtype == torch.bfloat16:
+        return {"atol": 2e-2, "rtol": 2**-7}
+    return {"atol": 5e-5, "rtol": 0}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+def _close(got, want, dtype, msg=""):
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(), want.float().cpu().numpy(), err_msg=msg, **_tol(dtype)
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_matches_plain(card, dtype):
+    rng = np.random.default_rng(0)
+    for shape in ((4, 37, 512), (128, 256), (1, 1, 8192), (3, 5, 20, 128), (8, 2560),
+                  (7, 1025), (2, 16)):
+        x = _randn(rng, shape, dtype, card)
+        g = _randn(rng, shape[-1:], dtype, card)
+        rnk.reset_counts()
+        got = rnk.rmsnorm(x, g, 1e-6)
+        assert rnk.COUNTS == {"rmsnorm": 1, "plain": 0}
+        _close(got, rnk.rmsnorm_plain(x, g, 1e-6), dtype, str(shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,h,hkv,t,hd",
+    [(2, 4, 2, 1024, 64), (3, 8, 8, 512, 128), (1, 16, 4, 2048, 64),
+     (4, 20, 20, 1000, 128), (1, 64, 8, 300, 128), (2, 4, 2, 37, 16), (2, 10, 2, 77, 96)],
+)
+def test_decode_attention_kernel_matches_plain(card, b, h, hkv, t, hd, dtype):
+    rng = np.random.default_rng(b * 100 + t)
+    q = _randn(rng, (b, h, hd), dtype, card)
+    k = _randn(rng, (b, hkv, t, hd), dtype, card)
+    v = _randn(rng, (b, hkv, t, hd), dtype, card)
+    for pos in (rng.integers(0, t, b), np.zeros(b), np.full(b, t - 1), np.full(b, t + 5)):
+        p = torch.tensor(pos, dtype=torch.int32, device=card)
+        dak.reset_counts()
+        got = dak.decode_attention(q, k, v, p)
+        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_ignores_keys_past_pos(card):
+    rng = np.random.default_rng(1)
+    q = _randn(rng, (1, 2, 64), torch.float32, card)
+    k = _randn(rng, (1, 2, 1000, 64), torch.float32, card)
+    v = _randn(rng, (1, 2, 1000, 64), torch.float32, card)
+    pos = torch.tensor([100], dtype=torch.int32, device=card)
+    out1 = dak.decode_attention(q, k, v, pos)
+    k[:, :, 101:] = 1e4  # poison the dead region
+    v[:, :, 101:] = -1e4
+    out2 = dak.decode_attention(q, k, v, pos)
+    assert torch.equal(out1, out2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize(
+    "b,h,hkv,s,t,hd",
+    [(2, 4, 2, 256, 256, 128), (1, 8, 8, 128, 128, 128), (2, 2, 1, 512, 512, 128),
+     (1, 4, 2, 200, 200, 64), (2, 4, 4, 129, 129, 16), (1, 4, 1, 100, 300, 32),
+     (1, 64, 8, 65, 65, 128)],
+)
+def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, t, hd, dtype, causal):
+    rng = np.random.default_rng(s * 10 + hd)
+    q = _randn(rng, (b, h, s, hd), dtype, card)
+    k = _randn(rng, (b, hkv, t, hd), dtype, card)
+    v = _randn(rng, (b, hkv, t, hd), dtype, card)
+    fak.reset_counts()
+    got = fak.flash_attention(q, k, v, causal=causal)
+    assert fak.COUNTS == {"flash_attention": 1, "plain": 0}
+    _close(got, fak.flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views(card):
+    """The model's (B, S, H, hd) projections go in as transposed views."""
+    rng = np.random.default_rng(2)
+    b, s, h, hkv, hd = 2, 150, 4, 2, 64
+    q = _randn(rng, (b, s, h, hd), torch.float32, card)
+    k = _randn(rng, (b, s, hkv, hd), torch.float32, card)
+    v = _randn(rng, (b, s, hkv, hd), torch.float32, card)
+    got = fak.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert got.stride() == q.transpose(1, 2).stride()
+    want = fak.flash_attention_plain(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(),
+    )
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-32b"])
+def test_model_on_the_card_matches_the_cpu(card, arch):
+    cfg = get_smoke_config(arch)
+    with set_backend(device="cpu"):
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 150)).astype(np.int32))
+    toks = [torch.from_numpy(rng.integers(1, cfg.vocab, (2, 1)).astype(np.int32))
+            for _ in range(3)]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        with set_backend(device=dev):
+            p = params.to(dev)
+            logits, cache = prefill(p, cfg, {"tokens": prompt.to(dev)}, max_len=160)
+            got = [logits]
+            for tok in toks:
+                logits, cache = decode_step(p, cfg, tok.to(dev), cache)
+                got.append(logits)
+            outs[dev] = [x.cpu() for x in got] + [cache["layers"]["k"].cpu()]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
