@@ -20,7 +20,7 @@ import torch
 from . import backend
 from .core import AssignmentProblem, Job, TaskGroup
 from .models.config import ModelConfig
-from .models.model import DenseLM
+from .models.model import FAMILIES, LM, check_family
 
 __all__ = ["from_reference_jobs", "from_reference_params", "from_reference_problem"]
 
@@ -74,18 +74,21 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
 
 
 @torch.no_grad()
-def from_reference_params(tree: Mapping, cfg: ModelConfig) -> DenseLM:
-    """The port's model holding the reference's parameters, on
-    :func:`backend.device`.
+def from_reference_params(tree: Mapping, cfg: ModelConfig) -> LM:
+    """The port's model of ``cfg``'s family holding the reference's
+    parameters, on :func:`backend.device`.
 
     ``tree`` is the reference's ``init_params`` output with its leaves as
     numpy arrays.  The reference stacks the layers on axis 0 of every
-    ``layers`` leaf; the port keeps one module per layer.  Both keep
-    projection weights as ``(fan_in, fan_out)``, so no leaf is
-    transposed.  Every leaf must land on a parameter of the same shape
-    and dtype, and every parameter must be filled.
+    ``layers`` leaf (zamba2's too, flat over all its Mamba2 layers); the
+    port keeps one module per layer.  Other subtrees (zamba2's
+    ``shared_attn``) map by name.  Both keep projection weights as
+    ``(fan_in, fan_out)``, so no leaf is transposed.  Every leaf must
+    land on a parameter of the same shape and dtype, and every parameter
+    must be filled.
     """
-    params = DenseLM(cfg, device=backend.device())
+    check_family(cfg)
+    params = FAMILIES[cfg.block_pattern](cfg, device=backend.device())
     leaves = _flatten(tree)
     used = set()
     for name, param in params.named_parameters():

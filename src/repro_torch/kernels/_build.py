@@ -22,7 +22,14 @@ __all__ = ["BuildResult", "SOURCES", "build_all", "find_nvcc", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # csrc/<name>.cu -> lib<name>-<hash>.so
-SOURCES = ("waterlevel", "rd_strip", "rmsnorm", "decode_attention", "flash_attention")
+SOURCES = (
+    "waterlevel",
+    "rd_strip",
+    "rmsnorm",
+    "decode_attention",
+    "flash_attention",
+    "ssd_scan",
+)
 DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 NVCC_FLAGS = (
     "-O3",

@@ -248,6 +248,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
     case 64:
       return launch_hd<T, 64>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len,
                               qs, ks, vs, os, causal, scale, st);
+    case 80:
+      return launch_hd<T, 80>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len,
+                              qs, ks, vs, os, causal, scale, st);
     case 128:
       return launch_hd<T, 128>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len,
                                qs, ks, vs, os, causal, scale, st);
@@ -261,7 +264,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, in the order
 // (batch, head, row).  Launches on `stream` and returns cudaGetLastError()
 // after the launch (0 on success); nothing here synchronises.  Refuses
-// (cudaErrorInvalidValue) a head dim other than 16, 32, 64 or 128, or H
+// (cudaErrorInvalidValue) a head dim other than 16, 32, 64, 80 or 128, or H
 // not a multiple of Hkv.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int batch, int n_heads,

@@ -46,7 +46,7 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernel's compiled head widths
 
 COUNTS = {"flash_attention": 0, "plain": 0}
 

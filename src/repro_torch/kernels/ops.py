@@ -9,7 +9,10 @@ tensors; there is no knob that routes a CUDA tensor elsewhere.
   (B,Hkv,T,hd) → (B,H,S,hd);
 - ``decode_attention(q, k, v, pos)``: q (B,H,hd), k/v (B,Hkv,T,hd), pos
   (B,) int32 → (B,H,hd);
-- ``rmsnorm_fused(x, g, eps=1e-6)``: RMSNorm over the last axis.
+- ``rmsnorm_fused(x, g, eps=1e-6)``: RMSNorm over the last axis;
+- ``ssd_scan(x, dt, a, bm, cm, *, chunk=256)``: x (B,S,H,P), dt (B,S,H)
+  fp32, a (H,) fp32, bm/cm (B,S,N) → y (B,S,H,P) fp32, final state
+  (B,H,P,N) fp32 (``chunk`` is the plain version's).
 """
 
 from __future__ import annotations
@@ -17,5 +20,6 @@ from __future__ import annotations
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm as rmsnorm_fused
+from .ssd_scan import ssd_scan
 
-__all__ = ["decode_attention", "flash_attention", "rmsnorm_fused"]
+__all__ = ["decode_attention", "flash_attention", "rmsnorm_fused", "ssd_scan"]

@@ -1,9 +1,9 @@
 """Model configuration: one dataclass covering all assigned families.
 
 A copy of ``repro/models/config.py`` with :attr:`ModelConfig.torch_dtype`
-in place of ``jnp_dtype``.  The port runs the ``dense`` family so far;
-the other families' fields are kept so every config carries over as
-data.
+in place of ``jnp_dtype``.  The port runs the ``dense``, ``mamba2``
+and ``zamba2`` families so far; the other families' fields are kept so
+every config carries over as data.
 
 Families (``block_pattern``):
 - ``dense``    — pre-norm transformer, GQA attention + SwiGLU FFN

@@ -1,22 +1,33 @@
-"""Model assembly for the dense family: init / prefill / decode.
+"""Model assembly: init / prefill / decode for the dense, mamba2 and zamba2
+families.
 
 The port's counterpart of ``repro/models/model.py`` for
-``block_pattern == "dense"`` (pre-norm transformer, GQA attention,
-SwiGLU FFN).  Entry points::
+``block_pattern`` ``"dense"`` (pre-norm transformer, GQA attention,
+SwiGLU FFN), ``"mamba2"`` (an attention-free stack of Mamba2 blocks)
+and ``"zamba2"`` (Mamba2 blocks with one *shared* attention + FFN block
+applied before every ``hybrid_period`` of them).  Entry points::
 
     init_params(generator, cfg)                       -> params
     prefill(params, cfg, batch, max_len=None)         -> (logits, cache)
     decode_step(params, cfg, tokens, cache)           -> (logits, cache)
     init_decode_cache(params, cfg, batch, max_seq)    -> cache
 
-``params`` is a :class:`DenseLM` module: the embedding table (also the
-unembedding's weight, as in the reference), the final norm, and the
-decoder layers as an ``nn.ModuleList``.  The cache is
-``{"layers": {"k": ..., "v": ...}, "pos": (B,) int32}`` with ``k``/``v``
-stacked over layers as ``(L, B, Hkv, S_max, hd)`` — the reference stacks
-``(L, B, S_max, Hkv, hd)``.  :func:`decode_step` writes the new rows
-into that cache in place and returns it with ``pos + 1``; the reference
-returns a new cache.
+``params`` is the family's module (:data:`FAMILIES`): the embedding
+table (also the unembedding's weight, as in the reference), the final
+norm, the layers as an ``nn.ModuleList`` and, for zamba2, the shared
+block ``shared_attn``.  Caches, every leaf stacked over layers (or over
+the shared block's uses), with ``"pos"`` (B,) int32 beside them:
+
+- dense: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
+  stacks ``(L, B, S_max, Hkv, hd)``;
+- mamba2: ``{"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N) fp32}``, as
+  the reference's;
+- zamba2: ``{"attn": {"k", "v"} (n_super, B, Hkv, S_max, hd), "mamba":
+  {"conv", "ssm"} (L, ...)}`` — the reference stacks the Mamba2 state
+  ``(n_super, period, ...)``.
+
+:func:`decode_step` writes the step into that cache in place and returns
+it with ``pos + 1``; the reference returns a new cache.
 
 Tensors go on :func:`repro_torch.backend.device` (``cuda`` unless a
 ``set_backend(device=...)`` scope says otherwise); parameters that lie
@@ -41,10 +52,16 @@ from .attention import (
 from .config import ModelConfig
 from .ffn import SwiGLU, swiglu, swiglu_init_
 from .layers import Embed, RMSNorm, embed, embed_init_, rmsnorm, unembed
+from .ssm import Mamba2, mamba2_apply, mamba2_decode, mamba2_init_, mamba2_init_state
 
 __all__ = [
     "DecoderLayer",
     "DenseLM",
+    "FAMILIES",
+    "LM",
+    "Mamba2LM",
+    "MambaLayer",
+    "Zamba2LM",
     "check_family",
     "decode_step",
     "init_decode_cache",
@@ -56,17 +73,9 @@ __all__ = [
 Cache = dict
 
 
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.block_pattern != "dense" or cfg.moe.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family so far; "
-            f"block_pattern={cfg.block_pattern!r} (n_experts={cfg.moe.n_experts}) "
-            f"waits for a later slice"
-        )
-
-
 class DecoderLayer(nn.Module):
-    """``norm1``, ``attn`` (GQA), ``norm2``, ``ffn`` (SwiGLU)."""
+    """``norm1``, ``attn`` (GQA), ``norm2``, ``ffn`` (SwiGLU); also
+    zamba2's shared block."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
@@ -77,8 +86,19 @@ class DecoderLayer(nn.Module):
         self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
 
 
-class DenseLM(nn.Module):
-    """``embed``, ``final_norm`` and ``layers`` of a dense decoder."""
+class MambaLayer(nn.Module):
+    """``norm1`` and ``mamba`` (a Mamba2 block)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.d_model, dtype=cfg.torch_dtype, device=device)
+        self.mamba = Mamba2(cfg, device=device)
+
+
+class _LM(nn.Module):
+    """``embed``, ``final_norm`` and ``layers`` of ``layer`` modules."""
+
+    layer: type[nn.Module]
 
     def __init__(self, cfg: ModelConfig, *, device):
         check_family(cfg)
@@ -86,26 +106,71 @@ class DenseLM(nn.Module):
         dt = cfg.torch_dtype
         self.embed = Embed(cfg.vocab, cfg.d_model, dtype=dt, device=device)
         self.final_norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device) for _ in range(cfg.n_layers)
+        self.layers = nn.ModuleList(self.layer(cfg, device=device) for _ in range(cfg.n_layers))
+
+
+class DenseLM(_LM):
+    """A dense decoder: ``layers`` of :class:`DecoderLayer`."""
+
+    layer = DecoderLayer
+
+
+class Mamba2LM(_LM):
+    """An attention-free stack: ``layers`` of :class:`MambaLayer`."""
+
+    layer = MambaLayer
+
+
+class Zamba2LM(_LM):
+    """``layers`` of :class:`MambaLayer` and one ``shared_attn``
+    (:class:`DecoderLayer`) applied before every ``hybrid_period`` of
+    them, with the same weights at every use."""
+
+    layer = MambaLayer
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__(cfg, device=device)
+        if cfg.n_layers % cfg.hybrid_period:
+            raise ValueError(f"{cfg.name}: n_layers must be a multiple of hybrid_period")
+        self.shared_attn = DecoderLayer(cfg, device=device)
+
+
+LM = DenseLM | Mamba2LM | Zamba2LM
+FAMILIES: dict[str, type[_LM]] = {"dense": DenseLM, "mamba2": Mamba2LM, "zamba2": Zamba2LM}
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.block_pattern not in FAMILIES or cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families so far; "
+            f"block_pattern={cfg.block_pattern!r} (n_experts={cfg.moe.n_experts}) "
+            f"waits for a later slice"
         )
 
 
 @torch.no_grad()
-def init_params(generator: torch.Generator, cfg: ModelConfig) -> DenseLM:
+def init_params(generator: torch.Generator, cfg: ModelConfig) -> LM:
     """Random parameters on :func:`backend.device`, drawn from ``generator``
     (which must live on that device) with the reference's rules:
-    projections N(0, 1/fan_in), the embedding N(0, 0.02²), norms one,
-    biases zero.  Not the reference's numbers: its generator differs."""
-    params = DenseLM(cfg, device=backend.device())
+    projections N(0, 1/fan_in), the embedding N(0, 0.02²), the conv
+    weight N(0, 0.1²), norms and ``D`` one, biases and ``A_log`` zero.
+    Not the reference's numbers: its generator differs."""
+    check_family(cfg)
+    params = FAMILIES[cfg.block_pattern](cfg, device=backend.device())
     embed_init_(params.embed, generator)
     for layer in params.layers:
-        gqa_init_(layer.attn, generator)
-        swiglu_init_(layer.ffn, generator)
+        if isinstance(layer, MambaLayer):
+            mamba2_init_(layer.mamba, generator)
+        else:
+            gqa_init_(layer.attn, generator)
+            swiglu_init_(layer.ffn, generator)
+    if isinstance(params, Zamba2LM):
+        gqa_init_(params.shared_attn.attn, generator)
+        swiglu_init_(params.shared_attn.ffn, generator)
     return params
 
 
-def params_device(params: DenseLM) -> torch.device:
+def params_device(params: LM) -> torch.device:
     """The parameters' device; raises unless it is :func:`backend.device`'s
     type, so an entry point never runs where the caller did not ask."""
     dev = params.embed.table.device
@@ -118,80 +183,159 @@ def params_device(params: DenseLM) -> torch.device:
     return dev
 
 
-def _empty_kv(cfg: ModelConfig, batch: int, length: int, device) -> dict:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, length, cfg.head_dim_)
+def _empty_kv(cfg: ModelConfig, n: int, batch: int, length: int, device) -> dict:
+    shape = (n, batch, cfg.n_kv_heads, length, cfg.head_dim_)
     return {
         "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
     }
 
 
+def _empty_ssm(cfg: ModelConfig, batch: int, device) -> dict:
+    conv, ssm = mamba2_init_state(cfg, batch, cfg.torch_dtype, device)
+    return {
+        "conv": conv.new_zeros((cfg.n_layers,) + conv.shape),
+        "ssm": ssm.new_zeros((cfg.n_layers,) + ssm.shape),
+    }
+
+
+def _n_super(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid_period
+
+
+def _attn_ffn_prefill(block: DecoderLayer, cfg: ModelConfig, x, rope, kv: dict, i: int):
+    """One attention + FFN block over the prompt; writes its keys and
+    values into use ``i`` of ``kv``."""
+    s = x.shape[1]
+    h = rmsnorm(block.norm1, x, cfg.norm_eps)
+    h, k, v = gqa_prefill(block.attn, cfg, h, rope)
+    kv["k"][i, :, :, :s] = k
+    kv["v"][i, :, :, :s] = v
+    x = x + h
+    h = rmsnorm(block.norm2, x, cfg.norm_eps)
+    return x + swiglu(block.ffn, h)
+
+
+def _attn_ffn_decode(block: DecoderLayer, cfg: ModelConfig, x, kv: dict, i: int, pos,
+                     rope, slots):
+    h = rmsnorm(block.norm1, x, cfg.norm_eps)
+    x = x + gqa_decode(block.attn, cfg, h, kv["k"][i], kv["v"][i], pos, rope, slots)
+    h = rmsnorm(block.norm2, x, cfg.norm_eps)
+    return x + swiglu(block.ffn, h)
+
+
+def _mamba_prefill(layer: MambaLayer, cfg: ModelConfig, x, state: dict, i: int):
+    """One Mamba2 layer over the prompt; writes its final (conv, ssm)
+    state into layer ``i`` of ``state``."""
+    h, (conv, ssm) = mamba2_apply(layer.mamba, cfg, rmsnorm(layer.norm1, x, cfg.norm_eps))
+    state["conv"][i] = conv
+    state["ssm"][i] = ssm
+    return x + h
+
+
+def _mamba_decode(layer: MambaLayer, cfg: ModelConfig, x, state: dict, i: int):
+    h, (conv, ssm) = mamba2_decode(
+        layer.mamba, cfg, rmsnorm(layer.norm1, x, cfg.norm_eps),
+        (state["conv"][i], state["ssm"][i]),
+    )
+    state["conv"][i].copy_(conv)
+    state["ssm"][i].copy_(ssm)
+    return x + h
+
+
+def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    # the norm is row-wise: normalising only the last position gives the
+    # reference's logits
+    x = rmsnorm(params.final_norm, x[:, -1:].contiguous(), cfg.norm_eps)
+    return unembed(params.embed, x)
+
+
 @torch.no_grad()
 def prefill(
-    params: DenseLM, cfg: ModelConfig, batch: dict, *, max_len: int | None = None
+    params: LM, cfg: ModelConfig, batch: dict, *, max_len: int | None = None
 ) -> tuple[torch.Tensor, Cache]:
     """Process the prompts ``batch["tokens"]`` (B, S); returns the
     last-position logits (B, 1, V) fp32 and the decode cache.
 
-    ``max_len`` reserves cache headroom for the decode steps that follow
-    (default: the prompt length only).
+    ``max_len`` reserves key/value headroom for the decode steps that
+    follow (default: the prompt length only); the Mamba2 state has none
+    to reserve.
     """
     check_family(cfg)
     dev = params_device(params)
     tokens = batch["tokens"]
     x = embed(params.embed, tokens)
     b, s, _ = x.shape
+    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    length = max(s, max_len or 0)
+    if cfg.block_pattern == "mamba2":
+        state = _empty_ssm(cfg, b, dev)
+        for i, layer in enumerate(params.layers):
+            x = _mamba_prefill(layer, cfg, x, state, i)
+        return _logits(params, cfg, x), {"layers": state, "pos": pos}
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     rope = rope_for(cfg, positions)
-    kv = _empty_kv(cfg, b, max(s, max_len or 0), dev)
+    if cfg.block_pattern == "zamba2":
+        kv = _empty_kv(cfg, _n_super(cfg), b, length, dev)
+        state = _empty_ssm(cfg, b, dev)
+        for i, layer in enumerate(params.layers):
+            if i % cfg.hybrid_period == 0:
+                x = _attn_ffn_prefill(params.shared_attn, cfg, x, rope, kv,
+                                      i // cfg.hybrid_period)
+            x = _mamba_prefill(layer, cfg, x, state, i)
+        return _logits(params, cfg, x), {"layers": {"attn": kv, "mamba": state}, "pos": pos}
+    kv = _empty_kv(cfg, cfg.n_layers, b, length, dev)
     for i, layer in enumerate(params.layers):
-        h = rmsnorm(layer.norm1, x, cfg.norm_eps)
-        h, k, v = gqa_prefill(layer.attn, cfg, h, rope)
-        kv["k"][i, :, :, :s] = k
-        kv["v"][i, :, :, :s] = v
-        x = x + h
-        h = rmsnorm(layer.norm2, x, cfg.norm_eps)
-        x = x + swiglu(layer.ffn, h)
-    # the norm is row-wise: normalising only the last position gives the
-    # reference's logits
-    x = rmsnorm(params.final_norm, x[:, -1:].contiguous(), cfg.norm_eps)
-    logits = unembed(params.embed, x)
-    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
-    return logits, {"layers": kv, "pos": pos}
+        x = _attn_ffn_prefill(layer, cfg, x, rope, kv, i)
+    return _logits(params, cfg, x), {"layers": kv, "pos": pos}
 
 
 @torch.no_grad()
 def decode_step(
-    params: DenseLM, cfg: ModelConfig, tokens: torch.Tensor, cache: Cache
+    params: LM, cfg: ModelConfig, tokens: torch.Tensor, cache: Cache
 ) -> tuple[torch.Tensor, Cache]:
     """One decode step; ``tokens`` (B, 1); cache from :func:`prefill` or
-    :func:`init_decode_cache`.  Writes the step's rows into the cache in
-    place; returns the logits (B, 1, V) fp32 and the cache with
-    ``pos + 1``."""
+    :func:`init_decode_cache`.  Writes the step into the cache in place;
+    returns the logits (B, 1, V) fp32 and the cache with ``pos + 1``."""
     check_family(cfg)
     params_device(params)
     pos = cache["pos"]
-    kc, vc = cache["layers"]["k"], cache["layers"]["v"]
-    rope, slots = rope_for(cfg, pos[:, None]), cache_slots(pos, kc.shape[3])
     x = embed(params.embed, tokens)
-    for i, layer in enumerate(params.layers):
-        h = rmsnorm(layer.norm1, x, cfg.norm_eps)
-        x = x + gqa_decode(layer.attn, cfg, h, kc[i], vc[i], pos, rope, slots)
-        h = rmsnorm(layer.norm2, x, cfg.norm_eps)
-        x = x + swiglu(layer.ffn, h)
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    logits = unembed(params.embed, x)
+    layers = cache["layers"]
+    if cfg.block_pattern == "mamba2":
+        for i, layer in enumerate(params.layers):
+            x = _mamba_decode(layer, cfg, x, layers, i)
+    else:
+        kv = layers["attn"] if cfg.block_pattern == "zamba2" else layers
+        rope, slots = rope_for(cfg, pos[:, None]), cache_slots(pos, kv["k"].shape[3])
+        if cfg.block_pattern == "zamba2":
+            for i, layer in enumerate(params.layers):
+                if i % cfg.hybrid_period == 0:
+                    x = _attn_ffn_decode(params.shared_attn, cfg, x, kv,
+                                         i // cfg.hybrid_period, pos, rope, slots)
+                x = _mamba_decode(layer, cfg, x, layers["mamba"], i)
+        else:
+            for i, layer in enumerate(params.layers):
+                x = _attn_ffn_decode(layer, cfg, x, kv, i, pos, rope, slots)
+    logits = _logits(params, cfg, x)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return logits, new_cache
 
 
-def init_decode_cache(
-    params: DenseLM, cfg: ModelConfig, batch: int, max_seq: int
-) -> Cache:
+def init_decode_cache(params: LM, cfg: ModelConfig, batch: int, max_seq: int) -> Cache:
     """Empty cache; ``pos`` starts at ``max_seq - 1`` to model a
     fully-populated context, as the reference's does."""
     check_family(cfg)
     dev = params_device(params)
     pos = torch.full((batch,), max_seq - 1, dtype=torch.int32, device=dev)
-    return {"layers": _empty_kv(cfg, batch, max_seq, dev), "pos": pos}
+    if cfg.block_pattern == "mamba2":
+        layers = _empty_ssm(cfg, batch, dev)
+    elif cfg.block_pattern == "zamba2":
+        layers = {
+            "attn": _empty_kv(cfg, _n_super(cfg), batch, max_seq, dev),
+            "mamba": _empty_ssm(cfg, batch, dev),
+        }
+    else:
+        layers = _empty_kv(cfg, cfg.n_layers, batch, max_seq, dev)
+    return {"layers": layers, "pos": pos}

@@ -23,8 +23,7 @@ import torch
 
 from .. import backend
 from ..core import AssignmentProblem, TaskGroup
-from ..models import ModelConfig, decode_step, init_decode_cache, prefill
-from ..models.model import DenseLM
+from ..models import LM, ModelConfig, decode_step, init_decode_cache, prefill
 from ..runtime.policies import AssignFn, get_assigner
 
 __all__ = [
@@ -65,13 +64,21 @@ class ServeEngine:
     """Single-replica continuous batching over a shared decode cache.
 
     Runs on :func:`repro_torch.backend.device` (``cuda`` unless scoped);
-    ``params`` must already live there.  The cache is updated in place
-    by every decode step.
+    ``params`` (any family the port runs) must already live there.  The
+    cache is updated in place by every decode step.
+
+    As the reference's, every decode step feeds every slot: a prompt is
+    fed one token at a time with pad token 0 in the other slots, and
+    free slots get token 0 too.  A KV cache masks those tokens out by the
+    slots' positions; a Mamba2 state does not — each pad token advances
+    every other slot's conv and SSM state, and a reused slot keeps the
+    state its last request left.  The port keeps this so that its tokens
+    equal the reference's.
     """
 
     def __init__(
         self,
-        params: DenseLM,
+        params: LM,
         cfg: ModelConfig,
         *,
         batch_slots: int = 8,
@@ -111,7 +118,8 @@ class ServeEngine:
 
     def _step_single(self, slot: int, token: int) -> int:
         """Advance one slot by one token (other slots fed a pad token —
-        masked out of their caches by per-slot positions)."""
+        masked out of a KV cache by per-slot positions, not out of a
+        Mamba2 state; see the class docstring)."""
         tokens = np.zeros((len(self.slots), 1), np.int32)
         tokens[slot, 0] = token
         logits = self._decode(tokens)

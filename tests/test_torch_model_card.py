@@ -1,5 +1,6 @@
-"""The model kernels (RMSNorm, decode and flash attention) against their
-plain versions, and the dense model on the card against the CPU.
+"""The model kernels (RMSNorm, decode and flash attention, the SSD scan)
+against their plain versions, and the dense, Mamba2 and Zamba2 models on
+the card against the CPU.
 
 Needs a CUDA device (the kernels have no CPU mode), so it skips
 elsewhere; run it on a GPU machine with
@@ -10,7 +11,11 @@ makes the same checks at the serving path's shapes.
 Tolerances: 5e-5 for float32 (sums taken in another order); for
 bfloat16 2e-2 plus one bfloat16 rounding step (2**-7 of the value),
 since kernel and plain version round the same fp32 result and may land
-on either side of a rounding boundary.
+on either side of a rounding boundary.  The SSD scan writes fp32 in
+both dtypes and is held to 5e-5 + 3e-5 of its output's largest
+magnitude: its plain version's prefix sums run over 256-row chunks, the
+kernel's over 64-row tiles, and each decay factor carries an fp32 ulp of
+|cum| (up to ~200 in a 256-row chunk).
 """
 
 import numpy as np
@@ -22,6 +27,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import decode_attention as dak
 from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import rmsnorm as rnk
+from repro_torch.kernels import ssd_scan as ssk
 from repro_torch.models import decode_step, init_params, prefill
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -136,8 +142,81 @@ def test_flash_attention_kernel_reads_strided_views(card):
     _close(got, want, torch.float32)
 
 
+def _cache_leaves(cache: dict) -> list:
+    out, todo = [], [cache["layers"]]
+    while todo:
+        node = todo.pop()
+        for v in node.values():
+            if isinstance(v, dict):
+                todo.append(v)
+            else:
+                out.append(v.cpu())
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-32b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,s,h,p,n",
+    [(4, 2048, 24, 64, 128), (2, 2048, 80, 64, 64), (2, 200, 3, 16, 16), (1, 2000, 8, 64, 128),
+     (3, 1, 4, 32, 32), (2, 129, 2, 16, 64), (1, 64, 2, 64, 16)],
+)
+def test_ssd_scan_kernel_matches_plain(card, b, s, h, p, n, dtype):
+    rng = np.random.default_rng(s + n)
+    x = _randn(rng, (b, s, h, p), dtype, card) * 0.5
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, card))
+    a = -torch.exp(_randn(rng, (h,), torch.float32, card) * 0.3)
+    bm = _randn(rng, (b, s, n), dtype, card) * 0.5
+    cm = _randn(rng, (b, s, n), dtype, card) * 0.5
+    ssk.reset_counts()
+    got = ssk.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    assert ssk.COUNTS == {"ssd_scan": 1, "plain": 0}
+    for g, w in zip(got, ssk.ssd_scan_plain(x, dt, a, bm, cm, 256)):
+        assert g.dtype == torch.float32
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=5e-5 + 3e-5 * scale)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_reads_strided_conv_slices(card):
+    """The model's x, B and C are slices of one conv output."""
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 2, 300, 24, 64, 128
+    conv = _randn(rng, (b, s, h * p + 2 * n), torch.bfloat16, card)
+    x = conv[..., : h * p].reshape(b, s, h, p)
+    bm, cm = conv[..., h * p : h * p + n], conv[..., h * p + n :]
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, card))
+    a = -torch.exp(_randn(rng, (h,), torch.float32, card) * 0.3)
+    got = ssk.ssd_scan(x, dt, a, bm, cm)
+    want = ssk.ssd_scan_plain(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=5e-5 + 3e-5 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernels_at_head_width_80(card, dtype):
+    """Zamba2's heads: K6 causal over 2048 and a ragged 2000, K5 over a
+    1024-position cache."""
+    rng = np.random.default_rng(80)
+    for b, h, s, causal in ((1, 32, 2048, True), (2, 32, 2000, True), (1, 32, 2000, False)):
+        q, k, v = (_randn(rng, (b, h, s, 80), dtype, card) for _ in range(3))
+        fak.reset_counts()
+        got = fak.flash_attention(q, k, v, causal=causal)
+        assert fak.COUNTS == {"flash_attention": 1, "plain": 0}
+        _close(got, fak.flash_attention_plain(q, k, v, causal=causal), dtype, str(s))
+    q = _randn(rng, (4, 32, 80), dtype, card)
+    k, v = (_randn(rng, (4, 32, 1024, 80), dtype, card) for _ in range(2))
+    for pos in ([0, 5, 500, 1023], [1023] * 4, [1030, 7, 64, 999]):
+        p = torch.tensor(pos, dtype=torch.int32, device=card)
+        _close(dak.decode_attention(q, k, v, p), dak.decode_attention_plain(q, k, v, p),
+               dtype, str(pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-32b", "mamba2-130m", "zamba2-2.7b"])
 def test_model_on_the_card_matches_the_cpu(card, arch):
     cfg = get_smoke_config(arch)
     with set_backend(device="cpu"):
@@ -155,6 +234,6 @@ def test_model_on_the_card_matches_the_cpu(card, arch):
             for tok in toks:
                 logits, cache = decode_step(p, cfg, tok.to(dev), cache)
                 got.append(logits)
-            outs[dev] = [x.cpu() for x in got] + [cache["layers"]["k"].cpu()]
+            outs[dev] = [x.cpu() for x in got] + _cache_leaves(cache)
     for a, b in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)

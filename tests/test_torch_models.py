@@ -209,6 +209,6 @@ def test_init_params_draws_the_reference_rules():
 
 
 def test_other_families_wait_for_their_slice():
-    cfg = get_smoke_config("qwen1.5-4b").scaled(block_pattern="mamba2")
+    cfg = get_smoke_config("qwen1.5-4b").scaled(block_pattern="moe")
     with set_backend(device="cpu"), pytest.raises(NotImplementedError, match="dense"):
         init_params(torch.Generator().manual_seed(0), cfg)
