@@ -25,9 +25,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    to the host ``rd``, with no plain strip and no host re-run, and the
    most slots each job held live against its slot capacity;
 7. model kernels — the RMSNorm, decode-attention and flash-attention
-   kernels against their plain versions on the card, in float32 and
-   bfloat16, at the serving path's shapes, at Qwen3-32B's head layout
-   (64 query / 8 KV heads) and at ragged lengths;
+   kernels against their plain versions on the card, in float32 (flash
+   attention on the CUDA cores) and bfloat16 (on the tensor cores), at
+   the serving path's shapes, at Qwen3-32B's head layout (64 query / 8
+   KV heads), at every compiled head width, at ragged lengths (T > S and
+   T < S), through the model's strided views; decode attention with pos
+   on its split boundaries, pos 0, pos >= T and an 8192-position cache;
 8. serve parity — the port's ``ServeEngine`` on the card (kernels)
    against the port on the CPU (plain versions) on both smoke configs in
    float32: identical tokens, and the logits' largest difference;
@@ -38,22 +41,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernels, with no plain call;
 10. prefill path — ``make_prefill_step`` on 4 prompts of 2048 tokens,
     one decode step from its cache, held against a prefill over the 2049
-    tokens;
+    tokens; every flash-attention launch on the tensor cores;
 11. model timings — device times of K4/K5/K6, their plain versions and
-    one PyTorch library call each, with their bounds;
+    one PyTorch library call each, with their bounds (K4 at decode and
+    prefill rows, K5 over a full cache and at 301 keys);
 12. ssm kernels — the SSD scan kernel (K7) against its plain version at
     both SSM models' prefill shapes, ragged lengths, a batch of 1 and
     the model's strided conv slices, in float32 and bfloat16; flash and
-    decode attention at Zamba2's head width 80; then the timings of K7
-    at both prefill shapes and of K6 at head width 80;
+    decode attention at Zamba2's head width 80 (strided views, split
+    boundaries); then the timings of K7 at both prefill shapes and of K6
+    at head width 80;
 13. ssm serve parity — as 8., on the mamba2-130m and zamba2-2.7b smoke
     configs, logits within 1e-4;
 14. mamba2 / zamba2 serve — Mamba2-130M (one ``ServeEngine``) and
     Zamba2-2.7B (two behind a ``wf_torch``-routed pool) at full width,
     bf16, random seeded weights, 8 requests each, with exact K4 / K5
     launches per decode step and a profiled decode step; then each
-    model's 4 x 2048-token prefill (K7 once per Mamba2 layer, K6 once per
-    use of Zamba2's shared block) and its continuation check: 1792
+    model's 4 x 2048-token prefill (K7 once per Mamba2 layer, K6 on the
+    tensor cores once per use of Zamba2's shared block) and its
+    continuation check: 1792
     tokens prefilled and 256 decoded against the 2048-token prefill,
     within 1e-3 of the largest logit in float32, the bf16 gap reported;
 15. timings — CUDA-event times of the scheduler kernels and their plain
@@ -913,6 +919,10 @@ FAMILY_KERNELS = {
 }
 
 
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def _randn(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
@@ -948,36 +958,70 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
                                  rnk.rmsnorm_plain(x, g, cfg.norm_eps), dtype_name)
             cases.append({"kernel": "rmsnorm", "case": label, "shape": list(shape),
                           "dtype": dtype_name, "max_abs_err": err, "ok": ok})
-        for label, (b, nh, nkv, t, dh) in (
-            ("serve", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd)),
+        sms = _sms()
+        chunk, splits = dak.split_plan(SERVE_SLOTS, hkv, SERVE_MAX_LEN, sms)
+        for label, (b, nh, nkv, t, dh), pos in (
+            ("serve", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd), None),
             ("qwen3-32b heads", (SERVE_SLOTS, q3.n_heads, q3.n_kv_heads, SERVE_MAX_LEN,
-                                 q3.head_dim_)),
-            ("tail T=1000", (3, h, hkv, 1000, hd)),
+                                 q3.head_dim_), None),
+            ("tail T=1000", (3, h, hkv, 1000, hd), None),
+            ("chunk and split boundaries", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd),
+             [chunk - 1, chunk, splits * chunk - 1, splits * chunk]),
+            ("pos 0: one split", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd), [0] * SERVE_SLOTS),
+            ("pos >= T", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd),
+             [SERVE_MAX_LEN - 1, SERVE_MAX_LEN, SERVE_MAX_LEN + 1, 10**6]),
+            ("long cache T=8192", (1, q3.n_heads, q3.n_kv_heads, 8192, q3.head_dim_), None),
         ):
             q = _randn(gen, (b, nh, dh), dt)
             k, v = _randn(gen, (b, nkv, t, dh), dt), _randn(gen, (b, nkv, t, dh), dt)
-            pos = torch.randint(0, t, (b,), generator=gen, device="cuda", dtype=torch.int32)
-            pos[0] = 0
-            pos[-1] = t - 1
+            if pos is None:
+                pos = torch.randint(0, t, (b,), generator=gen, device="cuda", dtype=torch.int32)
+                pos[0] = 0
+                pos[-1] = t - 1
+            else:
+                pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
             err, ok = _model_err(dak.decode_attention(q, k, v, pos),
                                  dak.decode_attention_plain(q, k, v, pos), dtype_name)
             cases.append({"kernel": "decode_attention", "case": label,
-                          "shape": [b, nh, nkv, t, dh], "dtype": dtype_name,
-                          "max_abs_err": err, "ok": ok})
-        for label, (b, nh, nkv, sl, dh), causal in (
-            ("prefill", (PREFILL_BATCH, h, hkv, PREFILL_LEN, hd), True),
-            ("qwen3-32b heads", (1, q3.n_heads, q3.n_kv_heads, 1024, q3.head_dim_), True),
-            ("tail S=2049", (1, h, hkv, PREFILL_LEN + 1, hd), True),
-            ("tail S=2049, not causal", (1, h, hkv, PREFILL_LEN + 1, hd), False),
-        ):
+                          "shape": [b, nh, nkv, t, dh],
+                          "chunk_splits": dak.split_plan(b, nkv, t, sms),
+                          "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+        flash = [
+            ("prefill", (PREFILL_BATCH, h, hkv, PREFILL_LEN, PREFILL_LEN, hd), True),
+            ("qwen3-32b heads (GQA 8)", (1, q3.n_heads, q3.n_kv_heads, 1024, 1024,
+                                         q3.head_dim_), True),
+            ("tail S=2049", (1, h, hkv, PREFILL_LEN + 1, PREFILL_LEN + 1, hd), True),
+            ("tail S=2049, not causal", (1, h, hkv, PREFILL_LEN + 1, PREFILL_LEN + 1, hd),
+             False),
+            ("T > S, not causal", (2, 8, 2, 200, 777, hd), False),
+            ("S > T, causal", (2, 8, 2, 777, 200, hd), True),
+        ]
+        flash += [(f"hd {w}, ragged S=T=300", (2, 16, 2, 300, 300, w), True)
+                  for w in fak.HEAD_DIMS]
+        for label, (b, nh, nkv, sl, tl, dh), causal in flash:
             q = _randn(gen, (b, nh, sl, dh), dt)
-            k, v = _randn(gen, (b, nkv, sl, dh), dt), _randn(gen, (b, nkv, sl, dh), dt)
+            k, v = _randn(gen, (b, nkv, tl, dh), dt), _randn(gen, (b, nkv, tl, dh), dt)
             err, ok = _model_err(fak.flash_attention(q, k, v, causal=causal),
                                  fak.flash_attention_plain(q, k, v, causal=causal),
                                  dtype_name)
             cases.append({"kernel": "flash_attention", "case": label,
-                          "shape": [b, nh, nkv, sl, dh], "causal": causal,
-                          "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+                          "shape": [b, nh, nkv, sl, tl, dh], "causal": causal,
+                          "route": fak.route(dt), "dtype": dtype_name, "max_abs_err": err,
+                          "ok": ok})
+        # the model's layout: q, k and v as transposed (B, S, H, hd) views of
+        # one projection's rows
+        b, sl = 2, 300
+        qkv = _randn(gen, (b, sl, (h + 2 * hkv) * hd), dt)
+        q = qkv[..., : h * hd].reshape(b, sl, h, hd).transpose(1, 2)
+        k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, sl, hkv, hd).transpose(1, 2)
+        v = qkv[..., (h + hkv) * hd :].reshape(b, sl, hkv, hd).transpose(1, 2)
+        err, ok = _model_err(fak.flash_attention(q, k, v),
+                             fak.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                                       v.contiguous()), dtype_name)
+        cases.append({"kernel": "flash_attention", "case": "strided (B, S, H, hd) views",
+                      "shape": [b, h, hkv, sl, sl, hd], "causal": True,
+                      "route": fak.route(dt), "dtype": dtype_name, "max_abs_err": err,
+                      "ok": ok})
     torch.cuda.synchronize()
     for c in cases:
         worst[c["kernel"]] = max(worst[c["kernel"]], c["max_abs_err"])
@@ -1249,8 +1293,11 @@ def phase_prefill_path(params, seed: int) -> dict:
     for name in ("rmsnorm", "flash_attention"):
         if counts[name][name] == 0 or counts[name]["plain"] != 0:
             raise AssertionError(f"prefill path went around {name}: {counts}")
-    if tail_counts["flash_attention"]["flash_attention"] != cfg.n_layers:
-        raise AssertionError("the 2049-token prefill did not run K6 on every layer")
+    for label, c in (("the prefill", counts), ("the 2049-token prefill", tail_counts)):
+        k6 = c["flash_attention"]
+        if k6 != {"flash_attention": cfg.n_layers, "tensor_core": cfg.n_layers, "plain": 0}:
+            raise AssertionError(f"{label} did not run K6 on the tensor cores on every "
+                                 f"layer: {k6}")
     return counts
 
 
@@ -1324,20 +1371,23 @@ def phase_model_timings(seed: int) -> dict:
     b, t_len = SERVE_SLOTS, SERVE_MAX_LEN
     q = _randn(gen, (b, h, hd), bf16)
     k, v = _randn(gen, (b, hkv, t_len, hd), bf16), _randn(gen, (b, hkv, t_len, hd), bf16)
-    pos = torch.full((b,), t_len - 1, dtype=torch.int32, device="cuda")
-    mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
-    t = _time_three(
-        lambda: dak.decode_attention(q, k, v, pos),
-        lambda: dak.decode_attention_plain(q, k, v, pos),
-        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
-                                               enable_gqa=True),
-        200,
-    )
-    keys = int(pos.sum()) + b  # the keys t <= pos this run reads
-    bound, by = _bound(2 * (2 * b * h * hd + 2 * keys * hkv * hd) + 4 * b,
-                       4 * keys * h * hd, PEAK_BF16_FLOPS)
-    rows["decode_attention"] = {"shape": [b, h, hkv, t_len, hd], **t, "bound_ms": bound,
-                                "bound_by": by}
+    # a full cache, and the decode profile's position (301 keys, as the
+    # serve traffic's prompts of 32-256 tokens + 32 new reach)
+    for label, at in (("decode_attention", t_len - 1), ("decode_attention 301 keys", 300)):
+        pos = torch.full((b,), at, dtype=torch.int32, device="cuda")
+        mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+        t = _time_three(
+            lambda: dak.decode_attention(q, k, v, pos),
+            lambda: dak.decode_attention_plain(q, k, v, pos),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                                   enable_gqa=True),
+            200,
+        )
+        keys = int(pos.sum()) + b  # the keys t <= pos this run reads
+        bound, by = _bound(2 * (2 * b * h * hd + 2 * keys * hkv * hd) + 4 * b,
+                           4 * keys * h * hd, PEAK_BF16_FLOPS)
+        rows[label] = {"shape": [b, h, hkv, t_len, hd], "pos": at, **t, "bound_ms": bound,
+                       "bound_by": by, "chunk_splits": dak.split_plan(b, hkv, t_len, _sms())}
     b, s = PREFILL_BATCH, PREFILL_LEN
     q = _randn(gen, (b, h, s, hd), bf16)
     k, v = _randn(gen, (b, hkv, s, hd), bf16), _randn(gen, (b, hkv, s, hd), bf16)
@@ -1438,7 +1488,18 @@ def phase_ssm_kernels(seed: int) -> dict[str, float]:
             cases.append({"kernel": "flash_attention", "case": f"hd 80, {label}",
                           "shape": [b, nh, nh, sl, hd], "causal": causal,
                           "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+        b, sl, nh = 2, 500, z2.n_heads  # Zamba2's q, k, v as views of one row
+        qkv = _randn(gen, (b, sl, 3 * nh * hd), dt_)
+        q, k, v = (qkv[..., i * nh * hd : (i + 1) * nh * hd].reshape(b, sl, nh, hd)
+                   .transpose(1, 2) for i in range(3))
+        err, ok = _model_err(fak.flash_attention(q, k, v),
+                             fak.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                                       v.contiguous()), dtype_name)
+        cases.append({"kernel": "flash_attention", "case": "hd 80, strided (B, S, H, hd) views",
+                      "shape": [b, nh, nh, sl, hd], "causal": True, "dtype": dtype_name,
+                      "max_abs_err": err, "ok": ok})
         b, t = SERVE_SLOTS, SERVE_MAX_LEN
+        chunk, splits = dak.split_plan(b, z2.n_kv_heads, t, _sms())
         q = _randn(gen, (b, z2.n_heads, hd), dt_)
         k = _randn(gen, (b, z2.n_kv_heads, t, hd), dt_)
         v = _randn(gen, (b, z2.n_kv_heads, t, hd), dt_)
@@ -1447,6 +1508,9 @@ def phase_ssm_kernels(seed: int) -> dict[str, float]:
             ("pos 0", torch.zeros(b, device="cuda")),
             ("pos T-1", torch.full((b,), t - 1, device="cuda")),
             ("pos past T", torch.tensor([t + 5, 7, 300, t - 1], device="cuda")),
+            ("chunk and split boundaries",
+             torch.tensor([chunk - 1, chunk, splits * chunk - 1, splits * chunk],
+                          device="cuda")),
         ):
             pos = pos.to(torch.int32)
             err, ok = _model_err(dak.decode_attention(q, k, v, pos),
@@ -1549,6 +1613,9 @@ def phase_ssm_prefill(arch: str, params, seed: int) -> dict:
         if counts[name][name] != n:
             raise AssertionError(f"{arch} prefill: {counts[name]} {name} launches, "
                                  f"expected {n}")
+    if counts["flash_attention"]["tensor_core"] != uses:
+        raise AssertionError(f"{arch} prefill: K6 off the tensor cores: "
+                             f"{counts['flash_attention']}")
     return counts
 
 
@@ -1699,6 +1766,21 @@ def main() -> int:
     paths = [serve_counts, prefill_counts, *ssm_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0)) for k, v in model_worst.items()}
     worst_model["ssd_scan"] = ssm_worst["ssd_scan"]
+    # beside each row's main timing, the other shapes that rank the
+    # kernels: K4 at prefill rows (where it loses to F.rms_norm), K5 at the
+    # decode profile's 301 keys, K6 at Zamba2's head width 80
+    also = {
+        "rmsnorm": ("prefill rows", model_timed["rmsnorm prefill"]),
+        "decode_attention": ("301 keys", model_timed["decode_attention 301 keys"]),
+        "flash_attention": ("hd 80", ssm_timed["flash_attention hd 80"]),
+    }
+    k6 = sum(c["flash_attention"]["flash_attention"] for c in paths)
+    k6_tc = sum(c["flash_attention"]["tensor_core"] for c in paths)
+    design = {
+        "decode_attention": {"split-KV, merged in the same launch": "float32 and bfloat16"},
+        "flash_attention": {"tensor cores (wgmma + TMA)": f"bfloat16: {k6_tc} launches",
+                            "CUDA cores": f"float32: {k6 - k6_tc} launches"},
+    }
     for name, replaces, row in (
         ("rmsnorm", "src/repro/kernels/rmsnorm.py:40", model_timed["rmsnorm decode"]),
         ("decode_attention", "src/repro/kernels/decode_attention.py:67",
@@ -1707,7 +1789,7 @@ def main() -> int:
          model_timed["flash_attention"]),
         ("ssd_scan", "src/repro/kernels/ssd_scan.py:80", ssm_timed["ssd_scan mamba2-130m"]),
     ):
-        summary.append({
+        entry = {
             "name": name,
             "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1719,7 +1801,16 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-        })
+            "shape": row["shape"],
+        }
+        if name in design:
+            entry["routes"] = design[name]
+        if name in also:
+            label, other = also[name]
+            entry["also"] = {"at": label, "shape": other["shape"], "ms": other["kernel_ms"],
+                             "plain_ms": other["plain_ms"], "bound_ms": other["bound_ms"],
+                             "library_ms": other["library_ms"]}
+        summary.append(entry)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

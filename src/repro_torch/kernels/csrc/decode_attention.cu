@@ -1,5 +1,6 @@
 // Single-token decode attention for Hopper (sm_90a): one query token per
-// sequence against its KV cache, grouped-query, masked past `pos`.
+// sequence against its KV cache, grouped-query, masked past `pos`, with
+// the cache split over many blocks (split-KV).
 //
 // Replaces src/repro/kernels/decode_attention.py::_decode_kernel (launched
 // by decode_attention_pallas on a (batch, q_heads) grid, streaming 512-row
@@ -8,26 +9,40 @@
 // Contract: q (B, H, hd), k and v (B, Hkv, T, hd), out (B, H, hd), all
 // contiguous and of one dtype (float or bfloat16); pos (B,) int32, the
 // last valid cache index of each sequence.  Query head h reads KV head
-// h / (H / Hkv).  Keys t <= pos take part; the rest are skipped, which is
-// the reference's mask (their logit is -1e30, so their weight is exactly
-// 0).  Any T: the cache length need not be a multiple of a slice.  Logits,
-// softmax and the weighted sum of V run in fp32; the result is cast back
-// to the input dtype.
+// h / (H / Hkv).  Keys t <= min(pos, T - 1) take part; the rest are never
+// read, which is the reference's mask (their logit is -1e30, so their
+// weight is exactly 0).  Any T; hd <= 128; at most 8 query heads per KV
+// head.  Logits, softmax and the weighted sum of V run in fp32; the result
+// is cast back to the input dtype, and is 0 for pos < 0 (no key), as the
+// TPU kernel gives.
 //
 // What bounds it on this card: the cache is read once, 2 * T * hd
 // elements per (sequence, KV head), with about 4 * G operations per
 // element read, so device-memory bandwidth bounds it.
 //
-// What the design does about it: one block per (sequence, KV head) serves
-// all G query heads of the group, so the cache is read once, not G times
-// as the TPU grid reads it.  Each of the block's 8 warps takes its own
-// keys, U at a time, every lane loading its hd / 32 contiguous elements
-// of each key and value row in one vector load, so a warp keeps U rows of
-// K and V in flight.  A warp keeps its own online-softmax state (running
-// max, sum, accumulator) per query head; the 8 states are merged through
-// shared memory at the end.  Only slices up to pos are read.  Splitting
-// long caches across blocks (split-KV) and tensor-core dot products are
-// later work.
+// What the design does about it: the grid is (splits, Hkv, B), sized by
+// the caller from B, Hkv and T (never from pos, which lies on the device)
+// so that every block is resident at once: a serving batch of 4 x 20 KV
+// heads runs 6 blocks per head, 480 in all, on 132 SMs.  The cache is cut
+// into chunks of `chunk` keys dealt round-robin to the splits, so block s
+// walks chunks s, s + splits, ... up to pos: a short prefix still spreads
+// over as many blocks as it has chunks, and a long one keeps each block
+// streaming.  One block serves all G query heads of its (sequence, KV
+// head), so each cache row is read once; its 4 warps read their keys with
+// 16-byte loads, a row spread over the fewest lanes that hold it (16
+// lanes for 128 bf16), so a warp reads 2 rows per load and keeps U loads
+// of K and V in flight.  Each key slot keeps its own online-softmax state
+// per query head; the block merges them (warp shuffles, then shared
+// memory) into one fp32 partial (m, l, acc) in a scratch buffer.  A block
+// whose first chunk starts past pos writes an empty partial (m = -inf,
+// l = 0, acc = 0) and reads no key.  The merge runs in the same launch:
+// each block takes a ticket from a per-(sequence, KV head) counter after
+// its partial is written; the block that draws the last ticket merges the
+// partials by log-sum-exp in one pass (each thread one output element,
+// its loads of every partial independent), writes the output and resets
+// the counter to 0 for the next launch.  So there is one launch per layer, and the counters stay valid
+// from launch to launch (and under a CUDA graph) as long as launches
+// sharing them run one at a time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,10 +50,11 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHeadDim = 128;
-constexpr float kNegInf = -1e30f;
+constexpr int kMaxGroup = 8;
+constexpr int kMaxSplits = 64;  // blocks per (sequence, KV head)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
@@ -74,212 +90,299 @@ struct alignas(16) Raw<16> {
   uint4 x;
 };
 
-// EPL contiguous elements in one load; p is aligned to EPL * sizeof(T)
+// EPL contiguous elements of T, loaded at once (aligned to their size)
 template <typename T, int EPL>
-__device__ __forceinline__ void load_vec(const T* p, float (&out)[EPL]) {
-  using R = Raw<(int)(EPL * sizeof(T))>;
-  const R raw = *reinterpret_cast<const R*>(p);
-  const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int e = 0; e < EPL; ++e) out[e] = to_float(v[e]);
+using Vec = Raw<(int)(EPL * sizeof(T))>;
+
+template <typename T, int EPL>
+__device__ __forceinline__ float elem(const Vec<T, EPL>& raw, int e) {
+  return to_float(reinterpret_cast<const T*>(&raw)[e]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// weight of a softmax state with max m against the common max mt (0 for
+// an empty state, m = -inf)
+__device__ __forceinline__ float rescale(float m, float mt) {
+  return m == -INFINITY ? 0.f : expf(m - mt);
 }
 
 // NG: most query heads per KV head this instantiation serves (G <= NG);
-// EPL: elements of a head row per lane (hd <= 32 * EPL, hd % EPL == 0)
+// EPL: elements of a head row per lane and load (hd % EPL == 0, and the
+// row's hd / EPL lanes, rounded up to a power of two, fit one warp)
 template <typename T, int NG, int EPL>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int* __restrict__ pos,
-                            T* __restrict__ out, int n_heads, int n_kv_heads,
-                            int t_len, int hd, int group, float scale) {
-  constexpr int U = NG >= 4 ? 4 : 8;  // keys a warp has in flight
+                            T* __restrict__ out, float* __restrict__ part,
+                            int* __restrict__ tickets, int n_heads, int n_kv_heads,
+                            int t_len, int hd, int group, int chunk, int splits,
+                            int lanes_log2, float scale) {
+  constexpr int U = NG <= 2 ? 8 : 4;  // loads of K and of V a lane has in flight
   __shared__ float sm_m[kWarps][NG];
   __shared__ float sm_l[kWarps][NG];
   __shared__ float sm_acc[kWarps][NG][kMaxHeadDim];
+  __shared__ int sm_last;
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d0 = lane * EPL;
+  const int row_lanes = 1 << lanes_log2;      // lanes holding one cache row
+  const int rows_per_warp = 32 >> lanes_log2;  // key slots of a warp
+  const int sub = lane >> lanes_log2;          // this lane's key slot in its warp
+  const int d0 = (lane & (row_lanes - 1)) * EPL;
   const bool lane_on = d0 < hd;
   const int last = min(pos[b], t_len - 1);  // last key that takes part
+  const size_t bh = (size_t)b * n_kv_heads + kvh;
+  const int row_p = hd + 2;  // a partial row: acc[hd], m, l
+  float* pb = part + (bh * splits + split) * group * row_p;
 
-  const size_t kv_base = ((size_t)b * n_kv_heads + kvh) * (size_t)t_len * hd;
-  const T* kb = k + kv_base;
-  const T* vb = v + kv_base;
-
-  float qr[NG][EPL];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    float tmp[EPL];
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) tmp[e] = 0.f;
-    if (g < group && lane_on) {
-      load_vec<T, EPL>(q + ((size_t)b * n_heads + (size_t)kvh * group + g) * hd + d0, tmp);
-    }
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[g][e] = tmp[e] * scale;
-  }
-
-  float m[NG], l[NG], acc[NG][EPL];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
-  }
-
-  for (int t0 = warp * U; t0 <= last; t0 += kWarps * U) {
-    float kr[U][EPL], vr[U][EPL];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) kr[u][e] = vr[u][e] = 0.f;
-      const int t = t0 + u;
-      if (t <= last && lane_on) {
-        load_vec<T, EPL>(kb + (size_t)t * hd + d0, kr[u]);
-        load_vec<T, EPL>(vb + (size_t)t * hd + d0, vr[u]);
-      }
-    }
+  if (split * chunk <= last) {
+    const size_t kv_base = bh * (size_t)t_len * hd;
+    const T* kb = k + kv_base;
+    const T* vb = v + kv_base;
+    float qr[NG][EPL];
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      if (g >= group) break;
-      float s[U];
-      float mx = m[g];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) dot += qr[g][e] * kr[u][e];
-        dot = warp_sum(dot);
-        s[u] = t0 + u <= last ? dot : kNegInf;
-        mx = fmaxf(mx, s[u]);
+      Vec<T, EPL> raw{};
+      if (g < group && lane_on) {
+        raw = *reinterpret_cast<const Vec<T, EPL>*>(
+            q + ((size_t)b * n_heads + (size_t)kvh * group + g) * hd + d0);
       }
-      const float corr = expf(m[g] - mx);
-      l[g] *= corr;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+      for (int e = 0; e < EPL; ++e) qr[g][e] = elem<T, EPL>(raw, e) * scale;
+    }
+
+    float m[NG], l[NG], acc[NG][EPL];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = expf(s[u] - mx);
-        l[g] += p;
+    for (int g = 0; g < NG; ++g) {
+      m[g] = -INFINITY;
+      l[g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] += p * vr[u][e];
+      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    }
+
+    const int slots = kWarps * rows_per_warp;
+    // this block's chunks, then within each a warp-uniform loop (its lanes
+    // shuffle together) in which key slot `sub` takes keys
+    // t0 + sub + u * slots
+    for (int c0 = split * chunk; c0 <= last; c0 += splits * chunk) {
+      const int k1 = min(c0 + chunk, last + 1);
+      for (int t0 = c0 + warp * rows_per_warp; t0 < k1; t0 += U * slots) {
+        Vec<T, EPL> kr[U], vr[U];  // raw: converted where used
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          kr[u] = vr[u] = Vec<T, EPL>{};
+          const int t = t0 + sub + u * slots;
+          if (t < k1 && lane_on) {
+            kr[u] = *reinterpret_cast<const Vec<T, EPL>*>(kb + (size_t)t * hd + d0);
+            vr[u] = *reinterpret_cast<const Vec<T, EPL>*>(vb + (size_t)t * hd + d0);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if (g >= group) break;
+          float s[U];
+          float mx = m[g];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            float dot = 0.f;
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) dot += qr[g][e] * elem<T, EPL>(kr[u], e);
+            for (int off = row_lanes >> 1; off > 0; off >>= 1)
+              dot += __shfl_xor_sync(0xffffffffu, dot, off);
+            s[u] = t0 + sub + u * slots < k1 ? dot : -INFINITY;
+            mx = fmaxf(mx, s[u]);
+          }
+          const float corr = rescale(m[g], mx);
+          l[g] *= corr;
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const float p = rescale(s[u], mx);  // 0 for a key past k1
+            l[g] += p;
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[g][e] += p * elem<T, EPL>(vr[u], e);
+          }
+          m[g] = mx;
+        }
       }
-      m[g] = mx;
+    }
+
+    // the warp's key slots into slot 0, then the warps into one partial
+    for (int off = row_lanes; off < 32; off <<= 1) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+        const float mt = fmaxf(m[g], mo);
+        const float fa = rescale(m[g], mt);
+        const float fb = rescale(mo, mt);
+        l[g] = l[g] * fa + lo * fb;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+          acc[g][e] = acc[g][e] * fa + ao * fb;
+        }
+        m[g] = mt;
+      }
+    }
+    if (sub == 0) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        if (lane == 0) {
+          sm_m[warp][g] = m[g];
+          sm_l[warp][g] = l[g];
+        }
+        if (lane_on) {
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+        }
+      }
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
+      const int g = idx / hd;
+      const int d = idx - g * hd;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w][g]);
+      float lt = 0.f, o = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = rescale(sm_m[w][g], mt);
+        lt += sm_l[w][g] * f;
+        o += sm_acc[w][g][d] * f;
+      }
+      pb[g * row_p + d] = o;
+      if (d == 0) {
+        pb[g * row_p + hd] = mt;
+        pb[g * row_p + hd + 1] = lt;
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < group * row_p; idx += kThreads) {
+      pb[idx] = idx % row_p == hd ? -INFINITY : 0.f;
     }
   }
 
-#pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
-    }
-    if (lane_on) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-    }
-  }
+  // the last block of this (sequence, KV head) to finish merges
+  __threadfence();
   __syncthreads();
+  if (threadIdx.x == 0) sm_last = atomicAdd(&tickets[bh], 1) == splits - 1;
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  // one pass over the splits' partials, their loads independent of one
+  // another (an empty partial is m = -inf, l = 0, acc = 0)
+  const float* pbh = part + bh * splits * group * row_p;
   for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
     const int g = idx / hd;
     const int d = idx - g * hd;
-    float mt = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mt = fmaxf(mt, sm_m[w][g]);
-    float lt = 0.f, o = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sm_m[w][g] - mt);
-      lt += sm_l[w][g] * f;
-      o += sm_acc[w][g][d] * f;
+    float mt = -INFINITY, lt = 0.f, o = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < splits; ++sp) {
+      const float* ps = pbh + ((size_t)sp * group + g) * row_p;
+      const float m = __ldcg(ps + hd);
+      const float l = __ldcg(ps + hd + 1);
+      const float a = __ldcg(ps + d);
+      const float mn = fmaxf(mt, m);
+      const float fa = rescale(mt, mn);
+      const float fb = rescale(m, mn);
+      lt = lt * fa + l * fb;
+      o = o * fa + a * fb;
+      mt = mn;
     }
     out[((size_t)b * n_heads + (size_t)kvh * group + g) * hd + d] =
-        from_float<T>(o / fmaxf(lt, 1e-30f));
+        from_float<T>(lt > 0.f ? o / lt : 0.f);
   }
+  if (threadIdx.x == 0) tickets[bh] = 0;
 }
+
+struct Args {
+  const void *q, *k, *v;
+  const int* pos;
+  void* out;
+  float* part;
+  int* tickets;
+  int batch, n_heads, n_kv_heads, t_len, hd, group, chunk, splits;
+  float scale;
+};
 
 template <typename T, int NG, int EPL>
-void launch_one(const void* q, const void* k, const void* v, const int* pos,
-                void* out, int batch, int n_heads, int n_kv_heads, int t_len,
-                int hd, int group, float scale, cudaStream_t s) {
-  decode_attention_kernel<T, NG, EPL><<<dim3(n_kv_heads, batch), kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      pos, static_cast<T*>(out), n_heads, n_kv_heads, t_len, hd, group, scale);
-}
-
-template <typename T, int NG>
-int launch_epl(const void* q, const void* k, const void* v, const int* pos,
-               void* out, int batch, int n_heads, int n_kv_heads, int t_len,
-               int hd, int group, float scale, cudaStream_t s) {
-  if (hd <= 32) {
-    launch_one<T, NG, 1>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                         group, scale, s);
-  } else if (hd <= 64) {
-    if (hd % 2) return (int)cudaErrorInvalidValue;
-    launch_one<T, NG, 2>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                         group, scale, s);
-  } else {
-    if (hd % 4) return (int)cudaErrorInvalidValue;
-    launch_one<T, NG, 4>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                         group, scale, s);
-  }
+int launch_one(const Args& a, cudaStream_t s) {
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) * EPL < a.hd) ++lanes_log2;
+  if (lanes_log2 > 5) return (int)cudaErrorInvalidValue;
+  decode_attention_kernel<T, NG, EPL>
+      <<<dim3(a.splits, a.n_kv_heads, a.batch), kThreads, 0, s>>>(
+          static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+          a.pos, static_cast<T*>(a.out), a.part, a.tickets, a.n_heads, a.n_kv_heads, a.t_len,
+          a.hd, a.group, a.chunk, a.splits, lanes_log2, a.scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NG>
+int launch_epl(const Args& a, int epl, cudaStream_t s) {
+  switch (epl) {
+    case 1:
+      return launch_one<T, NG, 1>(a, s);
+    case 2:
+      return launch_one<T, NG, 2>(a, s);
+    case 4:
+      return launch_one<T, NG, 4>(a, s);
+    case 8:
+      if constexpr (sizeof(T) == 2) return launch_one<T, NG, 8>(a, s);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-           int batch, int n_heads, int n_kv_heads, int t_len, int hd, int group,
-           float scale, cudaStream_t s) {
-  if (group <= 1)
-    return launch_epl<T, 1>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                            group, scale, s);
-  if (group <= 2)
-    return launch_epl<T, 2>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                            group, scale, s);
-  if (group <= 4)
-    return launch_epl<T, 4>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                            group, scale, s);
-  return launch_epl<T, 8>(q, k, v, pos, out, batch, n_heads, n_kv_heads, t_len, hd,
-                          group, scale, s);
+int launch(const Args& a, int epl, cudaStream_t s) {
+  if (a.group <= 1) return launch_epl<T, 1>(a, epl, s);
+  if (a.group <= 2) return launch_epl<T, 2>(a, epl, s);
+  if (a.group <= 4) return launch_epl<T, 4>(a, epl, s);
+  return launch_epl<T, 8>(a, epl, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Launches on `stream` and returns
-// cudaGetLastError() after the launch (0 on success); nothing here
-// synchronises.  Refuses (cudaErrorInvalidValue) what the kernel does not
-// take: hd past 128 or not a multiple of its per-lane width, more than 8
-// query heads per KV head, H not a multiple of Hkv.
+// dtype: 0 = float32, 1 = bfloat16.  epl: elements of a head row each lane
+// loads at once (the wrapper's choice: 16 bytes where hd allows).  The
+// caller gives the split plan (chunks of `chunk` keys dealt to `splits`
+// blocks per (sequence, KV head)), a float32 scratch of
+// B * Hkv * splits * G * (hd + 2) elements, and an int32 ticket counter
+// per (sequence, KV head), 0 before the launch (the kernel leaves it 0).
+// Launches on `stream` and returns cudaGetLastError() after the launch (0
+// on success); nothing here synchronises.  Refuses (cudaErrorInvalidValue)
+// what the kernel does not take: hd past 128, not a multiple of epl, or
+// wider than 32 lanes of epl; more than 8 query heads per KV head; H not a
+// multiple of Hkv; more than 64 splits.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* pos, void* out, int batch,
-                                       int n_heads, int n_kv_heads, int t_len,
-                                       int hd, float scale, int dtype,
+                                       const void* pos, void* out, void* part,
+                                       void* tickets, int batch, int n_heads,
+                                       int n_kv_heads, int t_len, int hd, int chunk,
+                                       int splits, int epl, float scale, int dtype,
                                        void* stream) {
-  if (batch < 1 || n_kv_heads < 1 || n_heads % n_kv_heads || t_len < 1 || hd < 1 ||
-      hd > kMaxHeadDim || batch > 65535) {
+  if (batch < 1 || batch > 65535 || n_kv_heads < 1 || n_kv_heads > 65535 ||
+      n_heads % n_kv_heads || t_len < 1 || hd < 1 || hd > kMaxHeadDim || epl < 1 ||
+      hd % epl || splits < 1 || splits > kMaxSplits || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int group = n_heads / n_kv_heads;
-  if (group < 1 || group > 8) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
+               static_cast<int*>(tickets), batch, n_heads, n_kv_heads, t_len, hd, group,
+               chunk, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* p = static_cast<const int*>(pos);
   switch (dtype) {
     case 0:
-      return launch<float>(q, k, v, p, out, batch, n_heads, n_kv_heads, t_len, hd,
-                           group, scale, s);
+      return launch<float>(a, epl, s);
     case 1:
-      return launch<__nv_bfloat16>(q, k, v, p, out, batch, n_heads, n_kv_heads,
-                                   t_len, hd, group, scale, s);
+      return launch<__nv_bfloat16>(a, epl, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

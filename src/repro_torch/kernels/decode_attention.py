@@ -3,9 +3,12 @@
 Counterpart of ``repro/kernels/decode_attention.py``.  The TPU kernel
 ``_decode_kernel`` (launched by ``decode_attention_pallas`` on a
 ``(batch, q_heads)`` grid over 512-row KV slices) is
-``csrc/decode_attention.cu`` here: one block per (sequence, KV head)
-serving the group's query heads, any cache length, built from source at
-first use (:mod:`._build`).
+``csrc/decode_attention.cu`` here, built from source at first use
+(:mod:`._build`): the cache is split over a grid of ``(splits, Hkv, B)``
+blocks (:func:`split_plan`, from the shapes alone), each serving the
+group's query heads over its 64-key chunks, and the last block of each
+(sequence, KV head) to finish merges the blocks' partial softmax states
+in the same launch.
 
 Both functions take ``q`` ``(B, H, hd)`` (one token per sequence),
 ``k``/``v`` ``(B, Hkv, T, hd)`` — the port's KV-cache layout — and
@@ -21,6 +24,10 @@ head ``h`` reads KV head ``h // (H // Hkv)``.
   For ``pos < 0`` (no valid key, which no caller passes) the two differ:
   the plain version averages every value row, the kernel returns 0, as
   the TPU kernel does.
+
+The kernel's merge finds the last block of a (sequence, KV head) by a
+ticket counter that this module keeps per device and the kernel resets
+to 0; launches that share the counters run one at a time (one stream).
 
 ``COUNTS`` holds plain integers: ``decode_attention`` counts kernel
 launches, ``plain`` counts calls of the plain version.
@@ -44,12 +51,20 @@ __all__ = [
     "NEG_INF",
     "decode_attention",
     "decode_attention_plain",
+    "lane_width",
     "reset_counts",
+    "split_plan",
 ]
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the kernel's per-warp accumulators hold one head row
+MAX_HEAD_DIM = 128  # the kernel's per-lane accumulators hold one head row
 MAX_GROUP = 8  # query heads per KV head one block serves
+CHUNK = 64  # keys a block takes at a time: one load of K and V per lane
+MAX_SPLITS = 64  # blocks per (sequence, KV head): the length of the merge's loop
+BLOCKS_PER_SM = 4  # the kernel's residency at <= 128 registers a thread
+VEC_BYTES = 16  # the widest load of a head row's slice per lane
+
+_TICKETS: dict[int, torch.Tensor] = {}  # device index -> int32 counters, all 0
 
 COUNTS = {"decode_attention": 0, "plain": 0}
 
@@ -75,9 +90,42 @@ def decode_attention_plain(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def _lane_width(hd: int) -> int:
-    """Elements of a head row each lane loads at once (the kernel's EPL)."""
-    return 1 if hd <= 32 else 2 if hd <= 64 else 4
+def split_plan(b: int, hkv: int, t: int, sms: int) -> tuple[int, int]:
+    """``(chunk, splits)`` for B sequences of Hkv KV heads over a cache of
+    ``t`` positions on a card of ``sms`` SMs: chunks of ``chunk`` keys,
+    dealt round-robin to ``splits`` blocks per (sequence, KV head).  As
+    many splits as the grid can hold resident at once (4 blocks per SM),
+    at most one per chunk and 64 in all; at least one.  So a 4 x 20-head
+    serving batch runs 6 splits (480 blocks on 132 SMs) at any cache
+    length.  It reads shapes only, never ``pos``, which lies on the
+    device."""
+    chunks = -(-t // CHUNK)
+    return CHUNK, max(1, min(chunks, MAX_SPLITS, BLOCKS_PER_SM * sms // (b * hkv)))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def lane_width(hd: int, itemsize: int) -> int | None:
+    """Elements of a head row each lane loads at once: the widest load of
+    at most 16 bytes that divides ``hd`` with the row on at most 32 lanes;
+    None where there is none (``hd`` past 128, or odd past 32)."""
+    for nbytes in (VEC_BYTES, VEC_BYTES // 2, VEC_BYTES // 4, VEC_BYTES // 8):
+        epl = nbytes // itemsize
+        if epl >= 1 and hd % epl == 0 and hd <= 32 * epl and hd <= MAX_HEAD_DIM:
+            return epl
+    return None
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    buf = _TICKETS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = _TICKETS[device.index] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=device
+        )
+    return buf
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor) -> None:
@@ -104,7 +152,7 @@ def _launcher():
     fn = _build.library("decode_attention").decode_attention_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -120,29 +168,36 @@ def decode_attention(
         return decode_attention_plain(q, k, v, pos)
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    if hd > MAX_HEAD_DIM or hd % _lane_width(hd) or h // hkv > MAX_GROUP:
+    epl = lane_width(hd, q.element_size())
+    if epl is None or h // hkv > MAX_GROUP:
         raise ValueError(
-            f"decode_attention: the kernel takes hd <= {MAX_HEAD_DIM} (a multiple "
-            f"of {_lane_width(hd)}) and <= {MAX_GROUP} query heads per KV head; "
-            f"got hd={hd}, group={h // hkv}"
+            f"decode_attention: the kernel takes hd <= {MAX_HEAD_DIM} (odd only up to 32) "
+            f"and <= {MAX_GROUP} query heads per KV head; got hd={hd}, group={h // hkv}"
         )
     if not all(x.is_contiguous() for x in (q, k, v, pos)):
         raise ValueError("decode_attention: q, k, v and pos must be contiguous")
-    align = _lane_width(hd) * q.element_size()
+    align = epl * q.element_size()
     if any(x.data_ptr() % align for x in (q, k, v)):
         raise ValueError(f"decode_attention: q, k and v must be {align}-byte aligned")
+    chunk, splits = split_plan(b, hkv, t, _sms(q.device.index))
     out = torch.empty_like(q)
+    part = torch.empty(b * splits * h * (hd + 2), dtype=torch.float32, device=q.device)
     err = _launcher()(
         q.data_ptr(),
         k.data_ptr(),
         v.data_ptr(),
         pos.data_ptr(),
         out.data_ptr(),
+        part.data_ptr(),
+        _tickets(q.device, b * hkv).data_ptr(),
         b,
         h,
         hkv,
         t,
         hd,
+        chunk,
+        splits,
+        epl,
         float(hd**-0.5),
         code,
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -1,0 +1,163 @@
+"""The attention kernels' wrappers on the CPU: what they decide in Python
+before a launch, and K5's split-KV arithmetic.
+
+- the split plan of decode attention (K5) from (B, Hkv, T): every block
+  resident at once, at most one per 64-key chunk, a serving batch
+  filling the card;
+- the head-row load width K5 takes per lane;
+- the dtype -> kernel rule of flash attention (K6): bf16 on the tensor
+  cores, float32 on the CUDA cores;
+- TMA's refusals: a base address or stride off 16 bytes, a strided head
+  dim;
+- a PyTorch mirror of K5's chunked partials and their log-sum-exp merge
+  (empty chunks included), held against the plain version at 1e-6 in
+  float32 (the sums run in another order).
+
+Nothing here launches or builds a kernel.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import decode_attention as dak
+from repro_torch.kernels import flash_attention as fak
+
+SMS = 132  # an H100's streaming multiprocessors
+
+
+@pytest.mark.parametrize("b,hkv", [(4, 20), (4, 32), (1, 8), (64, 8), (1000, 1)])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 300, 1024, 2048, 2304, 8192, 100_000])
+def test_split_plan_deals_every_chunk_to_a_resident_block(b, hkv, t):
+    chunk, splits = dak.split_plan(b, hkv, t, SMS)
+    assert chunk == dak.CHUNK
+    assert 1 <= splits <= min(-(-t // chunk), dak.MAX_SPLITS)
+    # all blocks resident at once, where one block per head fits
+    assert b * hkv * splits <= max(dak.BLOCKS_PER_SM * SMS, b * hkv)
+
+
+def test_split_plan_fills_the_card_at_the_serving_shape():
+    """4 slots x 20 KV heads at 1024 positions, and one sequence of 8 KV
+    heads over 8192: at least two blocks per SM, all resident."""
+    assert dak.split_plan(4, 20, 1024, SMS) == (64, 6)
+    assert 4 * 20 * 6 >= 2 * SMS
+    _, splits = dak.split_plan(1, 8, 8192, SMS)
+    assert 2 * SMS <= 8 * splits <= dak.BLOCKS_PER_SM * SMS
+
+
+@pytest.mark.parametrize(
+    "hd,itemsize,want",
+    [(128, 2, 8), (96, 2, 8), (80, 2, 8), (16, 2, 8), (20, 2, 4), (30, 2, 2), (31, 2, 1),
+     (128, 4, 4), (80, 4, 4), (30, 4, 2), (31, 4, 1), (33, 2, None), (66, 2, None),
+     (136, 2, None), (132, 4, None)],
+)
+def test_lane_width(hd, itemsize, want):
+    assert dak.lane_width(hd, itemsize) == want
+
+
+def test_flash_attention_route_is_by_dtype():
+    assert fak.route(torch.bfloat16) == "tensor_core"
+    assert fak.route(torch.float32) == "cuda_core"
+    with pytest.raises(TypeError):
+        fak.route(torch.float16)
+
+
+def test_flash_attention_cpu_tensors_take_the_plain_version():
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, 16)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    fak.reset_counts()
+    fak.flash_attention(q, k, v)
+    assert fak.COUNTS == {"flash_attention": 0, "tensor_core": 0, "plain": 1}
+
+
+def test_tma_strides_of_dense_and_transposed_tensors():
+    x = torch.zeros(2, 4, 50, 128, dtype=torch.bfloat16)
+    assert fak.tma_strides("q", x) == (4 * 50 * 128, 50 * 128, 128)
+    y = torch.zeros(2, 50, 12, 80, dtype=torch.bfloat16)[:, :, :4]  # a slice of wider rows
+    assert fak.tma_strides("q", y.transpose(1, 2)) == (50 * 12 * 80, 80, 12 * 80)
+
+
+def test_tma_strides_fill_dims_of_length_one():
+    """A dimension of length 1 is never stepped over: it gets the dense
+    stride whatever its own."""
+    x = torch.zeros(64, dtype=torch.bfloat16).as_strided((1, 1, 4, 16), (3, 5, 16, 1))
+    assert fak.tma_strides("k", x) == (64, 64, 16)
+
+
+def test_tma_strides_refuse_what_tma_cannot_read():
+    flat = torch.zeros(2 * 4 * 64 * 64 + 8, dtype=torch.bfloat16)
+    base = flat.data_ptr() % fak.TMA_BYTES
+    start = (fak.TMA_BYTES - base) // 2 % 8  # the first 16-byte aligned element
+    aligned = flat[start : start + 2 * 4 * 64 * 64].view(2, 4, 64, 64)
+    fak.tma_strides("q", aligned)  # aligned: taken
+    off = flat[start + 1 : start + 1 + 2 * 4 * 64 * 64].view(2, 4, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        fak.tma_strides("q", off)
+    wide = torch.zeros(2, 4, 64, 68, dtype=torch.bfloat16)[..., :64]  # 136-byte rows
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        fak.tma_strides("k", wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        fak.tma_strides("v", torch.zeros(2, 4, 128, 64, dtype=torch.bfloat16).transpose(2, 3))
+
+
+def _split_kv_mirror(q, k, v, pos):
+    """K5's arithmetic in PyTorch: the 64-key chunks of ``split_plan``
+    dealt round-robin to the splits; per split the partial (m, l, acc)
+    over its keys t <= pos (an empty split gives m = -inf, l = 0,
+    acc = 0), then the splits merged by log-sum-exp; 0 where no key takes
+    part."""
+    b, h, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    chunk, splits = dak.split_plan(b, hkv, t, SMS)
+    g = h // hkv
+    qg = q.reshape(b, hkv, g, hd) * hd**-0.5
+    last = torch.minimum(pos, torch.tensor(t - 1))
+    ms, ls, accs = [], [], []
+    for s in range(splits):
+        keys = torch.arange(t)
+        keys = keys[(keys // chunk) % splits == s]
+        logits = torch.einsum("bngh,bnth->bngt", qg, k[:, :, keys])
+        valid = (keys[None, :] <= last[:, None])[:, None, None, :]
+        logits = torch.where(valid, logits, -torch.inf)
+        m = logits.amax(-1)
+        p = torch.where(valid, torch.exp(logits - m.clamp(min=-1e30)[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bngt,bnth->bngh", p, v[:, :, keys]))
+    m, l, acc = torch.stack(ms), torch.stack(ls), torch.stack(accs)
+    top = m.amax(0)
+    w = torch.where(m == -torch.inf, 0.0, torch.exp(m - top.clamp(min=-1e30)))
+    total = (w * l).sum(0)
+    out = (w[..., None] * acc).sum(0) / torch.where(total > 0, total, 1.0)[..., None]
+    return out.reshape(b, h, hd)
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,t,hd",
+    [(4, 8, 8, 1024, 64), (2, 16, 2, 300, 32), (1, 8, 1, 4100, 16), (3, 4, 4, 130, 8),
+     (8, 160, 20, 3000, 16)],
+)
+def test_split_kv_mirror_matches_the_plain_version(b, h, hkv, t, hd):
+    rng = np.random.default_rng(t + hd)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    chunk, splits = dak.split_plan(b, hkv, t, SMS)
+    assert splits > 1
+    # pos 0 (every split but the first empty), on and past a chunk
+    # boundary, past the first round of chunks, the last key, past the
+    # cache
+    for pos in ([0] * b, [chunk - 1] * b, [chunk] * b, [splits * chunk + 1] * b,
+                [t - 1] * b, [t + 7] * b, rng.integers(0, t, b).tolist()):
+        p = torch.tensor(pos, dtype=torch.int32)
+        np.testing.assert_allclose(_split_kv_mirror(q, k, v, p),
+                                   dak.decode_attention_plain(q, k, v, p), atol=1e-6,
+                                   err_msg=str(pos))
+
+
+def test_split_kv_mirror_gives_zero_without_keys():
+    """pos < 0: every chunk is empty and the kernel's result is 0."""
+    q, k, v = torch.ones(1, 2, 8), torch.ones(1, 2, 100, 8), torch.ones(1, 2, 100, 8)
+    out = _split_kv_mirror(q, k, v, torch.tensor([-1], dtype=torch.int32))
+    assert torch.equal(out, torch.zeros(1, 2, 8))

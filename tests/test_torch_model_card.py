@@ -1,6 +1,8 @@
 """The model kernels (RMSNorm, decode and flash attention, the SSD scan)
 against their plain versions, and the dense, Mamba2 and Zamba2 models on
-the card against the CPU.
+the card against the CPU.  Flash attention runs bf16 on the tensor cores
+and float32 on the CUDA cores; decode attention splits the cache over
+blocks (split-KV) and merges in the same launch.
 
 Needs a CUDA device (the kernels have no CPU mode), so it skips
 elsewhere; run it on a GPU machine with
@@ -57,6 +59,12 @@ def _close(got, want, dtype, msg=""):
     )
 
 
+def _flash_counts(dtype, n=1) -> dict:
+    """K6's counts after n launches: bf16 takes the tensor cores."""
+    return {"flash_attention": n, "tensor_core": n if dtype == torch.bfloat16 else 0,
+            "plain": 0}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(card, dtype):
@@ -107,6 +115,53 @@ def test_decode_attention_kernel_ignores_keys_past_pos(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,h,hkv,t,hd",
+    [(4, 20, 20, 1024, 128), (1, 64, 8, 8192, 128), (2, 16, 2, 3000, 96), (3, 32, 32, 700, 80),
+     (2, 8, 1, 64, 64), (1, 4, 4, 65, 16)],
+)
+def test_decode_attention_split_kv_edges(card, b, h, hkv, t, hd, dtype):
+    """Positions on and around the chunk boundaries of ``split_plan``, pos
+    0 (every split but the first empty), past the first round of chunks,
+    pos past T, the last key, and the ticket counters back at 0 after
+    each launch."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    chunk, splits = dak.split_plan(b, hkv, t, sms)
+    rng = np.random.default_rng(t + hd)
+    q = _randn(rng, (b, h, hd), dtype, card)
+    k = _randn(rng, (b, hkv, t, hd), dtype, card)
+    v = _randn(rng, (b, hkv, t, hd), dtype, card)
+    edges = [0, chunk - 1, chunk, chunk + 1, splits * chunk - 1, splits * chunk,
+             splits * chunk + 1, t - 1, t, t + 1000]
+    for i in range(0, len(edges), b):
+        pos = [edges[(i + j) % len(edges)] for j in range(b)]
+        p = torch.tensor(pos, dtype=torch.int32, device=card)
+        dak.reset_counts()
+        got = dak.decode_attention(q, k, v, p)
+        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
+        assert int(dak._TICKETS[card.index or 0][: b * hkv].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_decode_attention_split_kv_ignores_keys_past_pos(card):
+    """bf16, pos past a split boundary: the poisoned rows after pos, in its
+    own split and in the empty ones, change nothing."""
+    rng = np.random.default_rng(5)
+    q = _randn(rng, (2, 8, 128), torch.bfloat16, card)
+    k = _randn(rng, (2, 8, 1024, 128), torch.bfloat16, card)
+    v = _randn(rng, (2, 8, 1024, 128), torch.bfloat16, card)
+    pos = torch.tensor([100, 300], dtype=torch.int32, device=card)
+    out1 = dak.decode_attention(q, k, v, pos)
+    k[0, :, 101:] = 1e4
+    v[0, :, 101:] = -1e4
+    k[1, :, 301:] = 1e4
+    v[1, :, 301:] = -1e4
+    assert torch.equal(out1, dak.decode_attention(q, k, v, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize(
     "b,h,hkv,s,t,hd",
@@ -121,7 +176,7 @@ def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, t, hd, dtype, 
     v = _randn(rng, (b, hkv, t, hd), dtype, card)
     fak.reset_counts()
     got = fak.flash_attention(q, k, v, causal=causal)
-    assert fak.COUNTS == {"flash_attention": 1, "plain": 0}
+    assert fak.COUNTS == _flash_counts(dtype)
     _close(got, fak.flash_attention_plain(q, k, v, causal=causal), dtype)
 
 
@@ -140,6 +195,63 @@ def test_flash_attention_kernel_reads_strided_views(card):
         v.transpose(1, 2).contiguous(),
     )
     _close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", fak.HEAD_DIMS)
+@pytest.mark.parametrize(
+    "b,h,hkv,s,t",
+    [(2, 4, 2, 256, 256), (1, 64, 8, 300, 300), (2, 3, 1, 129, 129), (1, 4, 4, 1, 1),
+     (1, 8, 2, 100, 333), (1, 2, 2, 333, 100), (2, 32, 32, 2000, 2000)],
+)
+def test_flash_attention_tensor_cores_every_width(card, b, h, hkv, s, t, hd, causal):
+    """bf16 on the tensor cores at every compiled head width: GQA groups
+    up to 8, ragged S and T (T > S and T < S), one row."""
+    rng = np.random.default_rng(s * 7 + t + hd)
+    q = _randn(rng, (b, h, s, hd), torch.bfloat16, card)
+    k = _randn(rng, (b, hkv, t, hd), torch.bfloat16, card)
+    v = _randn(rng, (b, hkv, t, hd), torch.bfloat16, card)
+    fak.reset_counts()
+    got = fak.flash_attention(q, k, v, causal=causal)
+    assert fak.COUNTS == _flash_counts(torch.bfloat16)
+    _close(got, fak.flash_attention_plain(q, k, v, causal=causal), torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [80, 128])
+def test_flash_attention_tensor_cores_read_strided_views(card, hd):
+    """bf16: the model's (B, S, H, hd) projections go in as transposed
+    views, and q as a slice of a wider row, through the tensor maps."""
+    rng = np.random.default_rng(6)
+    b, s, h, hkv = 2, 300, 8, 2
+    qkv = _randn(rng, (b, s, (h + 2 * hkv) * hd), torch.bfloat16, card)
+    q = qkv[..., : h * hd].reshape(b, s, h, hd)
+    k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, s, hkv, hd)
+    v = qkv[..., (h + hkv) * hd :].reshape(b, s, hkv, hd)
+    fak.reset_counts()
+    got = fak.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert fak.COUNTS == _flash_counts(torch.bfloat16)
+    want = fak.flash_attention_plain(
+        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+        v.transpose(1, 2).contiguous(),
+    )
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_flash_attention_tensor_cores_refuse_what_tma_cannot_read(card):
+    """A base address or a stride off TMA's 16 bytes raises, with no copy
+    and no launch."""
+    flat = torch.zeros(2 * 4 * 64 * 64 + 1, dtype=torch.bfloat16, device=card)
+    off = flat[1:].view(2, 4, 64, 64)  # 2 bytes past a 16-byte boundary
+    ok = torch.zeros(2, 4, 64, 64, dtype=torch.bfloat16, device=card)
+    wide = torch.zeros(2, 4, 64, 68, dtype=torch.bfloat16, device=card)[..., :64]
+    fak.reset_counts()
+    for q, k in ((off, ok), (ok, off), (ok, wide)):
+        with pytest.raises(ValueError, match="TMA"):
+            fak.flash_attention(q, k, ok)
+    assert fak.COUNTS == {"flash_attention": 0, "tensor_core": 0, "plain": 0}
 
 
 def _cache_leaves(cache: dict) -> list:
@@ -205,7 +317,7 @@ def test_attention_kernels_at_head_width_80(card, dtype):
         q, k, v = (_randn(rng, (b, h, s, 80), dtype, card) for _ in range(3))
         fak.reset_counts()
         got = fak.flash_attention(q, k, v, causal=causal)
-        assert fak.COUNTS == {"flash_attention": 1, "plain": 0}
+        assert fak.COUNTS == _flash_counts(dtype)
         _close(got, fak.flash_attention_plain(q, k, v, causal=causal), dtype, str(s))
     q = _randn(rng, (4, 32, 80), dtype, card)
     k, v = (_randn(rng, (4, 32, 1024, 80), dtype, card) for _ in range(2))

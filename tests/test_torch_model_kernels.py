@@ -131,7 +131,7 @@ def test_flash_attention_plain_matches_the_reference(b, h, hkv, s, hd, dtype, ca
     (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(b, h, hkv, s, s, hd, dtype, seed=s + h)
     fak.reset_counts()
     got = ops.flash_attention(qt, kt, vt, causal=causal)
-    assert fak.COUNTS == {"flash_attention": 0, "plain": 1}
+    assert fak.COUNTS == {"flash_attention": 0, "tensor_core": 0, "plain": 1}
     want = ref_flash_attention(qj, kj, vj, causal=causal)
     _check(got, want.astype(jnp.float32), dtype, "pallas")
     want = ref.flash_attention_ref(qj, kj, vj, causal=causal)
