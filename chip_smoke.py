@@ -11,8 +11,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels — each kernel against its plain PyTorch version on the card,
    bit for bit, at widths up to the kernel's 32768-lane ceiling;
-4. rd kernel — the RD strip kernel against its plain version on the
-   card, bit for bit, over the reference's slot geometries;
+4. rd kernel — the RD step kernel (one iteration of device RD's
+   deletion or dedup loop per launch) against its plain iteration in
+   lockstep, every buffer bit for bit after every iteration: on the main
+   path's first job and on edge cases (ties, no candidates, quota past
+   the total, int32 extremes, a free-slot shortage, rows 33-64 ids wide,
+   the server and slot ceilings);
 5. main path — the online scheduler (``SchedulingEngine`` with
    ``wf_torch``) on a bursty trace at 4096 servers under ``fifo`` (the
    burst chain) and ``ocwf-acc``, each schedule identical to the host
@@ -22,8 +26,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 6. rd main path — the same engine with ``rd_torch`` on the same trace's
    first jobs (three same-slot bursts through the device RD chain, then
    the first burst again one arrival at a time), each schedule identical
-   to the host ``rd``, with no plain strip and no host re-run, and the
-   most slots each job held live against its slot capacity;
+   to the host ``rd``, with one kernel launch per loop iteration, no
+   plain iteration and no host re-run, and the most slots each job held
+   live against its slot capacity; then one problem with groups of 40-64
+   of the 4096 servers against the host ``rd``;
 7. model kernels — the RMSNorm, decode-attention and flash-attention
    kernels against their plain versions on the card, in float32 (flash
    attention on the CUDA cores) and bfloat16 (on the tensor cores), at
@@ -62,9 +68,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
     continuation check: 1792
     tokens prefilled and 256 decoded against the 2048-token prefill,
     within 1e-3 of the largest logit in float32, the bf16 gap reported;
-15. timings — CUDA-event times of the scheduler kernels and their plain
+15. timings — CUDA-event times of the water-level kernels and their plain
     versions, the chained burst admissions' wall times and device busy
-    shares.
+    shares; the RD step kernel's device time per launch on a profiled
+    chain of the main path's jobs, the chain's busy share, and kernel
+    against plain iteration over the same 200 iterations.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
@@ -91,9 +99,9 @@ import torch  # noqa: E402
 
 from repro_torch.backend import set_backend  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.core import AssignmentProblem, water_filling  # noqa: E402
+from repro_torch.core import AssignmentProblem, TaskGroup, water_filling  # noqa: E402
 from repro_torch.core import rd_torch, wf_torch  # noqa: E402
-from repro_torch.core.rd import host_commit_walk  # noqa: E402
+from repro_torch.core.rd import host_commit_walk, replica_deletion  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dak  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
@@ -133,13 +141,15 @@ KERNEL_WIDTHS = (1, 100, 4096, 16384, 32768)
 KERNEL_BATCHES = (1, 8)
 KERNEL_CASES = ("random", "ties", "one-available", "demand0", "boundary")
 TIMED = ((4096, 1), (16384, 1), (32768, 1), (4096, 8))
-RD_LANES = (128, 1024, 4096, 8192, 16384)
-RD_ROWS = (4, 11, 24)
-RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extremes")
-# (key rows, slot lanes) of the main path: its 18 jobs' capacities are
-# 512 to 4096 lanes, 2048 and 4096 the most common; the whole trace's
-# reach 8192
-RD_TIMED = ((11, 2048), (11, 4096), (11, 8192))
+# the RD step kernel against its plain iteration, in lockstep, besides the
+# main path's first job
+RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extremes",
+            "free-slot-shortage", "width-33", "width-48", "width-64", "max-geometry")
+# a problem with groups of RD_WIDE_GROUPS[0]-[1] of the 4096 servers
+RD_WIDE_GROUPS = (40, 64)
+# deletion iterations timed on the profiled chain's first job, kernel
+# against plain iteration, from the same state
+RD_TIMED_ITERATIONS = 200
 
 # the serving main path: Qwen1.5-4B (the launcher's default arch) at full
 # width, two replicas of 4 slots and 1024 positions each
@@ -246,57 +256,13 @@ def sm_smem_bound_us(n: int, sm_clock_hz: float) -> float:
     return compare_exchanges(n) * 4 * 12 / (SMEM_BYTES_PER_CLOCK * sm_clock_hz) * 1e6
 
 
-def rd_card_bound_ms(n_rows: int, n_lanes: int) -> tuple[float, str]:
-    """Least time for one strip on the whole card: the key block and the
-    sizes read once, the takes and the permutation written once, over
-    HBM; or, at most, R + 1 word compares and 3 selects per
-    compare-exchange over the card's 32-bit rate (a compare stops at the
-    first row that differs, so the data may need fewer)."""
-    nbytes = (n_rows + 1) * n_lanes * 4 + 8 * n_lanes + 4
-    ops = compare_exchanges(n_lanes) * (n_rows + 1 + 3)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_32BIT_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def rd_network_traffic(keys: np.ndarray) -> tuple[np.ndarray, int, int]:
-    """Run the kernel's bitonic network on the host over one key block:
-    the permutation it yields, the key rows its compares read (each
-    compare stops at the first row that differs, the lane index breaking
-    a full tie) and its swaps — the data-dependent work of one strip."""
-    n_rows, n = keys.shape
-    idx = np.arange(n)
-    i = np.arange(n // 2)
-    rows_read = swaps = 0
-    k = 2
-    while k <= n:
-        j = k // 2
-        while j >= 1:
-            lo = ((i & ~(j - 1)) << 1) | (i & (j - 1))
-            hi = lo + j
-            a, c = idx[lo], idx[hi]
-            diff = keys[:, a] != keys[:, c]
-            some = diff.any(0)
-            first = np.where(some, diff.argmax(0), n_rows - 1)
-            rows_read += int((first + 1).sum())
-            gt = np.where(some, keys[first, a] > keys[first, c], a > c)
-            swap = gt == ((lo & k) == 0)
-            swaps += int(swap.sum())
-            idx[lo[swap]], idx[hi[swap]] = c[swap], a[swap]
-            j //= 2
-        k *= 2
-    return idx, rows_read, swaps
-
-
-def rd_sm_smem_bound_us(
-    n_lanes: int, rows_read: int, swaps: int, sm_clock_hz: float
-) -> float:
-    """The one-block design's own floor with the keys staged in shared
-    memory: two lane indices read per compare-exchange, two key words per
-    row compared, two indices written per swap, at one SM's
-    shared-memory bandwidth."""
-    nbytes = 8 * compare_exchanges(n_lanes) + 8 * rows_read + 8 * swaps
-    return nbytes / (SMEM_BYTES_PER_CLOCK * sm_clock_hz) * 1e6
+def rd_step_bytes(c_slots: int, row_ids: int, m_servers: int) -> int:
+    """Bytes one RD iteration must move: the holder rows and the slots'
+    size, count, group and hash read once (C * A * 4 + 20 * C), the
+    server vectors load, multi, busy_est, busy0, mu and the target flags
+    read once (21 * M); its writes (one server's lanes and the movers'
+    rows) are a few hundred bytes and left out."""
+    return 4 * c_slots * row_ids + 20 * c_slots + 21 * m_servers
 
 
 # ---- inputs ------------------------------------------------------------------
@@ -350,55 +316,6 @@ def main_path_rows(rng: np.random.Generator, n: int, bsz: int):
     d = rng.integers(100, 5000, bsz).astype(np.int32)
     dev = torch.device("cuda")
     return tuple(torch.from_numpy(x).to(dev) for x in (b, w, d))
-
-
-def rd_block(rng: np.random.Generator, n_rows: int, n_lanes: int, case: str):
-    """A strip key block (masked -count, alt, packed words, group), member
-    counts and a quota, on the card, for the kernel-vs-plain check."""
-    keys = rng.integers(0, 4, (n_rows, n_lanes)).astype(np.int32)
-    keys[0] = np.where(rng.random(n_lanes) < 0.3, -rng.integers(2, 5, n_lanes), rdk.BIG)
-    size = rng.integers(0, 30, n_lanes).astype(np.int32)
-    quota = np.array([rng.integers(1, 200)], np.int32)
-    if case == "ties":  # every key row equal: only the lane breaks ties
-        keys[:] = keys[:, :1]
-        keys[0] = -3
-    elif case == "no-candidates":
-        keys[0] = rdk.BIG
-    elif case == "quota-past-total":
-        quota[0] = int(size.sum()) + 1000
-    elif case == "int32-extremes":
-        top = np.iinfo(np.int32).max - rng.integers(0, 3, (n_rows - 1, n_lanes))
-        bottom = np.iinfo(np.int32).min + rng.integers(0, 3, (n_rows - 1, n_lanes))
-        keys[1:] = np.where(rng.random((n_rows - 1, n_lanes)) < 0.5, top, bottom)
-    dev = torch.device("cuda")
-    return [torch.from_numpy(x).to(dev) for x in (keys, size, quota)]
-
-
-def rd_main_path_block(rng: np.random.Generator, n_rows: int, n_lanes: int):
-    """A key block shaped like a mid-run strip of the 4096-server path:
-    a quarter of the slots allocated (8-12 holders each), 5 % of those
-    candidates; unallocated slots carry the pad row (all ids M), the
-    sentinel alt and group 0, as ``rd_torch`` builds them."""
-    a_pad = 2 * (n_rows - 3)
-    holders = np.full((n_lanes, a_pad), M_SERVERS, np.int64)
-    n_alloc = n_lanes // 4
-    for r in range(n_alloc):
-        width = int(rng.integers(8, 13))
-        holders[r, :width] = np.sort(rng.choice(M_SERVERS, width, replace=False))
-    packed = (holders[:, 0::2] << 15) | holders[:, 1::2]
-    cnt = (holders < M_SERVERS).sum(1)
-    cand = (np.arange(n_lanes) < n_alloc) & (rng.random(n_lanes) < 0.05)
-    keys = np.empty((n_rows, n_lanes), np.int64)
-    keys[0] = np.where(cand, -cnt, rdk.BIG)
-    keys[1] = np.where(np.arange(n_lanes) < n_alloc, rng.integers(0, 300, n_lanes), rdk.BIG)
-    keys[2:-1] = packed.T
-    keys[-1] = np.where(np.arange(n_lanes) < n_alloc, rng.integers(0, 9, n_lanes), 0)
-    size = np.where(np.arange(n_lanes) < n_alloc, rng.integers(1, 200, n_lanes), 0)
-    dev = torch.device("cuda")
-    return keys.astype(np.int32), [
-        torch.from_numpy(x.astype(np.int32)).to(dev)
-        for x in (keys, size, np.array([4]))
-    ]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -584,44 +501,154 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
     return bursts, launches
 
 
-def phase_rd_kernel(seed: int) -> int:
-    """The RD strip kernel vs its plain version on identical inputs;
-    returns the max abs error over both outputs."""
-    rng = np.random.default_rng(seed + 3)
-    worst = 0
-    for n_lanes in RD_LANES:
-        for n_rows in RD_ROWS:
-            for case in RD_CASES:
-                args = rd_block(rng, n_rows, n_lanes, case)
-                got = rdk.rd_strip_takes(*args)
-                want = rdk.rd_strip_takes_plain(*args)
-                torch.cuda.synchronize()
-                err = max(
-                    int((g.long() - p.long()).abs().max()) for g, p in zip(got, want)
+def _rd_groups(rng: np.random.Generator, m: int, k: int, width: int, size_hi: int):
+    return tuple(
+        TaskGroup(int(rng.integers(1, size_hi)),
+                  tuple(sorted(rng.choice(m, int(rng.integers(1, width + 1)),
+                                          replace=False).tolist())))
+        for _ in range(k)
+    )
+
+
+def rd_edge_case(seed: int, name: str):
+    """(problem, slot capacity or None) of one RD edge case, from a seed."""
+    rng = np.random.default_rng(seed + 3 + RD_CASES.index(name))
+    m = 64
+    busy, mu = rng.integers(0, 40, m), rng.integers(1, 4, m)
+    capacity = None
+    if name == "random":
+        groups = _rd_groups(rng, m, 10, 12, 60)
+    elif name == "ties":  # equal busy times, repeated server sets
+        busy[:], mu[:] = 0, 2
+        groups = _rd_groups(rng, m, 4, 6, 60) * 3
+    elif name == "no-candidates":  # single-copy groups only
+        groups = tuple(TaskGroup(int(rng.integers(1, 30)), (int(s),))
+                       for s in rng.choice(m, 12, replace=False))
+    elif name == "quota-past-total":  # quota = load_m, past the multi-copy members
+        mu[:] = 1000
+        groups = _rd_groups(rng, m, 10, 8, 80) + tuple(
+            TaskGroup(int(rng.integers(50, 90)), (int(s),)) for s in range(0, m, 3))
+    elif name == "int32-extremes":  # busy_est wraps past INT32_MAX on some servers
+        top = np.iinfo(np.int32).max - rng.integers(0, 20, m)
+        busy = np.where(rng.random(m) < 0.5, top, rng.integers(0, 20, m))
+        groups = _rd_groups(rng, m, 10, 10, 120)
+    elif name == "free-slot-shortage":  # 120 classes spawn past 128 slots
+        groups = tuple(TaskGroup(int(rng.integers(5, 20)),
+                                 tuple(sorted(rng.choice(10, 6, replace=False).tolist())))
+                       for _ in range(120))
+        capacity = rdk.MIN_LANES
+    elif name.startswith("width-"):
+        width = int(name.split("-")[1])
+        groups = (TaskGroup(12, tuple(sorted(rng.choice(m, width, replace=False).tolist()))),
+                  *_rd_groups(rng, m, 5, width, 10))
+    else:  # max-geometry: the server and slot ceilings
+        m = rdk.RD_MAX_M
+        busy, mu = rng.integers(0, 40, m), rng.integers(1, 4, m)
+        groups = _rd_groups(rng, m, 6, 16, 40)
+        capacity = rdk.RD_MAX_C
+    return AssignmentProblem(busy=busy, mu=mu, groups=groups), capacity
+
+
+def rd_lockstep(st, past_exit: int = 2) -> int:
+    """Run both RD loops on ``st`` with the step kernel and the plain
+    iteration on a clone, comparing every buffer (spare row and lane
+    included) after each iteration, then ``past_exit`` more iterations of
+    each loop; returns the iterations, and raises on any difference."""
+    shadow = st.clone()
+    n = [0]
+
+    def step(state, dedup):
+        rdk.rd_step(state, dedup)
+        rdk.rd_step_plain(shadow, dedup)
+        torch.cuda.synchronize()
+        for name, buf in state.buffers().items():
+            other = shadow.buffers()[name]
+            if not torch.equal(buf, other):
+                err = int((buf.long() - other.long()).abs().max())
+                raise AssertionError(
+                    f"rd_step disagrees with its plain iteration: {name} after "
+                    f"iteration {n[0]} (dedup={dedup}, C={state.c_slots}, "
+                    f"A={state.row_ids}, M={state.m_servers}), max_abs_err={err}"
                 )
-                worst = max(worst, err)
-                if err != 0:
-                    raise AssertionError(
-                        f"rd_strip disagrees with its plain version: C={n_lanes} "
-                        f"R={n_rows} case={case} max_abs_err={err}"
-                    )
+        n[0] += 1
+
+    rd_torch.run_rd(st, step)
+    for _ in range(past_exit):
+        for dedup in (False, True):
+            step(st, dedup)
+    return n[0]
+
+
+def phase_rd_kernel(seed: int, jobs: list) -> int:
+    """The RD step kernel against its plain iteration in lockstep: on the
+    main path's first job (its state after every iteration) and on the
+    edge cases; returns the largest difference, 0 (any other raises)."""
+    t0 = time.perf_counter()
+    first = min(jobs, key=lambda j: (j.arrival, j.job_id))
+    cases = [("main path job 1", AssignmentProblem(
+        busy=np.zeros(M_SERVERS, np.int64), mu=first.mu, groups=first.groups), None)]
+    cases += [(name, *rd_edge_case(seed, name)) for name in RD_CASES]
+    rows = []
+    rdk.reset_counts()
+    for label, problem, capacity in cases:
+        st = rd_torch.initial_rd_state(problem, capacity=capacity)
+        if st.route != "kernel":
+            raise AssertionError(f"rd kernel case {label} does not take the kernel")
+        n = rd_lockstep(st)
+        rows.append({"case": label, "slots": st.c_slots, "row_ids": st.row_ids,
+                     "servers": st.m_servers, "iterations": n,
+                     "headroom": int(st.headroom)})
+    if rdk.COUNTS["rd_step"] != rdk.COUNTS["plain"] or rdk.COUNTS["wide"]:
+        raise AssertionError(f"rd kernel lockstep counts {rdk.COUNTS}")
+    if rows[RD_CASES.index("free-slot-shortage") + 1]["headroom"] >= 0:
+        raise AssertionError("the free-slot-shortage case did not overflow")
     emit({
         "phase": "rd_kernel",
-        "held": ["rd_strip"],
+        "held": ["rd_step"],
         "tolerance": 0,
-        "cases": len(RD_LANES) * len(RD_ROWS) * len(RD_CASES),
-        "lanes": list(RD_LANES),
-        "key_rows": list(RD_ROWS),
-        "kinds": list(RD_CASES),
-        "max_abs_err": worst,
+        "compared": "every buffer of the state after every iteration",
+        "cases": rows,
+        "launches": rdk.COUNTS["rd_step"],
+        "max_abs_err": 0,
+        "seconds": time.perf_counter() - t0,
     })
-    return worst
+    return 0
 
 
-def phase_rd_main_path(jobs: list) -> tuple[int, list]:
+def rd_wide_problem(seed: int, busy: np.ndarray) -> AssignmentProblem:
+    """Five groups of 40-64 of the 4096 servers (past the reference
+    kernel's 24 key rows, up to the step kernel's 64-id rows), 8-16 tasks
+    each, which keeps the slot capacity at 4096 like the trace's jobs."""
+    rng = np.random.default_rng(seed + 5)
+    lo, hi = RD_WIDE_GROUPS
+    groups = tuple(
+        TaskGroup(int(rng.integers(8, 17)),
+                  tuple(sorted(rng.choice(M_SERVERS, int(rng.integers(lo, hi + 1)),
+                                          replace=False).tolist())))
+        for _ in range(5)
+    )
+    return AssignmentProblem(busy=busy, mu=rng.integers(1, 6, M_SERVERS), groups=groups)
+
+
+def _rd_launch_check(label: str, counts: dict, reruns: int) -> int:
+    """The run's kernel launches, after checking that every iteration of
+    every device RD run launched the kernel: no plain iteration, no wide
+    row, no host re-run, launches equal to the loops' iterations."""
+    launches = counts["rd_step"]
+    iterations = sum(n for _, _, n in rd_torch.ITERATIONS)
+    if launches == 0 or launches != iterations or counts["plain"] or counts["wide"] or reruns:
+        raise AssertionError(
+            f"rd main path ({label}) went around the kernel: {counts}, {iterations} "
+            f"iterations, {reruns} host re-runs"
+        )
+    return launches
+
+
+def phase_rd_main_path(seed: int, jobs: list) -> tuple[int, list]:
     """``rd_torch`` in the engine on the trace's first jobs, against the
-    host ``rd``; returns the strip kernel's launches and the bursts the
-    chain admitted (their problems, as the engine handed them over)."""
+    host ``rd``, then one problem with groups of 40-64 servers; returns
+    the step kernel's launches and the bursts the chain admitted (their
+    problems, as the engine handed them over)."""
     head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:RD_JOBS]
     zeros = np.zeros(M_SERVERS, np.int64)
     capacities = [
@@ -629,10 +656,8 @@ def phase_rd_main_path(jobs: list) -> tuple[int, list]:
         for j in head
     ]
     reduced = {
-        "jobs": f"the first {RD_JOBS} of {N_JOBS} jobs: in eager PyTorch each "
-        "strip is one Python iteration of ~100 device ops and one kernel "
-        "launch, and the whole trace needs ~12M strips, past the run's "
-        "time limit",
+        "jobs": f"the first {RD_JOBS} of {N_JOBS} jobs: the whole trace needs "
+        "~12M iterations, one launch and its host call each",
         "orderings": "no ocwf-acc: each rescan re-runs RD for every "
         "outstanding candidate",
     }
@@ -675,7 +700,7 @@ def phase_rd_main_path(jobs: list) -> tuple[int, list]:
             and dev.makespan == host.makespan
             and dev.failed_jobs == host.failed_jobs
         )
-        strips = counts["rd_strip"]
+        steps = counts["rd_step"]
         emit({
             "phase": "rd_main_path",
             "seconds": time.perf_counter() - t_phase,
@@ -694,10 +719,12 @@ def phase_rd_main_path(jobs: list) -> tuple[int, list]:
             "failed_jobs": len(dev.failed_jobs),
             "engine_wall_s": wall,
             "host_rd_wall_s": host_wall,
+            "engine_over_host_rd": wall / host_wall,
             "launches": counts,
+            "loop_iterations": sum(n for _, _, n in rd_torch.ITERATIONS),
             "host_reruns": reruns,
-            "strips_per_arrival": strips / len(sub),
-            "host_wall_per_strip_ms": wall / strips * 1e3 if strips else None,
+            "iterations_per_arrival": steps / len(sub),
+            "host_wall_per_iteration_us": wall / steps * 1e6 if steps else None,
             "identical_to_host_rd": identical,
             "reduced": reduced if batched else {**reduced, **per_arrival_cut},
         })
@@ -705,74 +732,81 @@ def phase_rd_main_path(jobs: list) -> tuple[int, list]:
             raise AssertionError(f"rd_torch ({label}) schedule differs from host rd")
         if sorted(c for c, _ in peaks) != sorted(capacities[: len(sub)]):
             raise AssertionError(f"rd main path ({label}): slot peaks {peaks}")
-        if strips == 0 or counts["plain"] != 0 or reruns != 0:
-            raise AssertionError(
-                f"rd main path ({label}) went around the kernel: {counts}, "
-                f"{reruns} host re-runs"
-            )
-        launches += strips
+        launches += _rd_launch_check(label, counts, reruns)
+
+    # groups of 40-64 of the 4096 servers, against the host rd
+    problem = rd_wide_problem(seed, np.random.default_rng(seed + 6).integers(0, 50, M_SERVERS))
+    torch.cuda.synchronize()
+    rdk.reset_counts()
+    rd_torch.reset_counts()
+    t0 = time.perf_counter()
+    got = rd_torch.replica_deletion_torch(problem)
+    wall = time.perf_counter() - t0
+    counts, reruns = dict(rdk.COUNTS), rd_torch.COUNTS["host_reruns"]
+    t0 = time.perf_counter()
+    want = replica_deletion(problem)
+    host_wall = time.perf_counter() - t0
+    identical = got.alloc == want.alloc and got.phi == want.phi
+    emit({
+        "phase": "rd_main_path",
+        "admission": "wide groups",
+        "servers": M_SERVERS,
+        "group_widths": sorted(len(g.servers) for g in problem.groups),
+        "tasks": problem.n_tasks,
+        "slots": rd_torch.ITERATIONS[0][0] if rd_torch.ITERATIONS else None,
+        "row_ids": rd_torch.ITERATIONS[0][1] if rd_torch.ITERATIONS else None,
+        "wall_s": wall,
+        "host_rd_wall_s": host_wall,
+        "launches": counts,
+        "host_reruns": reruns,
+        "identical_to_host_rd": identical,
+    })
+    if not identical:
+        raise AssertionError("rd_torch differs from host rd on the wide-group problem")
+    launches += _rd_launch_check("wide groups", counts, reruns)
     return launches, admitted
 
 
-def phase_rd_timings(seed: int, admitted: list, sm_clock_hz: float) -> dict:
-    rng = np.random.default_rng(seed + 4)
-    props = torch.cuda.get_device_properties(0)
-    smem_optin = getattr(props, "shared_memory_per_block_optin", 232_448)
-    rows = []
-    by_shape = {}
-    for n_rows, n_lanes in RD_TIMED:
-        host_keys, (k, s, q) = rd_main_path_block(rng, n_rows, n_lanes)
+def _time_rd_iterations(st0, step, n: int) -> dict:
+    """``n`` deletion iterations of ``step`` from clones of ``st0``: CUDA
+    events around them (``event_ms``, per iteration), and their device
+    time under the profiler (``device_ms``, per iteration, every kernel
+    summed)."""
+    st = st0.clone()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        step(st, False)
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    st = st0.clone()
+    device = profile_device_us(lambda: [step(st, False) for _ in range(n)], cpu_ops=False)
+    return {"event_ms": start.elapsed_time(end) / n, "host_wall_ms": wall * 1e3,
+            "device_ms": sum(device.values()) / n / 1e3 if device else None}
 
-        def kernel():
-            return rdk.rd_strip_takes(k, s, q)
 
-        def plain():
-            return rdk.rd_strip_takes_plain(k, s, q)
-
-        # interleaved kernel, plain, plain, kernel on the same inputs
-        k1 = cuda_ms(kernel, 100)
-        p1 = cuda_ms(plain, 100)
-        p2 = cuda_ms(plain, 100)
-        k2 = cuda_ms(kernel, 100)
-        perm, rows_read, swaps = rd_network_traffic(host_keys)
-        if not np.array_equal(perm, kernel()[1].cpu().numpy()):
-            raise AssertionError("host replay of the network differs from the kernel")
-        bound, bound_by = rd_card_bound_ms(n_rows, n_lanes)
-        staged = (n_rows + 2) * n_lanes * 4 <= smem_optin - 1024
-        row = {
-            "key_rows": n_rows,
-            "n_lanes": n_lanes,
-            "kernel_ms": (k1 + k2) / 2,
-            "kernel_ms_runs": [k1, k2],
-            "plain_ms": (p1 + p2) / 2,
-            "plain_ms_runs": [p1, p2],
-            "bound_ms": bound,
-            "bound_by": bound_by,
-            "keys_in_shared_memory": staged,
-            "mean_rows_per_compare": rows_read / compare_exchanges(n_lanes),
-            "swaps": swaps,
-            # the keys-in-shared-memory floor; without staging the keys
-            # come from L2 and this counts only the index traffic's share
-            "sm_smem_bound_ms": rd_sm_smem_bound_us(
-                n_lanes, rows_read if staged else 0, swaps, sm_clock_hz
-            ) / 1e3,
-        }
-        rows.append(row)
-        by_shape[(n_rows, n_lanes)] = row
-
-    # a chain of the main path's problems, as the engine handed them over
-    # (one pre-burst busy vector): host wall, then the same call under the
-    # profiler for device time
+def phase_rd_timings(seed: int, admitted: list) -> dict:
+    """The RD step kernel on the main path: a chain of the main path's
+    problems as the engine handed them over (one pre-burst busy vector),
+    its host wall, then under the profiler for device time per launch and
+    the card's busy share; then the first of them, kernel against plain
+    iteration over the same deletion iterations from the same state."""
     problems = admitted[RD_PROFILED_BURST][RD_PROFILED_JOBS]
     rdk.reset_counts()
     rd_torch.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = rd_torch.replica_deletion_torch_chain(problems)
+    torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    strips = rdk.COUNTS["rd_strip"]
-    if rd_torch.COUNTS["host_reruns"]:
-        raise AssertionError("the profiled burst re-ran on the host")
+    launches = rdk.COUNTS["rd_step"]
+    runs = list(rd_torch.ITERATIONS)
+    if rd_torch.COUNTS["host_reruns"] or rdk.COUNTS["plain"]:
+        raise AssertionError(f"the profiled chain went around the kernel: {rdk.COUNTS}")
     for a, b in zip(got, host_commit_walk(problems)):
         if a.alloc != b.alloc or a.phi != b.phi:
             raise AssertionError("replica_deletion_torch_chain differs from host rd")
@@ -783,23 +817,50 @@ def phase_rd_timings(seed: int, admitted: list, sm_clock_hz: float) -> dict:
     profile_s = time.perf_counter() - t0
     device_ms = {key: v / 1e3 for key, v in device.items()}
     total = sum(device_ms.values())
-    emit({
-        "phase": "rd_timings",
-        "kernels": rows,
+    step_ms = sum(v for k, v in device_ms.items() if "rd_step" in k)
+    # the bound: each run's bytes per iteration over HBM, over its iterations
+    nbytes = sum(n * rd_step_bytes(c, a, M_SERVERS) for c, a, n in runs)
+    bound_ms = nbytes / HBM_BYTES_PER_S / launches * 1e3
+
+    # kernel and plain iteration over the same deletion iterations
+    st0 = rd_torch.initial_rd_state(problems[0])
+    n = RD_TIMED_ITERATIONS
+    kernel = _time_rd_iterations(st0, rdk.rd_step, n)
+    plain = _time_rd_iterations(st0, rdk.rd_step_plain, n)
+    row = {
         "chain": f"burst {RD_PROFILED_BURST + 1}, jobs "
         f"{RD_PROFILED_JOBS.start + 1}-{RD_PROFILED_JOBS.stop}",
         "chain_jobs": len(problems),
-        "profile_s": profile_s,
+        "chain_runs": runs,  # (slots, row ids, iterations) per loop pair
         "chain_ms": wall_ms,
-        "chain_strips": strips,
-        "chain_ms_per_strip": wall_ms / strips,
+        "chain_launches": launches,
+        "chain_host_wall_per_iteration_us": wall_ms / launches * 1e3,
+        "profile_s": profile_s,
         "chain_device_ms": total,
         "chain_device_busy_share": total / wall_ms if total else None,
+        "kernel_ms": step_ms / launches if step_ms else None,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
         "chain_device_ms_by_kernel": dict(
             sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
         ),
-    })
-    return by_shape
+        "same_iterations": {
+            "iterations": n,
+            "slots": st0.c_slots,
+            "row_ids": st0.row_ids,
+            "bound_ms": rd_step_bytes(st0.c_slots, st0.row_ids, M_SERVERS)
+            / HBM_BYTES_PER_S * 1e3,
+            "kernel": kernel,
+            "plain": plain,
+        },
+        "plain_ms": plain["device_ms"],
+    }
+    if row["kernel_ms"] is None:  # the profiler recorded no device time
+        row["kernel_ms"] = kernel["event_ms"]
+        emit({"phase": "timing_fallback", "reason": "torch.profiler recorded no rd_step time",
+              "event_ms": kernel["event_ms"]})
+    emit({"phase": "rd_timings", **row})
+    return row
 
 
 def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
@@ -951,13 +1012,21 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
             ("decode rows", (SERVE_SLOTS, 1, d)),
             ("prefill rows", (PREFILL_BATCH, PREFILL_LEN, d)),
             ("qk-norm rows", (PREFILL_BATCH, 2049, q3.n_heads, q3.head_dim_)),
+            ("mamba2 width", (PREFILL_BATCH, PREFILL_LEN, get_config("mamba2-130m").d_model)),
             ("tail rows", (3, 7, 1000)),
+            ("d off the vector", (300, d + 2)),
+            ("unaligned rows", (300, d)),
         ):
-            x, g = _randn(gen, shape, dt), _randn(gen, shape[-1:], dt)
+            g = _randn(gen, shape[-1:], dt)
+            if label == "unaligned rows":  # rows one element past a 16-byte boundary
+                x = _randn(gen, (int(np.prod(shape)) + 1,), dt)[1:].view(shape)
+            else:
+                x = _randn(gen, shape, dt)
             err, ok = _model_err(rnk.rmsnorm(x, g, cfg.norm_eps),
                                  rnk.rmsnorm_plain(x, g, cfg.norm_eps), dtype_name)
             cases.append({"kernel": "rmsnorm", "case": label, "shape": list(shape),
-                          "dtype": dtype_name, "max_abs_err": err, "ok": ok})
+                          "dtype": dtype_name, "route": rnk.route(x, g),
+                          "max_abs_err": err, "ok": ok})
         sms = _sms()
         chunk, splits = dak.split_plan(SERVE_SLOTS, hkv, SERVE_MAX_LEN, sms)
         for label, (b, nh, nkv, t, dh), pos in (
@@ -1367,7 +1436,8 @@ def phase_model_timings(seed: int) -> dict:
         t = _time_three(lambda: rnk.rmsnorm(x, g, eps), lambda: rnk.rmsnorm_plain(x, g, eps),
                         lambda: F.rms_norm(x, (d,), g, eps), 200)
         bound, by = _bound(2 * (2 * n_rows * d + d), 4 * n_rows * d, PEAK_32BIT_OPS_PER_S)
-        rows[label] = {"shape": [n_rows, d], **t, "bound_ms": bound, "bound_by": by}
+        rows[label] = {"shape": [n_rows, d], "route": rnk.route(x, g), **t, "bound_ms": bound,
+                       "bound_by": by}
     b, t_len = SERVE_SLOTS, SERVE_MAX_LEN
     q = _randn(gen, (b, h, hd), bf16)
     k, v = _randn(gen, (b, hkv, t_len, hd), bf16), _randn(gen, (b, hkv, t_len, hd), bf16)
@@ -1696,10 +1766,10 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     worst = phase_kernels(args.seed)
-    rd_worst = phase_rd_kernel(args.seed)
     jobs = main_path_trace(args.seed)
+    rd_worst = phase_rd_kernel(args.seed, jobs)
     bursts, launches = phase_main_path(args.seed, jobs)
-    rd_launches, rd_admitted = phase_rd_main_path(jobs)
+    rd_launches, rd_admitted = phase_rd_main_path(args.seed, jobs)
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity: full fp32
     torch.backends.cudnn.allow_tf32 = False
     model_worst = phase_model_kernels(args.seed)
@@ -1724,7 +1794,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     sm_clock_hz = dev["max_sm_clock_mhz"] * 1e6
     timed = phase_timings(args.seed, bursts, sm_clock_hz)
-    rd_timed = phase_rd_timings(args.seed, rd_admitted, sm_clock_hz)
+    rd_timed = phase_rd_timings(args.seed, rd_admitted)
     source = "src/repro_torch/kernels/csrc/waterlevel.cu"
     summary = []
     for name, replaces, shape in (
@@ -1745,20 +1815,21 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes this function
         })
-    row = rd_timed[(11, 4096)]
     summary.append({
-        "name": "rd_strip",
+        "name": "rd_step",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rd_strip.cu",
+        "source": "src/repro_torch/kernels/csrc/rd_step.cu",
         "replaces": "src/repro/kernels/rd.py:194",
+        "contract": "one iteration of device RD's deletion or dedup loop per "
+        "launch (target pick, strip sort and walk, re-homing, deltas) on the "
+        "RDState buffers, in place",
         "launches": rd_launches,
         "max_abs_err": rd_worst,
-        "ms": row["kernel_ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        # no single PyTorch call computes a multi-key lexsort with a
-        # masked prefix clamp
+        "ms": rd_timed["kernel_ms"],
+        "plain_ms": rd_timed["plain_ms"],
+        "bound_ms": rd_timed["bound_ms"],
+        "bound_by": rd_timed["bound_by"],
+        # no single PyTorch call computes an RD iteration
         "library_ms": None,
     })
     # launches over every main path: the dense serve and prefill paths,

@@ -77,9 +77,10 @@ __all__ = [
 
 _BIG = 1 << 30
 
-# device RD packs two 15-bit server ids per sort-key word (and the pad
-# sentinel is the server count itself), so clusters wider than this stay
-# on the host path — the same order of bound as the water-level kernel's
+# device RD's step kernel keeps one count per server id, the pad
+# sentinel (the server count itself) included, in one block's shared
+# memory (128 KB at this bound), so clusters wider than this stay on the
+# host path — the same order of bound as the water-level kernel's
 # MAX_LANES, and far past the paper's cluster sizes
 RD_DEVICE_MAX_M = (1 << 15) - 1
 

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # csrc/<name>.cu -> lib<name>-<hash>.so
 SOURCES = (
     "waterlevel",
-    "rd_strip",
+    "rd_step",
     "rmsnorm",
     "decode_attention",
     "flash_attention",

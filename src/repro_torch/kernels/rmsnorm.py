@@ -2,9 +2,14 @@
 
 Counterpart of ``repro/kernels/rmsnorm.py``.  The TPU kernel
 ``_rmsnorm_kernel`` (launched by ``rmsnorm_pallas`` over 128-row blocks)
-is ``csrc/rmsnorm.cu`` here: one warp per row for rows of width <= 1024,
-one block per row past that, any row count, built from source at first
-use (:mod:`._build`).
+is ``csrc/rmsnorm.cu`` here, built from source at first use
+(:mod:`._build`), any row count, by one of two routes (:func:`route`):
+``"vector"`` — one warp a row, the row in registers as 16-byte vectors
+(8 bf16 or 4 fp32), one pass over device memory, g in shared memory once
+a block — where x's and g's data are 16-byte aligned, ``d`` is a
+multiple of the vector and a lane holds at most 20 vectors (bf16 ``d``
+<= 5120, fp32 <= 2560); else ``"scalar"``: one warp a row for ``d`` <=
+1024, one block a row past that.
 
 Both functions compute ``x * rsqrt(mean(x**2, -1) + eps) * g`` with fp32
 math and the result cast back to ``x``'s dtype, over the last axis of
@@ -30,9 +35,11 @@ import torch
 from . import _build
 from ._tensors import check_device, check_dtype
 
-__all__ = ["COUNTS", "reset_counts", "rmsnorm", "rmsnorm_plain"]
+__all__ = ["COUNTS", "reset_counts", "rmsnorm", "rmsnorm_plain", "route"]
 
 COUNTS = {"rmsnorm": 0, "plain": 0}
+VEC_BYTES = 16  # one vector access
+MAX_VECTORS_PER_LANE = 20  # the largest register row the kernel compiles
 
 
 def reset_counts() -> None:
@@ -56,6 +63,17 @@ def _check(x: torch.Tensor, g: torch.Tensor) -> None:
             f"rmsnorm: g of shape {tuple(g.shape)} does not match x's last "
             f"axis {x.shape[-1]}"
         )
+
+
+def route(x: torch.Tensor, g: torch.Tensor) -> str:
+    """The kernel's route for ``x`` and ``g`` (the C launcher's own rule;
+    the output, from PyTorch's allocator, is always aligned)."""
+    n = VEC_BYTES // x.element_size()
+    d = x.shape[-1]
+    aligned = (x.data_ptr() | g.data_ptr()) % VEC_BYTES == 0
+    if aligned and d % n == 0 and -(-d // n) <= 32 * MAX_VECTORS_PER_LANE:
+        return "vector"
+    return "scalar"
 
 
 @functools.cache

@@ -155,7 +155,7 @@ def test_isolation_checks_cover_the_rd_slice():
     import checks above and below walk."""
     walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"core/rd.py", "core/rd_torch.py", "kernels/rd.py"} <= walked
-    assert (PORT / "kernels" / "csrc" / "rd_strip.cu").is_file()
+    assert (PORT / "kernels" / "csrc" / "rd_step.cu").is_file()
 
 
 def test_isolation_checks_cover_the_model_slice():

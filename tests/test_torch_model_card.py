@@ -79,6 +79,40 @@ def test_rmsnorm_kernel_matches_plain(card, dtype):
         _close(got, rnk.rmsnorm_plain(x, g, 1e-6), dtype, str(shape))
 
 
+def _rmsnorm_case(rng, case, dtype, dev):
+    """(x, g, expected route) of one K4 route case."""
+    rows, d = {"decode": (8, 2560), "prefill": (8192, 2560), "d768": (4096, 768),
+               "hd128": (2049 * 4, 128), "d-not-vector": (300, 2562),
+               "unaligned": (300, 2560), "wide-f32": (64, 4096)}[case]
+    g = _randn(rng, (d,), dtype, dev)
+    if case == "unaligned":  # rows start one element past a 16-byte boundary
+        x = _randn(rng, (rows * d + 1,), dtype, dev)[1:].view(rows, d)
+    else:
+        x = _randn(rng, (rows, d), dtype, dev)
+    vector = case not in ("d-not-vector", "unaligned") and not (
+        case == "wide-f32" and dtype == torch.float32)
+    return x, g, "vector" if vector else "scalar"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "case", ["decode", "prefill", "d768", "hd128", "d-not-vector", "unaligned", "wide-f32"]
+)
+def test_rmsnorm_vector_and_scalar_routes_match_plain(card, case, dtype):
+    """K4's 16-byte vector route (aligned rows, d a multiple of the
+    vector) and its scalar route (unaligned rows, d off the vector, fp32
+    rows past 20 vectors a lane) at the models' widths, decode and
+    prefill rows."""
+    rng = np.random.default_rng(len(case))
+    x, g, want_route = _rmsnorm_case(rng, case, dtype, card)
+    assert rnk.route(x, g) == want_route
+    rnk.reset_counts()
+    got = rnk.rmsnorm(x, g, 1e-6)
+    assert rnk.COUNTS == {"rmsnorm": 1, "plain": 0}
+    _close(got, rnk.rmsnorm_plain(x, g, 1e-6), dtype, case)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize(

@@ -61,6 +61,35 @@ def test_rmsnorm_plain_matches_the_reference(shape, dtype):
     _check(got, ref.rmsnorm_ref(xj, gj).astype(jnp.float32), dtype, "ref")
 
 
+@pytest.mark.parametrize(
+    "dtype,d,offset,route",
+    [
+        ("bfloat16", 2560, 0, "vector"),  # 320 vectors: 10 a lane
+        ("bfloat16", 768, 0, "vector"),
+        ("bfloat16", 128, 0, "vector"),  # qk-norm rows
+        ("bfloat16", 5120, 0, "vector"),  # 20 vectors a lane, the ceiling
+        ("bfloat16", 5128, 0, "scalar"),  # past 20 a lane
+        ("bfloat16", 2562, 0, "scalar"),  # d off the 8-element vector
+        ("bfloat16", 2560, 1, "scalar"),  # rows off a 16-byte boundary
+        ("float32", 2560, 0, "vector"),  # 640 vectors: the ceiling
+        ("float32", 2556, 0, "vector"),
+        ("float32", 2564, 0, "scalar"),
+        ("float32", 1026, 0, "scalar"),
+        ("float32", 2560, 2, "scalar"),
+    ],
+)
+def test_rmsnorm_route_rule(dtype, d, offset, route):
+    """K4's vector route takes 16-byte aligned rows whose width is a
+    multiple of the 16-byte vector, up to 20 vectors a lane; the rest
+    take the scalar route (the C launcher's rule, mirrored)."""
+    dt = getattr(torch, dtype)
+    flat = torch.zeros(4 * d + 8, dtype=dt)
+    x = flat[offset : offset + 4 * d].view(4, d)
+    g = torch.zeros(d, dtype=dt)
+    assert flat.data_ptr() % 64 == 0 == g.data_ptr() % 64  # PyTorch's CPU alignment
+    assert rnk.route(x, g) == route
+
+
 def _decode_inputs(b, h, hkv, t, hd, dtype, seed):
     rng = np.random.default_rng(seed)
     q = _pair(rng, (b, h, hd), dtype)

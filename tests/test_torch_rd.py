@@ -1,15 +1,16 @@
 """The port's device Replica-Deletion against the reference's.
 
-The chain of evidence for the CUDA strip kernel and the ``rd_torch``
-path: on the card, ``chip_smoke.py`` holds the kernel bit for bit
-against ``rd_strip_takes_plain``; here, on the CPU, the plain version is
-held against the TPU kernel's own code (``rd_strip_takes_pallas`` in
+The chain of evidence for the CUDA step kernel and the ``rd_torch``
+path: on the card, ``chip_smoke.py`` and ``tests/test_torch_rd_card.py``
+hold the kernel bit for bit against ``rd_step_plain``; here, on the CPU,
+the plain iteration's sort and walk (``rd_strip_takes_plain``) is held
+against the TPU kernel's own code (``rd_strip_takes_pallas`` in
 interpret mode) and the reference's jnp lexsort strip, and the whole
-device RD — per instance, chained over a burst, after a slot overflow
-and inside the scheduling engine — against ``rd_reference``, ``rd_jax``
-and the host RD.  Everything is int32, so every comparison is exact
-(tolerance 0).  Inputs are made with numpy from fixed seeds and fed to
-both packages.
+device RD — per instance, chained over a burst, after a slot overflow,
+at group widths up to 64 and inside the scheduling engine — against
+``rd_reference``, ``rd_jax`` and the host RD.  Everything is int32, so
+every comparison is exact (tolerance 0).  Inputs are made with numpy
+from fixed seeds and fed to both packages.
 """
 
 import jax.numpy as jnp
@@ -104,43 +105,62 @@ def test_plain_strip_matches_reference_kernel_and_jnp(n_rows, n_lanes, case):
     np.testing.assert_array_equal(got_take.numpy(), jnp_take)
 
 
+def _cpu_state(seed=3, m=12):
+    """A device RD state on the CPU before its first iteration."""
+    ref_problem = _random_instance(np.random.default_rng(seed), m=m, k_hi=5, size_hi=30,
+                                   avail_hi=6)
+    return rd_torch.initial_rd_state(convert.from_reference_problem(ref_problem))
+
+
 def test_strip_wrapper_takes_plain_version_on_cpu():
-    keys, size, quota = _key_block(np.random.default_rng(3), 11, 128, "random")
-    args = (torch.from_numpy(keys), torch.from_numpy(size), torch.tensor([quota]))
-    rdk.reset_counts()
-    got = rdk.rd_strip_takes(*args)
-    assert rdk.COUNTS == {"rd_strip": 0, "plain": 1}
-    for g, p in zip(got, rdk.rd_strip_takes_plain(*args)):
-        assert torch.equal(g, p)
+    """The step wrapper takes the plain iteration for state on the CPU,
+    and counts it as plain, not as a launch nor as a wide row."""
+    for dedup in (False, True):
+        st = _cpu_state()
+        twin = st.clone()
+        rdk.reset_counts()
+        rdk.rd_step(st, dedup)
+        assert rdk.COUNTS == {"rd_step": 0, "plain": 1, "wide": 0}
+        rdk.rd_step_plain(twin, dedup)
+        for name, buf in st.buffers().items():
+            assert torch.equal(buf, twin.buffers()[name]), name
 
 
 @pytest.mark.parametrize(
     "bad", ["dtype", "ndim", "narrow", "pow2", "rows", "wide", "size", "quota"]
 )
 def test_strip_wrapper_rejects_inputs_outside_the_contract(bad):
-    keys = torch.full((11, 128), BIG, dtype=torch.int32)
-    size = torch.zeros(128, dtype=torch.int32)
-    quota = torch.ones(1, dtype=torch.int32)
+    """The step's state outside the kernel's contract is refused when it
+    is built: wrong dtype or rank, slot counts off the power-of-two range
+    [128, RD_MAX_C], a holder row width that is no power of two, a slot
+    or server buffer of the wrong length (``quota``: the service rates
+    the quota divides by)."""
+    bufs = _cpu_state().buffers()
+    c_slots, a = bufs["holders"].shape[0] - 1, bufs["holders"].shape[1]
+
+    def slots(n):  # every slot buffer at n slots
+        for name in ("holders", "size", "cnt", "grp", "hash"):
+            t = bufs[name]
+            bufs[name] = t.new_zeros((n + 1, *t.shape[1:]))
+
     if bad == "dtype":
-        keys = keys.long()
+        bufs["holders"] = bufs["holders"].long()
     elif bad == "ndim":
-        keys = keys[0]
+        bufs["holders"] = bufs["holders"][:, 0].contiguous()
     elif bad == "narrow":
-        keys, size = keys[:, :64].contiguous(), size[:64]
+        slots(rdk.MIN_LANES // 2)
     elif bad == "pow2":
-        keys = torch.full((11, 192), BIG, dtype=torch.int32)
-        size = torch.zeros(192, dtype=torch.int32)
+        slots(192)
     elif bad == "rows":
-        keys = torch.full((rdk.RD_MAX_KEY_ROWS + 1, 128), BIG, dtype=torch.int32)
+        bufs["holders"] = bufs["holders"].new_zeros((c_slots + 1, a + 1))
     elif bad == "wide":
-        keys = torch.full((4, 2 * rdk.RD_MAX_C), BIG, dtype=torch.int32)
-        size = torch.zeros(2 * rdk.RD_MAX_C, dtype=torch.int32)
+        slots(2 * rdk.RD_MAX_C)
     elif bad == "size":
-        size = torch.zeros(256, dtype=torch.int32)
+        bufs["size"] = bufs["size"][:-1].contiguous()
     elif bad == "quota":
-        quota = torch.ones(2, dtype=torch.int32)
+        bufs["mu"] = torch.cat([bufs["mu"], bufs["mu"][:1]])
     with pytest.raises((TypeError, ValueError)):
-        rdk.rd_strip_takes(keys, size, quota)
+        rdk.RDState(**bufs)
 
 
 # ---- instance level -------------------------------------------------------------
@@ -251,8 +271,9 @@ def test_device_rd_routes_through_the_strip_wrapper():
     problem = convert.from_reference_problem(_twins()["duplicate-groups"])
     rdk.reset_counts()
     rd_torch.replica_deletion_torch(problem)
-    # the wrapper's CPU version ran: every strip went through the wrapper
-    assert rdk.COUNTS["rd_strip"] == 0 and rdk.COUNTS["plain"] > 0
+    # the wrapper's CPU version ran: every iteration went through the wrapper
+    assert rdk.COUNTS["rd_step"] == 0 and rdk.COUNTS["plain"] > 0
+    assert rdk.COUNTS["wide"] == 0
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -360,27 +381,26 @@ def test_slot_capacity_is_the_references_rule_capped_at_the_kernel():
 
 
 def _live_classes(st):
-    live = (st.size_c > 0).numpy()
+    live = (st.size[:-1] > 0).numpy()
     rows = np.concatenate(
-        [st.grp[:-1].numpy()[:, None], st.holders_c.numpy()], axis=1
+        [st.grp[:-1].numpy()[:, None], st.holders[:-1].numpy()], axis=1
     )[live]
     return rows
 
 
 def test_a_class_holds_one_live_slot(monkeypatch, no_host_rerun):
-    """After every strip the live slots are distinct classes, and the
+    """After every iteration the live slots are distinct classes, and the
     recorded peak is the most live slots seen."""
     seen = []
-    strip = rd_torch._strip
+    step = rdk.rd_step
 
-    def checked(st, *args):
-        removed = strip(st, *args)
+    def checked(st, dedup):
+        step(st, dedup)
         rows = _live_classes(st)
         assert len(np.unique(rows, axis=0)) == len(rows)
         seen.append(len(rows))
-        return removed
 
-    monkeypatch.setattr(rd_torch, "_strip", checked)
+    monkeypatch.setattr(rdk, "rd_step", checked)
     rng = np.random.default_rng(8)
     for _ in range(4):
         ref_problem = _random_instance(rng, m=16, k_hi=5, size_hi=40, avail_hi=7)
@@ -457,20 +477,40 @@ def test_device_rd_rejects_an_oversized_cluster():
         rd_torch.replica_deletion_torch_chain([problem, problem])
 
 
-def test_device_rd_rejects_groups_past_the_kernels_key_rows():
-    assert 3 + rd_torch._MAX_ROW_IDS // 2 <= rdk.RD_MAX_KEY_ROWS < 3 + rd_torch._MAX_ROW_IDS
-    m = 64
-    ok = AssignmentProblem(
-        busy=np.zeros(m, np.int64), mu=np.ones(m, np.int64), groups=(TaskGroup(3, tuple(range(32))),)
-    )
-    wide = AssignmentProblem(
-        busy=np.zeros(m, np.int64), mu=np.ones(m, np.int64), groups=(TaskGroup(3, tuple(range(33))),)
-    )
-    _assert_same(rd_torch.replica_deletion_torch(ok), port_rd.replica_deletion(ok))
-    with pytest.raises(ValueError, match="at most 32 available servers"):
-        rd_torch.replica_deletion_torch(wide)
-    with pytest.raises(ValueError, match="at most 32 available servers"):
-        rd_torch.replica_deletion_torch_chain([ok, wide])
+def _wide_burst(width, m=80, n_jobs=2, seed=0):
+    """A same-slot burst whose groups span ``width`` of ``m`` servers (and
+    narrower ones beside them), with tight busy ranges and small μ; few
+    tasks keep the slot capacity (and the CPU's sorts) at 128-256."""
+    rng = np.random.default_rng(1000 + width + seed)
+    base = rng.integers(0, 4, m)
+
+    def group(w, hi):
+        return RefGroup(int(rng.integers(1, hi)), tuple(sorted(rng.choice(m, w, replace=False).tolist())))
+
+    def groups():
+        return (group(width, 4), group(int(rng.integers(2, width + 1)), 3), group(3, 6))
+
+    return [RefProblem(busy=base, mu=rng.integers(1, 4, m), groups=groups())
+            for _ in range(n_jobs)]
+
+
+@pytest.mark.parametrize("width", [32, 33, 48, 64])
+def test_device_rd_matches_host_and_reference_at_group_width(width, no_host_rerun):
+    """Groups of ``width`` available servers (past the reference kernel's
+    24 key rows from 33 on): ``rd_torch`` on the CPU equals the host RD
+    and ``rd_jax`` on its jnp route, for one problem and for a chain."""
+    ref_burst = _wide_burst(width)
+    want = rd_jax.replica_deletion_jax(ref_burst[0])  # the jnp strip route
+    _assert_same(want, ref_rd.replica_deletion(ref_burst[0]))
+    problems = [convert.from_reference_problem(p) for p in ref_burst]
+    rdk.reset_counts()
+    _assert_same(rd_torch.replica_deletion_torch(problems[0]), want)
+    got = rd_torch.replica_deletion_torch_chain(problems)
+    for g, w, h in zip(got, rd_jax.replica_deletion_jax_chain(ref_burst),
+                       port_rd.host_commit_walk(problems)):
+        _assert_same(g, w)
+        _assert_same(g, h)
+    assert rdk.COUNTS["plain"] > 0 and rdk.COUNTS["wide"] == 0
 
 
 def test_chain_rejects_mismatched_bursts():
