@@ -9,8 +9,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels — each kernel against its plain PyTorch version on the card,
-   bit for bit, at widths up to the kernel's 32768-lane ceiling;
+3. kernels — the water-level kernel (K1/K2) against its plain PyTorch
+   version on the card, bit for bit, at widths up to its 32768-lane
+   ceiling (lanes at and above BIG included); then the fused
+   water-filling kernel (the K-group scan, and the B-job eq. 2 chain, in
+   one launch) against its plain loop, bit for bit, on groups of 1 to 4096
+   live lanes, ties, demand 0, one available server, busy at the BIG
+   boundary, available lanes at exactly BIG and levels raised past it,
+   K in {1, 8}, B in {1, 8}, M in {2, 4096, 32768};
 4. rd kernel — the RD step kernel (one iteration of device RD's
    deletion or dedup loop per launch) against its plain iteration in
    lockstep, every buffer bit for bit after every iteration: on the main
@@ -21,8 +27,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``wf_torch``) on a bursty trace at 4096 servers under ``fifo`` (the
    burst chain) and ``ocwf-acc``, each schedule identical to the host
    ``wf`` on the same trace; then the independent-problems batch entry
-   point ``water_filling_torch_batch`` over the trace's bursts.  Launch
-   counts are zeroed just before each path and read just after;
+   point ``water_filling_torch_batch`` over the trace's bursts; one fused
+   launch per ``wf_torch`` adapter call, whatever its K or B, no K1/K2
+   launch and no plain call.  Launch counts are zeroed just before each
+   path and read just after;
 6. rd main path — the same engine with ``rd_torch`` on the same trace's
    first jobs (three same-slot bursts through the device RD chain, then
    the first burst again one arrival at a time), each schedule identical
@@ -44,7 +52,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    seeded weights): two ``ServeEngine`` replicas behind
    ``RoutedServePool`` with ``ReplicaRouter(policy="wf_torch")`` serve
    8 requests; every request finishes with its 32 tokens, through the
-   kernels, with no plain call;
+   kernels, with no plain call, each request routed by one fused
+   water-filling launch;
 10. prefill path — ``make_prefill_step`` on 4 prompts of 2048 tokens,
     one decode step from its cache, held against a prefill over the 2049
     tokens; every flash-attention launch on the tensor cores;
@@ -52,8 +61,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
     one PyTorch library call each, with their bounds (K4 at decode and
     prefill rows, K5 over a full cache and at 301 keys);
 12. ssm kernels — the SSD scan kernel (K7) against its plain version at
-    both SSM models' prefill shapes, ragged lengths, a batch of 1 and
-    the model's strided conv slices, in float32 and bfloat16; flash and
+    both SSM models' prefill shapes, ragged lengths (1, 63, 65, 200,
+    2000, 2047), a batch of 1, every compiled (P, N) and the model's
+    strided conv slices, in float32 (CUDA cores) and bfloat16 (tensor
+    cores, chunk-parallel); flash and
     decode attention at Zamba2's head width 80 (strided views, split
     boundaries); then the timings of K7 at both prefill shapes and of K6
     at head width 80;
@@ -63,14 +74,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
     Zamba2-2.7B (two behind a ``wf_torch``-routed pool) at full width,
     bf16, random seeded weights, 8 requests each, with exact K4 / K5
     launches per decode step and a profiled decode step; then each
-    model's 4 x 2048-token prefill (K7 once per Mamba2 layer, K6 on the
-    tensor cores once per use of Zamba2's shared block) and its
+    model's 4 x 2048-token prefill (K7 on the tensor cores once per Mamba2
+    layer, K6 on the tensor cores once per use of Zamba2's shared block)
+    and its
     continuation check: 1792
     tokens prefilled and 256 decoded against the 2048-token prefill,
     within 1e-3 of the largest logit in float32, the bf16 gap reported;
-15. timings — CUDA-event times of the water-level kernels and their plain
-    versions, the chained burst admissions' wall times and device busy
-    shares; the RD step kernel's device time per launch on a profiled
+15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
+    lanes a row); the fused kernel's device time per call and per group
+    step on the main path's single-job calls and chained bursts, beside
+    its plain loop's and its bound; the chained burst admissions' wall
+    times and device busy shares; the RD step kernel's device time per launch on a profiled
     chain of the main path's jobs, the chain's busy share, and kernel
     against plain iteration over the same 200 iterations.
 
@@ -85,6 +99,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,8 +154,18 @@ RD_PROFILED_JOBS = slice(1, 3)
 
 KERNEL_WIDTHS = (1, 100, 4096, 16384, 32768)
 KERNEL_BATCHES = (1, 8)
-KERNEL_CASES = ("random", "ties", "one-available", "demand0", "boundary")
+KERNEL_CASES = ("random", "ties", "one-available", "demand0", "boundary", "above-big")
 TIMED = ((4096, 1), (16384, 1), (32768, 1), (4096, 8))
+# the fused water-filling kernel against its plain loop: groups of 1 to
+# 4096 live lanes and the edge cases, K groups, B problems, M servers
+FUSED_LIVE = {"live-1": (1, 1), "live-8-12": (8, 12), "live-40-64": (40, 64),
+              "live-200": (200, 200), "live-4096": (4096, 4096)}
+FUSED_CASES = (*FUSED_LIVE, "ties", "demand0", "one-available", "boundary", "at-big",
+               "reach-big")
+FUSED_WIDTHS = (2, 4096, 32768)
+FUSED_KS = (1, 8)
+FUSED_BS = (1, 8)
+FUSED_TIMED_CALLS = 200  # single-job calls and chained bursts timed
 # the RD step kernel against its plain iteration, in lockstep, besides the
 # main path's first job
 RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extremes",
@@ -204,6 +229,7 @@ SSM_CONT_F32_TOL = 1e-3
 # 64-row chunk.  bf16 inputs are read as the same fp32 values by both.
 SSD_TOL = (5e-5, 3e-5)
 SSD_TILE = 64  # the kernel's rows per tile (csrc/ssd_scan.cu kQ)
+SSD_RAGGED = (1, 63, 65, 2047)  # sequence lengths around the 64-row chunks
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
 # outside the tensor cores (the table's fp32 entry; the scheduler
@@ -212,7 +238,6 @@ SSD_TILE = 64  # the kernel's rows per tile (csrc/ssd_scan.cu kQ)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_32BIT_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
-SMEM_BYTES_PER_CLOCK = 128  # one SM's shared-memory bandwidth
 OPS_PER_COMPARE_EXCHANGE = 3  # one 64-bit compare, two selects
 OPS_PER_LANE = 12  # scans, ceiling division, segment test, caps, clamp
 
@@ -238,22 +263,42 @@ def compare_exchanges(n: int) -> int:
     return n // 2 * log * (log + 1) // 2
 
 
-def card_bound_ms(n: int, bsz: int) -> tuple[float, str]:
-    """Least time for the kernel's work on the whole card: each input read
-    and each output written once over HBM, or its 32-bit operations over
-    the card's peak rate, whichever is larger."""
-    nbytes = bsz * (16 * n + 8)  # b, w in; take, idx out; demand, level
-    ops = bsz * (OPS_PER_COMPARE_EXCHANGE * compare_exchanges(n) + OPS_PER_LANE * n)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_32BIT_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+def _pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
 
 
-def sm_smem_bound_us(n: int, sm_clock_hz: float) -> float:
-    """The one-block design's own floor: the sort's shared-memory traffic
-    (two 12-byte lanes read and written per compare-exchange) at one SM's
-    shared-memory bandwidth."""
-    return compare_exchanges(n) * 4 * 12 / (SMEM_BYTES_PER_CLOCK * sm_clock_hz) * 1e6
+def wl_step_ops(n: int, live: int) -> int:
+    """32-bit operations of one row step on this run's data: a sorting
+    network over the next power of two of the lanes that are not BIG (the
+    rest form the BIG run, already in order), then the scans, ceiling
+    divisions and clamps over all n lanes."""
+    return OPS_PER_COMPARE_EXCHANGE * compare_exchanges(_pow2(live)) + OPS_PER_LANE * n
+
+
+def card_bound_ms(n: int, live: list[int]) -> tuple[float, str]:
+    """Least time for K1/K2 on these rows on the whole card: each input read
+    and each output written once over HBM, or the 32-bit operations the
+    rows' live lanes need over the card's peak rate, whichever is larger."""
+    nbytes = len(live) * (16 * n + 8)  # b, w in; take, idx out; demand, level
+    ops = sum(wl_step_ops(n, k) for k in live)
+    return _bound(nbytes, ops, PEAK_32BIT_OPS_PER_S)
+
+
+def fused_bound_ms(calls: list) -> tuple[float, str]:
+    """Least time per fused launch over ``calls`` (each the argument tuple
+    of one launch): busy and each problem's μ (4M bytes each), the masks
+    (K·M bytes) and the demands read once, the alloc rows (4·K·M bytes),
+    the levels and Φ (and the chain's busy after the burst) written once,
+    over HBM; or the row steps' 32-bit operations on these masks (see
+    :func:`wl_step_ops`) over the card's peak rate."""
+    nbytes = ops = 0
+    for busy, mu, masks, demands in calls:
+        p, k, m = masks.shape
+        nbytes += (4 * busy.numel() + 4 * mu.numel() + masks.numel() + 4 * demands.numel()
+                   + 4 * p * k * m + 4 * p * k + 4 * p + (4 * m if busy.dim() == 1 else 0))
+        live = masks.sum(-1).reshape(-1).tolist()
+        ops += sum(wl_step_ops(wl.n_lanes_for(m), int(x)) for x in live)
+    return _bound(nbytes / len(calls), ops / len(calls), PEAK_32BIT_OPS_PER_S)
 
 
 def rd_step_bytes(c_slots: int, row_ids: int, m_servers: int) -> int:
@@ -288,6 +333,12 @@ def padded_rows(rng: np.random.Generator, m: int, bsz: int, case: str):
         mu[:] = 1
         mask[:] = True
         demand = rng.integers(0, 50, bsz)
+    elif case == "above-big":  # available lanes at BIG and past it
+        pick = rng.random((bsz, m))
+        busy = np.where(pick < 0.2, wl.BIG + rng.integers(0, 40, (bsz, m)), busy)
+        busy = np.where((pick >= 0.2) & (pick < 0.3), wl.BIG, busy)
+        mu = np.maximum(mu, 1)
+        demand = rng.integers(0, 4 * m + 10, bsz)
     dead = ~(mask & (mu > 0)).any(axis=1)
     pick = rng.integers(0, m, bsz)
     mask[rows[dead], pick[dead]] = True
@@ -306,7 +357,7 @@ def padded_rows(rng: np.random.Generator, m: int, bsz: int, case: str):
 
 
 def main_path_rows(rng: np.random.Generator, n: int, bsz: int):
-    """Rows shaped like the engine's: ~10 of the lanes available."""
+    """Rows shaped like the engine's: 10 of the lanes available."""
     b = np.full((bsz, n), wl.BIG, np.int32)
     w = np.zeros((bsz, n), np.int32)
     for r in range(bsz):
@@ -415,6 +466,85 @@ def phase_kernels(seed: int) -> dict[str, int]:
     return worst
 
 
+def fused_inputs(rng: np.random.Generator, case: str, b: int, k: int, m: int,
+                 chain: bool) -> tuple[torch.Tensor, ...]:
+    """busy ((M,) in chain mode, else (B, M)), μ (B, M), masks (B, K, M),
+    demands (B, K) on the card for one case of FUSED_CASES."""
+    lo, hi = FUSED_LIVE.get(case, (8, 12))
+    if case == "one-available":
+        lo = hi = 1
+    busy = rng.integers(0, 3 if case == "ties" else 200, (b, m)).astype(np.int64)
+    mu = rng.integers(1, 6, (b, m))
+    demands = rng.integers(1, 400, (b, k))
+    if case == "demand0":
+        demands[:] = 0
+    elif case == "boundary":  # busy just under BIG
+        busy = wl.BIG - rng.integers(1, 1000, (b, m))
+        mu[:] = 1
+        demands = rng.integers(1, 50, (b, k))
+    elif case == "at-big":  # available lanes at exactly BIG, with capacity
+        busy[rng.random((b, m)) < 0.3] = wl.BIG
+    elif case == "reach-big":  # eq. 10 lifts levels to and past BIG
+        busy = wl.BIG - rng.integers(1, 4, (b, m))
+        demands = rng.integers(200, 2000, (b, k))
+    masks = np.zeros((b, k, m), bool)
+    for i in range(b):
+        for g in range(k):
+            size = int(rng.integers(min(lo, m), min(hi, m) + 1))
+            masks[i, g, rng.choice(m, size, replace=False)] = True
+    busy = busy[0] if chain else busy
+    dev = torch.device("cuda")
+    return (torch.from_numpy(busy.astype(np.int32)).to(dev),
+            torch.from_numpy(mu.astype(np.int32)).to(dev),
+            torch.from_numpy(masks).to(dev),
+            torch.from_numpy(demands.astype(np.int32)).to(dev))
+
+
+def phase_fused_kernel(seed: int) -> int:
+    """The fused water-filling kernel against its plain loop on identical
+    inputs, bit for bit, in groups and chain mode; returns the largest
+    error (0)."""
+    rng = np.random.default_rng(seed + 5)
+    worst, n_cases, reached_big = 0, 0, False
+    for case in FUSED_CASES:
+        for chain in (False, True):
+            for m in FUSED_WIDTHS:
+                for k in FUSED_KS:
+                    for b in FUSED_BS:
+                        args = fused_inputs(rng, case, b, k, m, chain)
+                        wl.reset_counts()
+                        got = (wl.wf_chain if chain else wl.wf_groups)(*args)
+                        launched = dict(wl.COUNTS)
+                        want = (wl.wf_chain_plain if chain else wl.wf_groups_plain)(*args)
+                        torch.cuda.synchronize()
+                        err = max(int((g.long() - p.long()).abs().max())
+                                  for g, p in zip(got, want))
+                        worst = max(worst, err)
+                        n_cases += 1
+                        reached_big |= case == "reach-big" and bool((want[1] >= wl.BIG).any())
+                        if err or launched["plain"] or launched["wf_group_steps"] != b * k:
+                            raise AssertionError(
+                                f"fused kernel disagrees with its plain loop: case={case} "
+                                f"chain={chain} M={m} K={k} B={b} max_abs_err={err} "
+                                f"counts={launched}")
+    if not reached_big:
+        raise AssertionError("the reach-big cases never raised a level to BIG")
+    emit({
+        "phase": "fused_kernel",
+        "held": ["wf_groups", "wf_chain"],
+        "against": "wf_groups_plain / wf_chain_plain (the loop over the plain water level)",
+        "tolerance": 0,
+        "cases": n_cases,
+        "case_names": list(FUSED_CASES),
+        "widths": list(FUSED_WIDTHS),
+        "groups": list(FUSED_KS),
+        "problems": list(FUSED_BS),
+        "levels_reached_big": reached_big,
+        "max_abs_err": worst,
+    })
+    return worst
+
+
 def main_path_trace(seed: int) -> list:
     return generate(
         "bursty",
@@ -425,18 +555,27 @@ def main_path_trace(seed: int) -> list:
     )
 
 
+def _fused_launches(counts: dict) -> int:
+    return counts["wf_groups"] + counts["wf_chain"]
+
+
 def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
+    """The scheduler under fifo and ocwf-acc, then the batch entry point:
+    one fused launch per ``wf_torch`` adapter call, no K1/K2 launch and no
+    plain call, schedules identical to the host ``wf``."""
     bursts = bursts_of(jobs)
     n_arrivals = sum(len(b) for b in bursts)
-    launches = {"waterlevel": 0, "waterlevel_batch": 0}
+    launches = {"waterlevel": 0, "waterlevel_batch": 0, "wf_fused": 0, "wf_group_steps": 0}
     for ordering in ("fifo", "ocwf-acc"):
         torch.cuda.synchronize()
         wl.reset_counts()
+        wf_torch.CALLS["adapter"] = 0
         t0 = time.perf_counter()
         dev = SchedulingEngine(M_SERVERS, make_policy("wf_torch", ordering)).run(jobs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(wl.COUNTS)
+        calls = wf_torch.CALLS["adapter"]
         t0 = time.perf_counter()
         host = SchedulingEngine(M_SERVERS, make_policy("wf", ordering)).run(jobs)
         host_wall = time.perf_counter() - t0
@@ -445,7 +584,7 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
             and dev.makespan == host.makespan
             and dev.failed_jobs == host.failed_jobs
         )
-        n_launch = counts["waterlevel"] + counts["waterlevel_batch"]
+        n_fused = _fused_launches(counts)
         emit({
             "phase": "main_path",
             "ordering": ordering,
@@ -460,23 +599,28 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
             "engine_wall_s": wall,
             "mean_overhead_ms": dev.mean_overhead_s * 1e3,
             "launches": counts,
-            "launches_per_arrival": n_launch / n_arrivals,
-            "launches_per_burst": n_launch / len(bursts),
+            "adapter_calls": calls,
+            "fused_launches_per_arrival": n_fused / n_arrivals,
+            "group_steps_per_launch": counts["wf_group_steps"] / max(n_fused, 1),
             "host_wf_wall_s": host_wall,
             "identical_to_host_wf": identical,
         })
         if not identical:
             raise AssertionError(f"{ordering}: wf_torch schedule differs from host wf")
-        if counts["waterlevel"] == 0 or counts["plain"] != 0:
-            raise AssertionError(f"{ordering}: main path bypassed the kernel: {counts}")
-        for k in launches:
-            launches[k] += counts[k]
+        if n_fused == 0 or counts["plain"] != 0 or n_fused != calls:
+            raise AssertionError(f"{ordering}: {n_fused} fused launches for {calls} adapter "
+                                 f"calls, counts {counts}")
+        if counts["waterlevel"] or counts["waterlevel_batch"]:
+            raise AssertionError(f"{ordering}: K1/K2 launched on the main path: {counts}")
+        launches["wf_fused"] += n_fused
+        launches["wf_group_steps"] += counts["wf_group_steps"]
 
     # the independent-problems entry point over the same bursts
     busy = np.random.default_rng(seed + 1).integers(0, 50, M_SERVERS)
     multi = [b for b in bursts if len(b) > 1]
     torch.cuda.synchronize()
     wl.reset_counts()
+    wf_torch.CALLS["adapter"] = 0
     t0 = time.perf_counter()
     for burst in multi:
         problems = [AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups) for j in burst]
@@ -493,11 +637,15 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
         "problems": sum(len(b) for b in multi),
         "wall_s": wall,
         "launches": counts,
+        "adapter_calls": wf_torch.CALLS["adapter"],
         "identical_to_host_wf": True,
     })
-    if counts["waterlevel_batch"] == 0 or counts["plain"] != 0:
-        raise AssertionError(f"batch path bypassed the kernel: {counts}")
-    launches["waterlevel_batch"] += counts["waterlevel_batch"]
+    if (counts["wf_groups"] == 0 or counts["plain"] != 0
+            or counts["wf_groups"] != wf_torch.CALLS["adapter"]
+            or counts["waterlevel"] or counts["waterlevel_batch"]):
+        raise AssertionError(f"batch path went around the fused kernel: {counts}")
+    launches["wf_fused"] += counts["wf_groups"]
+    launches["wf_group_steps"] += counts["wf_group_steps"]
     return bursts, launches
 
 
@@ -863,10 +1011,78 @@ def phase_rd_timings(seed: int, admitted: list) -> dict:
     return row
 
 
-def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
+def _fused_calls(bursts: list) -> tuple[list, list]:
+    """The main path's fused launches as argument tuples on the card, from
+    an empty cluster: single-job calls (one problem, K groups) from the
+    trace's first jobs, and chained bursts (B jobs) from its first
+    multi-job bursts."""
+    busy = np.zeros(M_SERVERS, np.int64)
+    dev = torch.device("cuda")
+
+    def staged(problems):
+        k = max(len(p.groups) for p in problems)
+        return [torch.from_numpy(x).to(dev) for x in wf_torch._dense_inputs(problems, k)]
+
+    jobs = [j for burst in bursts for j in burst][:FUSED_TIMED_CALLS]
+    singles = [tuple(staged([AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups)]))
+               for j in jobs]
+    chains = []
+    for burst in [b for b in bursts if len(b) > 1][:FUSED_TIMED_CALLS]:
+        b0, mu, masks, demands = staged(
+            [AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups) for j in burst])
+        chains.append((b0[0].contiguous(), mu, masks, demands))
+    return singles, chains
+
+
+def _time_fused(calls: list, kernel, plain) -> dict:
+    """Device µs per call of the fused kernel and of its plain loop on the
+    same calls, in turns kernel, plain, plain, kernel, from the profiler
+    (the fused kernel's own time; every kernel of the plain loop); CUDA
+    events over the back-to-back calls for the host-paced rate."""
+    def run(fn):
+        return lambda: [fn(*a) for a in calls]
+
+    def device_us(fn, name=None):
+        d = profile_device_us(run(fn), cpu_ops=False)
+        if name is not None:
+            d = {k: v for k, v in d.items() if name in k}
+        if not d:
+            ms = cuda_ms(run(fn), 2)
+            emit({"phase": "timing_fallback", "reason": "torch.profiler recorded no "
+                  "fused-kernel time", "event_ms": ms})
+            return ms * 1e3 / len(calls)
+        return sum(d.values()) / len(calls)
+
+    run(kernel)()
+    run(plain)()
+    k1 = device_us(kernel, "wf_fused")
+    p1 = device_us(plain)
+    p2 = device_us(plain)
+    k2 = device_us(kernel, "wf_fused")
+    steps = sum(a[2].shape[0] * a[2].shape[1] for a in calls)
+    bound, by = fused_bound_ms(calls)
+    return {
+        "calls": len(calls),
+        "group_steps": steps,
+        "kernel_ms": (k1 + k2) / 2e3,
+        "kernel_us_runs": [k1, k2],
+        "kernel_us_per_group_step": (k1 + k2) / 2 * len(calls) / steps,
+        "plain_ms": (p1 + p2) / 2e3,
+        "plain_us_runs": [p1, p2],
+        "plain_us_per_group_step": (p1 + p2) / 2 * len(calls) / steps,
+        "kernel_event_ms": cuda_ms(run(kernel), 3) / len(calls),
+        "bound_ms": bound,
+        "bound_by": by,
+    }
+
+
+def phase_timings(seed: int, bursts: list) -> dict:
+    """K1/K2 at the shapes of earlier runs (10 live lanes a row), the fused
+    kernel on the main path's single-job calls and chained bursts, and the
+    chained burst admission's wall time and device busy share."""
     rng = np.random.default_rng(seed + 2)
     rows = []
-    by_shape = {}
+    out = {}
     for n, bsz in TIMED:
         b, w, d = main_path_rows(rng, n, bsz)
         iters = 200 if n <= 4096 else 50
@@ -877,29 +1093,38 @@ def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
         def plain():
             return wl.waterlevel_sorted_plain(b, w, d)
 
-        # interleaved kernel, plain, plain, kernel on the same inputs
-        k1 = cuda_ms(kernel, iters)
-        p1 = cuda_ms(plain, iters)
-        p2 = cuda_ms(plain, iters)
-        k2 = cuda_ms(kernel, iters)
-        bound, bound_by = card_bound_ms(n, bsz)
+        # interleaved kernel, plain, plain, kernel on the same inputs: device
+        # time per call under the profiler (a launch now takes less device
+        # time than the wrapper's host side, so CUDA events over back-to-back
+        # calls, kept as *_event_ms, measure the host's rate)
+        k1 = device_ms_per_call(kernel, iters)
+        p1 = device_ms_per_call(plain, iters)
+        p2 = device_ms_per_call(plain, iters)
+        k2 = device_ms_per_call(kernel, iters)
+        bound, bound_by = card_bound_ms(n, [10] * bsz)
         row = {
             "n_lanes": n,
             "batch": bsz,
+            "live_lanes_per_row": 10,
             "kernel_ms": (k1 + k2) / 2,
             "kernel_ms_runs": [k1, k2],
             "plain_ms": (p1 + p2) / 2,
             "plain_ms_runs": [p1, p2],
+            "kernel_event_ms": cuda_ms(kernel, iters),
+            "plain_event_ms": cuda_ms(plain, iters),
             "bound_ms": bound,
             "bound_by": bound_by,
-            # rows run on separate SMs, so the per-row floor holds for B rows
-            "sm_smem_bound_ms": sm_smem_bound_us(n, sm_clock_hz) / 1e3,
         }
         rows.append(row)
-        by_shape[(n, bsz)] = row
+        out[(n, bsz)] = row
 
-    # chained burst admission: host wall per call (each ends in one
-    # .cpu()), then the same calls under the profiler for device time
+    singles, chains = _fused_calls(bursts)
+    out["fused single"] = _time_fused(singles, wl.wf_groups, wl.wf_groups_plain)
+    out["fused chain"] = _time_fused(chains, wl.wf_chain, wl.wf_chain_plain)
+
+    # chained burst admission through the adapter: host wall per call (each
+    # ends in one .cpu()), then the same calls under the profiler for
+    # device time
     busy = np.zeros(M_SERVERS, np.int64)
     calls = [
         [AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups) for j in burst]
@@ -911,7 +1136,7 @@ def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
     for problems in calls:
         wf_torch.water_filling_torch_chain(problems)
     chain_ms = (time.perf_counter() - t0) / len(calls) * 1e3
-    launches = wl.COUNTS["waterlevel"] / len(calls)
+    launches = _fused_launches(wl.COUNTS) / len(calls)
     device = profile_device_us(
         lambda: [wf_torch.water_filling_torch_chain(p) for p in calls]
     )
@@ -920,16 +1145,18 @@ def phase_timings(seed: int, bursts: list, sm_clock_hz: float) -> dict:
     emit({
         "phase": "timings",
         "kernels": rows,
+        "fused_single_job": out["fused single"],
+        "fused_chain": out["fused chain"],
         "chain_ms_per_burst": chain_ms,
         "chain_bursts": len(calls),
-        "chain_launches_per_burst": launches,
+        "chain_fused_launches_per_burst": launches,
         "chain_device_ms_per_burst": total,
         "chain_device_busy_share": total / chain_ms if total else None,
         "chain_device_ms_per_burst_by_kernel": dict(
             sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
         ),
     })
-    return by_shape
+    return out
 
 
 def profile_device_us(fn, cpu_ops: bool = True) -> dict[str, float]:
@@ -1271,8 +1498,11 @@ def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
     if counts["decode_attention"]["decode_attention"] != _attn_per_step(cfg) * n:
         raise AssertionError(f"{phase}: {counts['decode_attention']} decode-attention "
                              f"launches for {n} decode steps")
-    if replicas > 1 and counts["waterlevel"]["waterlevel"] != len(reqs):
-        raise AssertionError(f"{phase}: routing went around the water-level kernel: {counts}")
+    wlc = counts["waterlevel"]
+    if replicas > 1 and (wlc["wf_groups"] != len(reqs) or wlc["waterlevel"]
+                         or wlc["waterlevel_batch"]):
+        raise AssertionError(f"{phase}: routing went around the fused water-filling "
+                             f"kernel (one launch per request): {counts}")
     return counts, params
 
 
@@ -1517,6 +1747,12 @@ def phase_ssm_kernels(seed: int) -> dict[str, float]:
             ("ragged S=2000", (PREFILL_BATCH, 2000, hz, pz, nz)),
             ("batch 1", (1, PREFILL_LEN, hm, pm, nm)),
             ("one token", (2, 1, hz, pz, nz)),
+            *((f"ragged S={s}, {arch}", (2, s, h, p, n))
+              for s in SSD_RAGGED
+              for arch, (h, p, n) in ((SSM_ARCHS[0], (hm, pm, nm)),
+                                      (SSM_ARCHS[1], (hz, pz, nz)))),
+            *((f"P={p}, N={n}", (2, 130, 5, p, n))
+              for p in ssk.HEAD_DIMS for n in ssk.STATE_DIMS),
         ):
             args = _ssd_inputs(gen, b, s, h, p, n, dt_)
             got = ssk.ssd_scan(*args, chunk=chunk)
@@ -1540,6 +1776,21 @@ def phase_ssm_kernels(seed: int) -> dict[str, float]:
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         scales = [float(w.abs().max()) for w in want]
         cases.append({"kernel": "ssd_scan", "case": "strided conv slices",
+                      "shape": [b, s, h, p, n], "dtype": dtype_name,
+                      "max_abs_err": max(errs), "y_err": errs[0], "state_err": errs[1],
+                      "max_abs_y": scales[0], "max_abs_state": scales[1],
+                      "ok": all(e <= atol + rtol * sc for e, sc in zip(errs, scales))})
+        # the same one element past a 16-byte boundary, odd row strides
+        conv = _randn(gen, (b, s, h * p + 2 * n + 3), torch.float32).mul_(0.5).to(dt_)
+        x = conv[..., 1 : 1 + h * p].reshape(b, s, h, p)
+        bm = conv[..., 1 + h * p : 1 + h * p + n]
+        cm = conv[..., 1 + h * p + n : 1 + h * p + 2 * n]
+        got = ssk.ssd_scan(x, dts, a, bm, cm, chunk=chunk)
+        want = ssk.ssd_scan_plain(x.contiguous(), dts, a, bm.contiguous(), cm.contiguous(),
+                                  chunk)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        scales = [float(w.abs().max()) for w in want]
+        cases.append({"kernel": "ssd_scan", "case": "conv slices off 16-byte alignment",
                       "shape": [b, s, h, p, n], "dtype": dtype_name,
                       "max_abs_err": max(errs), "y_err": errs[0], "state_err": errs[1],
                       "max_abs_y": scales[0], "max_abs_state": scales[1],
@@ -1686,6 +1937,9 @@ def phase_ssm_prefill(arch: str, params, seed: int) -> dict:
     if counts["flash_attention"]["tensor_core"] != uses:
         raise AssertionError(f"{arch} prefill: K6 off the tensor cores: "
                              f"{counts['flash_attention']}")
+    if counts["ssd_scan"]["tensor_core"] != cfg.n_layers:
+        raise AssertionError(f"{arch} prefill: K7 off the tensor cores: "
+                             f"{counts['ssd_scan']}")
     return counts
 
 
@@ -1697,6 +1951,18 @@ def _continue(params, cfg, toks: torch.Tensor) -> torch.Tensor:
     for t in range(SSM_CONT_PREFIX, toks.shape[1]):
         got, cache = decode_step(params, cfg, toks[:, t : t + 1], cache)
     return got
+
+
+def _by_name(device_us: dict[str, float], calls: int) -> dict[str, float]:
+    """Device µs per call by kernel function name (namespace and template
+    arguments dropped, entries of one name summed), and their total."""
+    out: dict[str, float] = {}
+    for key, us in device_us.items():
+        found = re.search(r"(\w+_kernel)\b", key)
+        name = found.group(1) if found else key[:60]
+        out[name] = out.get(name, 0.0) + us / calls
+    out["total"] = sum(device_us.values()) / calls
+    return out
 
 
 def _ssd_bound(b: int, s: int, h: int, p: int, n: int, elt: int) -> tuple[float, str]:
@@ -1730,10 +1996,12 @@ def phase_ssm_timings(seed: int) -> dict:
         plain = lambda: ssk.ssd_scan_plain(*args, cfg.ssm.chunk)  # noqa: E731
         k1, p1, p2, k2 = (cuda_ms(f, 10) for f in (kernel, plain, plain, kernel))
         bound, by = _ssd_bound(b, s, h, p, n, 2)
+        by_kernel = profile_device_us(lambda: [kernel() for _ in range(10)], cpu_ops=False)
         rows[f"ssd_scan {arch}"] = {
             "shape": [b, s, h, p, n], "kernel_ms": device_ms_per_call(kernel, 10),
             "plain_ms": device_ms_per_call(plain, 5), "library_ms": None,
             "kernel_event_ms": [k1, k2], "plain_event_ms": [p1, p2],
+            "kernel_us_by_kernel": _by_name(by_kernel, 10),
             "bound_ms": bound, "bound_by": by,
         }
     z2 = get_config("zamba2-2.7b")
@@ -1766,6 +2034,7 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     worst = phase_kernels(args.seed)
+    worst["wf_fused"] = phase_fused_kernel(args.seed)
     jobs = main_path_trace(args.seed)
     rd_worst = phase_rd_kernel(args.seed, jobs)
     bursts, launches = phase_main_path(args.seed, jobs)
@@ -1792,8 +2061,7 @@ def main() -> int:
         ssm_counts += [counts, phase_ssm_prefill(arch, params, args.seed)]
         del params
         torch.cuda.empty_cache()
-    sm_clock_hz = dev["max_sm_clock_mhz"] * 1e6
-    timed = phase_timings(args.seed, bursts, sm_clock_hz)
+    timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     source = "src/repro_torch/kernels/csrc/waterlevel.cu"
     summary = []
@@ -1808,6 +2076,8 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": launches[name],
+            "main_path": "none: the scheduler, batch and routing paths launch wf_fused "
+            "(one launch per wf_torch call); K1/K2 run in the kernels and timings phases",
             "max_abs_err": worst[name],
             "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"],
@@ -1815,6 +2085,30 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": None,  # no single PyTorch call computes this function
         })
+    # the fused water-filling kernel: the scheduler's fifo and ocwf-acc
+    # runs, the batch path, and the two wf_torch-routed serve pools
+    pooled = sum(c["waterlevel"]["wf_groups"] for c in (serve_counts, *ssm_counts[::2]))
+    single, chain = timed["fused single"], timed["fused chain"]
+    summary.append({
+        "name": "wf_fused",
+        "route": "cuda",
+        "source": source,
+        "replaces": "src/repro/kernels/waterlevel.py:329",
+        "contract": "the K-group water-filling scan (wf_groups) or the B-job eq. 2 "
+        "chain (wf_chain) in one launch, on the K1 row step; ms is per single-job "
+        "call on the main path",
+        "launches": launches["wf_fused"] + pooled,
+        "group_steps": launches["wf_group_steps"],
+        "max_abs_err": worst["wf_fused"],
+        "ms": single["kernel_ms"],
+        "plain_ms": single["plain_ms"],
+        "bound_ms": single["bound_ms"],
+        "bound_by": single["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "also": {"at": "chained bursts", "ms": chain["kernel_ms"],
+                 "plain_ms": chain["plain_ms"], "bound_ms": chain["bound_ms"],
+                 "us_per_group_step": chain["kernel_us_per_group_step"]},
+    })
     summary.append({
         "name": "rd_step",
         "route": "cuda",
@@ -1844,13 +2138,20 @@ def main() -> int:
         "rmsnorm": ("prefill rows", model_timed["rmsnorm prefill"]),
         "decode_attention": ("301 keys", model_timed["decode_attention 301 keys"]),
         "flash_attention": ("hd 80", ssm_timed["flash_attention hd 80"]),
+        "ssd_scan": ("zamba2-2.7b prefill", ssm_timed["ssd_scan zamba2-2.7b"]),
     }
     k6 = sum(c["flash_attention"]["flash_attention"] for c in paths)
     k6_tc = sum(c["flash_attention"]["tensor_core"] for c in paths)
+    k7 = sum(c["ssd_scan"]["ssd_scan"] for c in paths)
+    k7_tc = sum(c["ssd_scan"]["tensor_core"] for c in paths)
     design = {
         "decode_attention": {"split-KV, merged in the same launch": "float32 and bfloat16"},
         "flash_attention": {"tensor cores (wgmma + TMA)": f"bfloat16: {k6_tc} launches",
                             "CUDA cores": f"float32: {k6 - k6_tc} launches"},
+        "ssd_scan": {"tensor cores (mma.sync; states per sequence and head, y chunk-parallel)":
+                     f"bfloat16: {k7_tc} calls",
+                     "CUDA cores (a block per sequence and head)":
+                     f"float32: {k7 - k7_tc} calls"},
     }
     for name, replaces, row in (
         ("rmsnorm", "src/repro/kernels/rmsnorm.py:40", model_timed["rmsnorm decode"]),

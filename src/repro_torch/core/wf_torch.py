@@ -2,34 +2,36 @@
 
 The water level of one task group is a sort + prefix-sum + masked
 ceiling division; its allocation is a prefix-sum clamp (paper eqs. 7/9
-and Alg. 2).  Every group step goes through one of two routes
+and Alg. 2).  Every call goes through one of two routes
 (:func:`repro_torch.kernels.waterlevel.resolve_waterlevel`):
 
-- ``cuda``: the rows are padded to the kernel's lane width and handed to
-  the water-level kernel's wrapper (the CUDA kernel on the card; its
-  plain version for CPU tensors);
-- ``torch``: the plain version on the unpadded rows, as the reference's
-  jnp pipeline does.
+- ``cuda``: one launch of the fused water-filling kernel per call
+  (:func:`repro_torch.kernels.waterlevel.wf_groups` for the group scan
+  and the independent-problems batch, ``wf_chain`` for the eq. 2 burst
+  chain), whatever its K or B; its plain version, the Python loop over
+  the water-level function on padded rows, for CPU tensors;
+- ``torch``: that loop on the unpadded rows, as the reference's jnp
+  pipeline does (past the kernel's :data:`~repro_torch.kernels.
+  waterlevel.MAX_LANES`, whatever was asked).
 
 Both give bit-identical results; everything is int32, as in the
-reference.  The K-group scan and the B-job chain are Python loops over
-device tensors with no host sync inside; each adapter brings its result
-to the host once.  Unlike the reference, K and B are not padded to
-powers of two: that padding only bounds a jit cache, and padded steps
-are no-ops.
+reference.  Each adapter brings its result to the host once.  Unlike the
+reference, K and B are not padded to powers of two: that padding only
+bounds a jit cache, and padded steps are no-ops.  ``CALLS`` counts the
+adapter calls that reach the device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .. import backend
 from ..kernels import waterlevel as wl
 from .instance import Assignment, AssignmentProblem
 
 __all__ = [
+    "CALLS",
     "water_level",
     "water_fill_alloc",
     "water_fill_groups",
@@ -44,61 +46,21 @@ __all__ = [
 BIG = wl.BIG
 I32 = torch.int32
 
-
-def _ceil_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return -(-a // b)
+CALLS = {"adapter": 0}  # host adapter calls that reach the device
 
 
-def _masked(
-    busy: torch.Tensor, mu: torch.Tensor, mask: torch.Tensor
-) -> tuple[torch.Tensor, torch.Tensor]:
-    return torch.where(mask, busy, BIG), torch.where(mask, mu, 0)
+def _kernel_args(busy, mu, masks, demands) -> tuple[torch.Tensor, ...]:
+    """int32 busy / μ / demands and bool masks, contiguous, as the fused
+    kernel's wrappers take them."""
+    return (busy.to(I32).contiguous(), mu.to(I32).contiguous(), masks.contiguous(),
+            demands.to(I32).contiguous())
 
 
-def _alloc_rows(
-    b: torch.Tensor, w: torch.Tensor, demand: torch.Tensor, route: str
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Masked ``(R, M)`` rows and ``(R,)`` demands → (alloc (R, M), level
-    (R,)), with the ``demand <= 0`` → minimum-available-busy rule."""
-    m = b.shape[1]
+def _groups(route: str, busy, mu, masks, demands):
+    args = _kernel_args(busy, mu, masks, demands)
     if route == "cuda":
-        pad = wl.n_lanes_for(m) - m
-        level, take, idx = wl.waterlevel_sorted(
-            F.pad(b, (0, pad), value=BIG), F.pad(w, (0, pad)), demand
-        )
-    else:
-        level, take, idx = wl.waterlevel_sorted_plain(b, w, demand)
-    # idx permutes the padded row (pad lanes carry zero takes): scattering
-    # into the padded width and slicing drops them with no host sync
-    alloc = torch.zeros_like(take).scatter_(1, idx.long(), take)[:, :m]
-    return alloc, torch.where(demand > 0, level, b.amin(1))
-
-
-def _groups_rows(
-    busy: torch.Tensor,
-    mu: torch.Tensor,
-    group_mask: torch.Tensor,
-    demands: torch.Tensor,
-    route: str,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The K-group scan over R independent rows: (R, M) busy/mu, (R, K, M)
-    masks, (R, K) demands → (alloc (R, K, M), levels (R, K))."""
-    b = busy.to(I32)
-    mu = mu.to(I32)
-    demands = demands.to(I32)
-    allocs, levels = [], []
-    for k in range(group_mask.shape[1]):
-        m_k, d_k = group_mask[:, k], demands[:, k].contiguous()
-        alloc_k, xi = _alloc_rows(*_masked(b, mu, m_k), d_k, route)
-        raised = m_k & (d_k > 0)[:, None]
-        b = torch.where(raised, torch.maximum(b, xi[:, None]), b)  # eq. 10
-        allocs.append(alloc_k)
-        levels.append(xi)
-    return torch.stack(allocs, 1), torch.stack(levels, 1)
-
-
-def _phi(levels: torch.Tensor, demands: torch.Tensor) -> torch.Tensor:
-    return torch.where(demands > 0, levels, 0).amax(-1)
+        return wl.wf_groups(*args)
+    return wl.wf_groups_plain(*args, padded=False)
 
 
 def water_level(
@@ -125,10 +87,9 @@ def water_fill_alloc(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Water-level allocation of one group: (alloc (M,) int32, ξ scalar)."""
     route = wl.resolve_waterlevel(impl, busy.shape[-1])
-    b, w = _masked(busy.to(I32), mu.to(I32), mask)
-    demand = torch.as_tensor(demand, dtype=I32, device=busy.device).reshape(1)
-    alloc, level = _alloc_rows(b[None], w[None], demand, route)
-    return alloc[0], level[0]
+    demand = torch.as_tensor(demand, dtype=I32, device=busy.device).reshape(1, 1)
+    alloc, levels, _ = _groups(route, busy[None], mu[None], mask[None, None], demand)
+    return alloc[0, 0], levels[0, 0]
 
 
 def water_fill_groups(
@@ -145,10 +106,10 @@ def water_fill_groups(
     levels (K,), Φ scalar = max level over groups with demand > 0).
     """
     route = wl.resolve_waterlevel(impl, busy.shape[-1])
-    alloc, levels = _groups_rows(
-        busy[None], mu[None], group_mask[None], demands[None], route
+    alloc, levels, phi = _groups(
+        route, busy[None], mu[None], group_mask[None], demands[None]
     )
-    return alloc[0], levels[0], _phi(levels[0], demands.to(I32))
+    return alloc[0], levels[0], phi[0]
 
 
 def water_fill_batch(
@@ -160,13 +121,11 @@ def water_fill_batch(
     impl: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """WF over B *independent* problems: (B, M) busy/mu, (B, K, M) masks,
-    (B, K) demands → ((B, K, M) alloc, (B, K) levels, (B,) Φ).  Each
-    group step is one launch over all B rows.  The problems do not see
-    each other's allocations; same-slot admission uses
-    :func:`water_fill_chain`."""
+    (B, K) demands → ((B, K, M) alloc, (B, K) levels, (B,) Φ), one block
+    a problem.  The problems do not see each other's allocations;
+    same-slot admission uses :func:`water_fill_chain`."""
     route = wl.resolve_waterlevel(impl, busy.shape[-1])
-    alloc, levels = _groups_rows(busy, mu, group_mask, demands, route)
-    return alloc, levels, _phi(levels, demands.to(I32))
+    return _groups(route, busy, mu, group_mask, demands)
 
 
 def water_fill_chain(
@@ -185,22 +144,12 @@ def water_fill_chain(
     were admitted one at a time.
     """
     route = wl.resolve_waterlevel(impl, busy.shape[-1])
-    b = busy.to(I32)[None]
-    mu = mu.to(I32)
-    demands = demands.to(I32)
-    allocs, phis = [], []
-    for j in range(mu.shape[0]):
-        alloc_j, levels_j = _groups_rows(
-            b, mu[j : j + 1], group_mask[j : j + 1], demands[j : j + 1], route
-        )
-        loads = alloc_j[0].sum(0, dtype=I32)
-        # loads > 0 only where μ > 0; the clamp keeps the other lanes'
-        # (discarded) division defined
-        mu_j = mu[j].clamp(min=1)
-        b = b + torch.where(loads > 0, _ceil_div(loads, mu_j), 0)  # eq. 2
-        allocs.append(alloc_j[0])
-        phis.append(_phi(levels_j[0], demands[j]))
-    return torch.stack(allocs), torch.stack(phis), b[0]
+    args = _kernel_args(busy, mu, group_mask, demands)
+    if route == "cuda":
+        alloc, _, phi, busy_out = wl.wf_chain(*args)
+    else:
+        alloc, _, phi, busy_out = wl.wf_chain_plain(*args, padded=False)
+    return alloc, phi, busy_out
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +247,7 @@ def water_filling_torch(
     :func:`repro_torch.core.wf.water_filling`."""
     if not problem.groups:
         return Assignment(alloc=[], phi=0)  # parity with host water_filling
+    CALLS["adapter"] += 1
     busy, mu, masks, demands = _dense_inputs([problem], len(problem.groups))
     alloc, _, phi = water_fill_groups(
         *_to_device(busy[0], mu[0], masks[0], demands[0]), impl=impl
@@ -318,6 +268,7 @@ def water_filling_torch_batch(
         raise ValueError("batched WF requires a single cluster size")
     k = max(len(p.groups) for p in problems)
     busy, mu, masks, demands = _dense_inputs(problems, k)
+    CALLS["adapter"] += 1
     alloc, _, phi = water_fill_batch(*_to_device(busy, mu, masks, demands), impl=impl)
     alloc, phi = _fetch(alloc, phi)
     return [
@@ -355,6 +306,7 @@ def water_filling_torch_chain(
         )
     k = max(len(p.groups) for p in problems)
     busy, mu, masks, demands = _dense_inputs(problems, k)
+    CALLS["adapter"] += 1
     alloc, phi, _ = water_fill_chain(
         *_to_device(busy[0], mu, masks, demands), impl=impl
     )

@@ -13,10 +13,21 @@ grid over 128-row chunks, ``S % 128 == 0``, ``y`` in ``x``'s dtype) is
   ``(B, H, P, N)`` float32, the state starting at zero, for any
   ``S >= 1``.
 
-The kernel walks 64-row tiles and reads its inputs through their strides
-(only the last dim need be contiguous), so the model hands over its
-slices of the conv output without a copy; it is built from source at
-first use (:mod:`._build`).
+The kernel reads its inputs through their strides (only the last dim
+need be contiguous), so the model hands over its slices of the conv
+output without a copy; it is built from source at first use
+(:mod:`._build`).  It takes one of two routes (:func:`route`):
+
+- ``tensor_core`` for bfloat16 (the models' prefill): two launches over
+  64-row chunks — the chunk states and their carry, one block per
+  (sequence, head) walking the chunks, then y with every chunk in
+  parallel, one C·Bᵀ per block shared by its heads — every product a
+  bf16 ``mma.sync`` whose fp32 operand is split in three bf16 terms, so
+  that it keeps fp32 accuracy; it needs a scratch of
+  :func:`scratch_bytes` (the state entering each chunk), which the
+  wrapper allocates;
+- ``cuda_core`` for float32: one block per (sequence, head) walking the
+  64-row tiles in order, in fp32 on the CUDA cores.
 
 - :func:`ssd_scan` launches the kernel for a CUDA tensor, or raises; it
   takes the plain version only for a tensor on the CPU.
@@ -27,7 +38,9 @@ first use (:mod:`._build`).
   input and no decay (``dt = 0``).  At the model's chunk it computes
   what the reference model computes.
 
-``COUNTS`` holds plain integers: ``ssd_scan`` counts kernel launches,
+``COUNTS`` holds plain integers: ``ssd_scan`` counts kernel calls (one
+per :func:`ssd_scan` call on the card, whatever its route's number of
+launches), ``tensor_core`` those of them on the tensor-core route,
 ``plain`` counts calls of the plain version.  :func:`reset_counts`
 zeroes them.
 """
@@ -49,6 +62,8 @@ __all__ = [
     "HEAD_DIMS",
     "STATE_DIMS",
     "reset_counts",
+    "route",
+    "scratch_bytes",
     "ssd_chunked_plain",
     "ssd_scan",
     "ssd_scan_plain",
@@ -58,7 +73,9 @@ CHUNK = 256  # the plain version's default chunk: the models' SSMConfig.chunk
 HEAD_DIMS = (16, 32, 64)  # the kernel's compiled P
 STATE_DIMS = (16, 32, 64, 128)  # the kernel's compiled N
 
-COUNTS = {"ssd_scan": 0, "plain": 0}
+TILE = 64  # the kernel's rows per chunk (csrc/ssd_scan.cu kQ)
+
+COUNTS = {"ssd_scan": 0, "tensor_core": 0, "plain": 0}
 
 
 def reset_counts() -> None:
@@ -170,12 +187,26 @@ def _check(x, dt, a, bm, cm) -> None:
         raise TypeError(f"ssd_scan: dt and a must be float32, got {dt.dtype}, {a.dtype}")
 
 
+def route(dtype: torch.dtype) -> str:
+    """The kernel's route for inputs of ``dtype``: ``"tensor_core"`` for
+    bfloat16, ``"cuda_core"`` for float32."""
+    return "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def scratch_bytes(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype) -> int:
+    """Scratch bytes of the tensor-core route: the (P, N) fp32 state
+    entering each chunk, per sequence and head; 0 for float32."""
+    if route(dtype) != "tensor_core":
+        return 0
+    return 4 * b * (-(-s // TILE)) * h * p * n
+
+
 @functools.cache
 def _launcher():
     fn = _build.library("ssd_scan").ssd_scan_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32] * 5 + [ctypes.c_longlong] * 10 + [i32, ptr]
+    fn.argtypes = [ptr] * 8 + [i32] * 5 + [ctypes.c_longlong] * 10 + [i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -189,9 +220,10 @@ def ssd_scan(
     *,
     chunk: int = CHUNK,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; CPU tensors take :func:`ssd_scan_plain` at
-    ``chunk`` (the kernel computes the same scan at its own 64-row
-    tiles).  Launches on the current stream and does not synchronise."""
+    """Launch the CUDA kernel (its route by dtype, :func:`route`); CPU
+    tensors take :func:`ssd_scan_plain` at ``chunk`` (the kernel computes
+    the same scan at its own 64-row chunks).  Launches on the current
+    stream and does not synchronise."""
     _check(x, dt, a, bm, cm)
     code = check_dtype("ssd_scan", x, bm, cm)
     if check_device("ssd_scan", x, dt, a, bm, cm) == "cpu":
@@ -207,6 +239,8 @@ def ssd_scan(
         raise ValueError("ssd_scan: the last dim of x, bm and cm, and a, must be contiguous")
     y = torch.empty(b, s, h, p, dtype=torch.float32, device=x.device)
     h_last = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
+    nbytes = scratch_bytes(b, s, h, p, n, x.dtype)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     err = _launcher()(
         x.data_ptr(),
         dt.data_ptr(),
@@ -215,6 +249,7 @@ def ssd_scan(
         cm.data_ptr(),
         y.data_ptr(),
         h_last.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         b,
         s,
         h,
@@ -233,4 +268,6 @@ def ssd_scan(
             f"(B={b}, S={s}, H={h}, P={p}, N={n}, dtype={x.dtype})"
         )
     COUNTS["ssd_scan"] += 1
+    if nbytes:
+        COUNTS["tensor_core"] += 1
     return y, h_last

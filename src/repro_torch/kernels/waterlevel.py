@@ -1,27 +1,41 @@
-"""The water-level kernel's wrapper, its plain PyTorch version, and counts.
+"""The water-level kernels' wrappers, their plain PyTorch versions, and counts.
 
 Counterpart of ``repro/kernels/waterlevel.py``.  The TPU kernel
 ``_waterlevel_kernel`` (launched by ``_waterlevel_call_padded`` and its
 ``(B,)``-grid twin ``_waterlevel_call_padded_batch``) is
-``csrc/waterlevel.cu`` here: one CUDA kernel, one thread block per
-problem row, built from source at first use (:mod:`._build`).
+``csrc/waterlevel.cu`` here, built from source at first use
+(:mod:`._build`).  That source holds two kernels on one row step:
 
-Both functions take the kernel's contract: pre-masked int32 rows ``b``,
-``w`` of shape ``(B, n_lanes)`` (pad and masked lanes carry ``b = BIG``,
-``w = 0``) and ``demand`` of shape ``(B,)``, and return
-``(level (B,), take_sorted (B, n_lanes), idx_sorted (B, n_lanes))``:
-the water level, the Alg. 2 takes in ascending ``(busy, lane)`` order,
-and the permutation that order applies.
+- K1/K2 (:func:`waterlevel_sorted`) keeps the TPU kernel's contract:
+  pre-masked int32 rows ``b``, ``w`` of shape ``(B, n_lanes)`` (pad and
+  masked lanes carry ``b = BIG``, ``w = 0``) and ``demand`` of shape
+  ``(B,)`` → ``(level (B,), take_sorted (B, n_lanes), idx_sorted (B,
+  n_lanes))``: the water level, the Alg. 2 takes in ascending ``(busy,
+  lane)`` order, and the permutation that order applies.
+  :func:`waterlevel_sorted_plain` is the same function in plain PyTorch
+  (argsort + cumsum); it accepts any row width, so the ``torch`` route
+  runs it on unpadded rows as well.
+- The fused water-filling kernel (:func:`wf_groups`, :func:`wf_chain`)
+  runs the whole K-group scan, and the B-job eq. 2 chain, in one launch:
+  raw busy / μ rows, ``(K, M)`` bool masks and ``(K,)`` demands per
+  problem → allocations in lane order, levels (the minimum available busy
+  where demand ≤ 0) and Φ.  Its plain versions, :func:`wf_groups_plain`
+  and :func:`wf_chain_plain`, are Python loops over
+  :func:`waterlevel_sorted_plain`.
 
-- :func:`waterlevel_sorted` launches the kernel for a CUDA tensor, or
-  raises; it takes the plain version only for a tensor on the CPU.
-- :func:`waterlevel_sorted_plain` is the same function in plain PyTorch
-  (argsort + cumsum).  It accepts any row width, so the ``torch``
-  water-level route runs it on unpadded rows as well.
+Rows up to 16,384 lanes (K1) or 8,192 (the fused kernel) stay in a
+block's shared memory; wider rows run on an L2 scratch the wrapper
+allocates at the size the source states.
+
+Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
+the plain version only for a tensor on the CPU.
 
 ``COUNTS`` holds plain integers: ``waterlevel`` and ``waterlevel_batch``
-count kernel launches over one row and over several rows, ``plain``
-counts calls of the plain version.  :func:`reset_counts` zeroes them.
+count K1/K2 launches over one row and over several rows, ``wf_groups``
+and ``wf_chain`` count fused launches, ``wf_group_steps`` the group
+steps (one per problem row and group) done inside them, and ``plain``
+counts calls of :func:`waterlevel_sorted_plain`.  :func:`reset_counts`
+zeroes them.
 """
 
 from __future__ import annotations
@@ -38,21 +52,29 @@ __all__ = [
     "BIG",
     "COUNTS",
     "MAX_LANES",
-    "SMEM_MAX_LANES",
     "n_lanes_for",
     "reset_counts",
     "resolve_waterlevel",
     "waterlevel_sorted",
     "waterlevel_sorted_plain",
+    "wf_chain",
+    "wf_chain_plain",
+    "wf_groups",
+    "wf_groups_plain",
 ]
 
 BIG = 2**30  # masked and pad lanes sort past every real lane
 LANES = 128  # minimum padded width (the reference's lane floor)
 MAX_LANES = 1 << 15  # kernel ceiling, the reference's PALLAS_MAX_M
-SMEM_MAX_LANES = 1 << 14  # widest row resident in one block's shared memory
-SCRATCH_BYTES_PER_LANE = 12  # 8 B key + 4 B w, for rows past SMEM_MAX_LANES
 
-COUNTS = {"waterlevel": 0, "waterlevel_batch": 0, "plain": 0}
+COUNTS = {
+    "waterlevel": 0,
+    "waterlevel_batch": 0,
+    "wf_groups": 0,
+    "wf_chain": 0,
+    "wf_group_steps": 0,
+    "plain": 0,
+}
 
 
 def reset_counts() -> None:
@@ -144,6 +166,21 @@ def _check(b: torch.Tensor, w: torch.Tensor, demand: torch.Tensor) -> None:
 
 
 @functools.cache
+def _scratch_bytes_fn():
+    fn = _build.library("waterlevel").waterlevel_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
+def _scratch(rows: int, n: int, fused: bool, device: torch.device) -> torch.Tensor | None:
+    """The L2 scratch a launch over ``rows`` rows of ``n`` lanes needs
+    (None where the rows fit in shared memory), sized by the source."""
+    nbytes = _scratch_bytes_fn()(rows, n, int(fused))
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
+@functools.cache
 def _launcher():
     fn = _build.library("waterlevel").waterlevel_launch
     ptr = ctypes.c_void_p
@@ -172,11 +209,7 @@ def waterlevel_sorted(
     level = torch.empty(bsz, dtype=torch.int32, device=b.device)
     take = torch.empty_like(b)
     idx = torch.empty_like(b)
-    scratch = None
-    if n > SMEM_MAX_LANES:
-        scratch = torch.empty(
-            bsz * n * SCRATCH_BYTES_PER_LANE, dtype=torch.uint8, device=b.device
-        )
+    scratch = _scratch(bsz, n, False, b.device)
     err = _launcher()(
         b.data_ptr(),
         w.data_ptr(),
@@ -196,3 +229,225 @@ def waterlevel_sorted(
         )
     COUNTS["waterlevel" if bsz == 1 else "waterlevel_batch"] += 1
     return level, take, idx
+
+
+# ---- the fused water-filling kernel ------------------------------------------
+
+I32 = torch.int32
+
+
+def _group_step(
+    busy: torch.Tensor,
+    mu: torch.Tensor,
+    mask: torch.Tensor,
+    demand: torch.Tensor,
+    padded: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One group step over R rows: (R, M) busy / μ, (R, M) mask, (R,)
+    demands → (alloc (R, M) in lane order, level (R,)), with the
+    ``demand <= 0`` → minimum-available-busy rule.  ``padded`` pads the
+    rows to the kernel's lane width first, as the kernel does."""
+    b = torch.where(mask, busy, BIG)
+    w = torch.where(mask, mu, 0)
+    m = b.shape[1]
+    if padded:
+        pad = n_lanes_for(m) - m
+        bp = torch.nn.functional.pad(b, (0, pad), value=BIG)
+        wp = torch.nn.functional.pad(w, (0, pad))
+    else:
+        bp, wp = b, w
+    level, take, idx = waterlevel_sorted_plain(bp, wp, demand)
+    # idx permutes the padded row (pad lanes carry zero takes): scattering
+    # into the padded width and slicing drops them
+    alloc = torch.zeros_like(take).scatter_(1, idx.long(), take)[:, :m]
+    return alloc, torch.where(demand > 0, level, b.amin(1))
+
+
+def _phi(levels: torch.Tensor, demands: torch.Tensor) -> torch.Tensor:
+    return torch.where(demands > 0, levels, 0).amax(-1)
+
+
+def wf_groups_plain(
+    busy: torch.Tensor,
+    mu: torch.Tensor,
+    masks: torch.Tensor,
+    demands: torch.Tensor,
+    *,
+    padded: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel's groups mode in plain PyTorch: the K-group scan
+    over R independent rows, (R, M) busy / μ, (R, K, M) masks, (R, K)
+    demands → (alloc (R, K, M), levels (R, K), Φ (R,)), raising each
+    group's servers to its level (eq. 10) before the next group.  Runs on
+    any device; ``padded=False`` is the ``torch`` route's unpadded rows."""
+    b = busy.to(I32)
+    mu = mu.to(I32)
+    demands = demands.to(I32)
+    allocs, levels = [], []
+    for k in range(masks.shape[1]):
+        m_k, d_k = masks[:, k], demands[:, k].contiguous()
+        alloc_k, xi = _group_step(b, mu, m_k, d_k, padded)
+        raised = m_k & (d_k > 0)[:, None]
+        b = torch.where(raised, torch.maximum(b, xi[:, None]), b)  # eq. 10
+        allocs.append(alloc_k)
+        levels.append(xi)
+    levels_t = torch.stack(levels, 1)
+    return torch.stack(allocs, 1), levels_t, _phi(levels_t, demands)
+
+
+def wf_chain_plain(
+    busy: torch.Tensor,
+    mu: torch.Tensor,
+    masks: torch.Tensor,
+    demands: torch.Tensor,
+    *,
+    padded: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel's chain mode in plain PyTorch: B jobs admitted in
+    series from the (M,) busy vector, eq. 2 committed between jobs; (B,
+    M) μ, (B, K, M) masks, (B, K) demands → (alloc (B, K, M), levels (B,
+    K), Φ (B,), busy after the burst (M,))."""
+    b = busy.to(I32)[None]
+    mu = mu.to(I32)
+    demands = demands.to(I32)
+    allocs, levels, phis = [], [], []
+    for j in range(mu.shape[0]):
+        alloc_j, levels_j, phi_j = wf_groups_plain(
+            b, mu[j : j + 1], masks[j : j + 1], demands[j : j + 1], padded=padded
+        )
+        loads = alloc_j[0].sum(0, dtype=I32)
+        # loads > 0 only where μ > 0; the clamp keeps the other lanes'
+        # (discarded) division defined
+        mu_j = mu[j].clamp(min=1)
+        b = b + torch.where(loads > 0, -(-loads // mu_j), 0)  # eq. 2
+        allocs.append(alloc_j[0])
+        levels.append(levels_j[0])
+        phis.append(phi_j[0])
+    return torch.stack(allocs), torch.stack(levels), torch.stack(phis), b[0]
+
+
+def _check_fused(
+    name: str,
+    busy: torch.Tensor,
+    mu: torch.Tensor,
+    masks: torch.Tensor,
+    demands: torch.Tensor,
+    busy_ndim: int,
+) -> tuple[int, int, int]:
+    """Refuses what the fused kernel does not take; returns (P, K, M)."""
+    for arg, t, ndim, dtype in (
+        ("busy", busy, busy_ndim, torch.int32),
+        ("mu", mu, 2, torch.int32),
+        ("masks", masks, 3, torch.bool),
+        ("demands", demands, 2, torch.int32),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
+        if t.dim() != ndim:
+            raise ValueError(f"{name}: {arg} must be {ndim}-D, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.device != busy.device:
+            raise ValueError(f"{name}: busy, mu, masks and demands must share a device")
+    p, k, m = masks.shape
+    want_busy = (m,) if busy_ndim == 1 else (p, m)
+    if (
+        tuple(busy.shape) != want_busy
+        or tuple(mu.shape) != (p, m)
+        or tuple(demands.shape) != (p, k)
+        or p < 1
+        or k < 1
+        or m < 1
+    ):
+        raise ValueError(
+            f"{name}: shapes busy {tuple(busy.shape)}, mu {tuple(mu.shape)}, masks "
+            f"{tuple(masks.shape)}, demands {tuple(demands.shape)} do not form "
+            f"{'(M,)' if busy_ndim == 1 else '(P, M)'}, (P, M), (P, K, M), (P, K) "
+            f"with P, K, M >= 1"
+        )
+    if m > MAX_LANES:
+        raise ValueError(f"{name}: {m} servers past the kernel's {MAX_LANES} lanes")
+    if busy.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {busy.device}")
+    if busy.device.type == "cuda" and busy.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: tensors on {busy.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+    return p, k, m
+
+
+@functools.cache
+def _fused_launcher():
+    fn = _build.library("waterlevel").wf_fused_launch
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 6 + [ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_fused(busy, mu, masks, demands, chain: bool):
+    p, k, m = masks.shape
+    dev = busy.device
+    n = n_lanes_for(m)
+    rows = 1 if chain else p
+    alloc = torch.empty((p, k, m), dtype=I32, device=dev)
+    levels = torch.empty((p, k), dtype=I32, device=dev)
+    phi = torch.empty(p, dtype=I32, device=dev)
+    busy_out = torch.empty(m, dtype=I32, device=dev) if chain else None
+    scratch = _scratch(rows, n, True, dev)
+    err = _fused_launcher()(
+        busy.data_ptr(),
+        mu.data_ptr(),
+        masks.data_ptr(),
+        demands.data_ptr(),
+        alloc.data_ptr(),
+        levels.data_ptr(),
+        phi.data_ptr(),
+        None if busy_out is None else busy_out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        rows,
+        p if chain else 1,
+        k,
+        m,
+        n,
+        int(chain),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"fused water-filling kernel launch failed with CUDA error {err} "
+            f"(P={p}, K={k}, M={m}, chain={chain})"
+        )
+    COUNTS["wf_chain" if chain else "wf_groups"] += 1
+    COUNTS["wf_group_steps"] += p * k
+    return alloc, levels, phi, busy_out
+
+
+def wf_groups(
+    busy: torch.Tensor, mu: torch.Tensor, masks: torch.Tensor, demands: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The K-group scan over R independent rows in one launch (one block a
+    row): int32 (R, M) busy / μ, bool (R, K, M) masks, int32 (R, K)
+    demands, all contiguous → (alloc (R, K, M), levels (R, K), Φ (R,)).
+    CPU tensors take :func:`wf_groups_plain`.  Launches on the current
+    stream and does not synchronise."""
+    _check_fused("wf_groups", busy, mu, masks, demands, 2)
+    if busy.device.type == "cpu":
+        return wf_groups_plain(busy, mu, masks, demands)
+    alloc, levels, phi, _ = _launch_fused(busy, mu, masks, demands, chain=False)
+    return alloc, levels, phi
+
+
+def wf_chain(
+    busy: torch.Tensor, mu: torch.Tensor, masks: torch.Tensor, demands: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B jobs admitted in series in one launch (one block): int32 (M,)
+    busy, (B, M) μ, bool (B, K, M) masks, int32 (B, K) demands, all
+    contiguous → (alloc (B, K, M), levels (B, K), Φ (B,), busy after the
+    burst (M,)).  CPU tensors take :func:`wf_chain_plain`.  Launches on
+    the current stream and does not synchronise."""
+    _check_fused("wf_chain", busy, mu, masks, demands, 1)
+    if busy.device.type == "cpu":
+        return wf_chain_plain(busy, mu, masks, demands)
+    return _launch_fused(busy, mu, masks, demands, chain=True)

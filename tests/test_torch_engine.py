@@ -177,6 +177,17 @@ def test_isolation_checks_cover_the_model_slice():
         assert (PORT / "kernels" / "csrc" / f"{name}.cu").is_file()
 
 
+def test_isolation_checks_cover_every_kernel_source():
+    """Every CUDA source the builder compiles is a file under csrc/, among
+    them the water-level kernels (K1/K2 and the fused water-filling kernel)
+    and the SSD scan's two routes; no source is left unbuilt."""
+    from repro_torch.kernels import _build
+
+    csrc = PORT / "kernels" / "csrc"
+    assert {"waterlevel", "ssd_scan"} <= set(_build.SOURCES)
+    assert {p.stem for p in csrc.glob("*.cu")} == set(_build.SOURCES)
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
     for node in ast.walk(tree):

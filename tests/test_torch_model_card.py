@@ -316,12 +316,48 @@ def test_ssd_scan_kernel_matches_plain(card, b, s, h, p, n, dtype):
     cm = _randn(rng, (b, s, n), dtype, card) * 0.5
     ssk.reset_counts()
     got = ssk.ssd_scan(x, dt, a, bm, cm, chunk=256)
-    assert ssk.COUNTS == {"ssd_scan": 1, "plain": 0}
+    assert ssk.COUNTS == {"ssd_scan": 1, "tensor_core": int(dtype == torch.bfloat16),
+                          "plain": 0}
     for g, w in zip(got, ssk.ssd_scan_plain(x, dt, a, bm, cm, 256)):
         assert g.dtype == torch.float32
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
                                    atol=5e-5 + 3e-5 * scale)
+
+
+def _ssd_check(rng, card, b, s, h, p, n, dtype):
+    x = _randn(rng, (b, s, h, p), dtype, card) * 0.5
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, card))
+    a = -torch.exp(_randn(rng, (h,), torch.float32, card) * 0.3)
+    bm = _randn(rng, (b, s, n), dtype, card) * 0.5
+    cm = _randn(rng, (b, s, n), dtype, card) * 0.5
+    ssk.reset_counts()
+    got = ssk.ssd_scan(x, dt, a, bm, cm, chunk=256)
+    assert ssk.COUNTS["tensor_core"] == int(ssk.route(dtype) == "tensor_core")
+    for g, w in zip(got, ssk.ssd_scan_plain(x, dt, a, bm, cm, 256)):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=5e-5 + 3e-5 * scale, err_msg=str((b, s, h, p, n)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 63, 65, 2047])
+def test_ssd_scan_kernel_ragged_lengths(card, s, dtype):
+    """Chunks of 64 rows with a ragged last chunk, at both models' head
+    layouts."""
+    rng = np.random.default_rng(s)
+    for h, n in ((24, 128), (80, 64)):
+        _ssd_check(rng, card, 2, s, h, 64, n, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", ssk.HEAD_DIMS)
+def test_ssd_scan_kernel_every_compiled_width(card, p, dtype):
+    rng = np.random.default_rng(p)
+    for n in ssk.STATE_DIMS:
+        _ssd_check(rng, card, 2, 130, 5, p, n, dtype)
 
 
 @pytest.mark.gpu
@@ -332,6 +368,25 @@ def test_ssd_scan_kernel_reads_strided_conv_slices(card):
     conv = _randn(rng, (b, s, h * p + 2 * n), torch.bfloat16, card)
     x = conv[..., : h * p].reshape(b, s, h, p)
     bm, cm = conv[..., h * p : h * p + n], conv[..., h * p + n :]
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, card))
+    a = -torch.exp(_randn(rng, (h,), torch.float32, card) * 0.3)
+    got = ssk.ssd_scan(x, dt, a, bm, cm)
+    want = ssk.ssd_scan_plain(x.contiguous(), dt, a, bm.contiguous(), cm.contiguous())
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=5e-5 + 3e-5 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_reads_views_off_16_byte_alignment(card):
+    """x, B and C one element past a 16-byte boundary, with odd row
+    strides: the tensor-core route stages them element by element."""
+    rng = np.random.default_rng(5)
+    b, s, h, p, n = 2, 300, 6, 64, 128
+    conv = _randn(rng, (b, s, h * p + 2 * n + 3), torch.bfloat16, card)
+    x = conv[..., 1 : 1 + h * p].reshape(b, s, h, p)
+    bm = conv[..., 1 + h * p : 1 + h * p + n]
+    cm = conv[..., 1 + h * p + n : 1 + h * p + 2 * n]
     dt = torch.nn.functional.softplus(_randn(rng, (b, s, h), torch.float32, card))
     a = -torch.exp(_randn(rng, (h,), torch.float32, card) * 0.3)
     got = ssk.ssd_scan(x, dt, a, bm, cm)

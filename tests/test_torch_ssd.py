@@ -59,7 +59,7 @@ def test_plain_matches_the_pallas_kernel_and_the_oracle(b, s, h, p, n):
     args = _inputs(s + p, b, s, h, p, n)
     ssk.reset_counts()
     y, h_last = ops.ssd_scan(*_torch(args), chunk=128)
-    assert ssk.COUNTS == {"ssd_scan": 0, "plain": 1}
+    assert ssk.COUNTS == {"ssd_scan": 0, "tensor_core": 0, "plain": 1}
     assert y.dtype == torch.float32 and y.shape == (b, s, h, p)
     assert h_last.dtype == torch.float32 and h_last.shape == (b, h, p, n)
     yk, hk = ssd_scan_pallas(*map(jnp.asarray, args))

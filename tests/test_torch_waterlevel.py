@@ -122,7 +122,10 @@ def test_wrapper_takes_plain_version_on_cpu():
     d = torch.tensor([30, 0], dtype=torch.int32)
     wl.reset_counts()
     got = wl.waterlevel_sorted(torch.from_numpy(b), torch.from_numpy(w), d)
-    assert wl.COUNTS == {"waterlevel": 0, "waterlevel_batch": 0, "plain": 1}
+    assert wl.COUNTS == {
+        "waterlevel": 0, "waterlevel_batch": 0, "wf_groups": 0, "wf_chain": 0,
+        "wf_group_steps": 0, "plain": 1,
+    }
     want = wl.waterlevel_sorted_plain(torch.from_numpy(b), torch.from_numpy(w), d)
     for g, p in zip(got, want):
         assert torch.equal(g, p)
