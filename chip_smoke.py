@@ -38,6 +38,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
    plain iteration and no host re-run, and the most slots each job held
    live against its slot capacity; then one problem with groups of 40-64
    of the 4096 servers against the host ``rd``;
+6a. control plane — ``SchedulingEngine(..., step_mode="event")`` with
+   ``wf_torch`` on the whole trace: JCTs, makespan and failed set equal to
+   the slot loop's (5.) and the host ``wf`` plane's, one fused launch per
+   adapter call, the event loop's wall beside the slot loop's; then
+   ``ControlPlane(policy="rd_torch", ordering="setf")`` on the first 18
+   jobs against the host ``rd`` plane (K3 launches = loop iterations, no
+   host re-run);
+6b. faults online — the first 200 jobs replayed at half the saturation
+   rate, ``wf_torch`` against host ``wf`` on the plane under one timeline
+   each: a 128-server rack failure with retry, a rotating straggler with
+   stealing and speculation (and the plain plane, for the mean JCT they
+   buy), and the jobs re-timed past saturation with admission control;
+   every JCT, failed and shed set and counter identical;
+6c. exact — OBTA and NLIP on the first 100 arrival problems of 6a's
+   ``wf_torch`` run: Φ_obta = Φ_nlip ≤ Φ(wf_torch) ≤ K_c · Φ_obta, and
+   Φ_obta ≤ Φ(rd_plus) ≤ Φ(rd_torch) = Φ(rd); their host times; then
+   the plane with ``obta`` on the whole trace, and ``rd_plus``, ``obta``
+   and ``wf_torch`` on the first 60 jobs (mean and p99 JCT);
+6d. plane serve — two Mamba2-130M replicas at full width behind a
+   ``wf_torch`` router serve 8 requests through ``ControlPlane.
+   submit_request`` while the plane schedules the first 50 jobs; the
+   tokens equal the same pool's driven alone;
 7. model kernels — the RMSNorm, decode-attention and flash-attention
    kernels against their plain versions on the card, in float32 (flash
    attention on the CUDA cores) and bfloat16 (on the tensor cores), at
@@ -88,7 +110,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     chain of the main path's jobs, the chain's busy share, and kernel
     against plain iteration over the same 200 iterations.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and last
+Then the ``kernels`` summary line (the ``wf_fused`` and ``rd_step`` rows
+count 6a-6d's launches too), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
 the repository's ``src/`` beside it.
 """
@@ -115,8 +138,9 @@ import torch  # noqa: E402
 from repro_torch.backend import set_backend  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import AssignmentProblem, TaskGroup, water_filling  # noqa: E402
-from repro_torch.core import rd_torch, wf_torch  # noqa: E402
+from repro_torch.core import commit_busy, nlip, obta, rd_torch, wf_torch  # noqa: E402
 from repro_torch.core.rd import host_commit_walk, replica_deletion  # noqa: E402
+from repro_torch.core.rd_plus import rebalance_1opt  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dak  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
@@ -125,7 +149,13 @@ from repro_torch.kernels import rmsnorm as rnk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kernels import waterlevel as wl  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
-from repro_torch.runtime import SchedulingEngine, make_policy  # noqa: E402
+from repro_torch.runtime import (  # noqa: E402
+    ControlPlane,
+    ResilienceConfig,
+    SchedulingEngine,
+    ServerEvent,
+    make_policy,
+)
 from repro_torch.serve.engine import (  # noqa: E402
     ReplicaRouter,
     Request,
@@ -133,7 +163,13 @@ from repro_torch.serve.engine import (  # noqa: E402
     ServeEngine,
     make_prefill_step,
 )
-from repro_torch.traces import generate  # noqa: E402
+from repro_torch.traces import (  # noqa: E402
+    generate,
+    overload_client,
+    rack_failure_timeline,
+    replay_client,
+    saturation_qps,
+)
 
 # main-path configuration: ~4,000 machines as in Alibaba's
 # cluster-trace-v2018, the paper segment's per-server load kept
@@ -175,6 +211,37 @@ RD_WIDE_GROUPS = (40, 64)
 # deletion iterations timed on the profiled chain's first job, kernel
 # against plain iteration, from the same state
 RD_TIMED_ITERATIONS = 200
+
+# the control plane on the same trace: the event loop over all of it, and
+# ControlPlane(rd_torch, setf) over its first RD_JOBS jobs (every rescan
+# re-runs RD for each outstanding job)
+# faults_online: the trace's first ONLINE_JOBS jobs replayed at ONLINE_RHO
+# of the saturation rate, under three drills: a RACK_SERVERS rack down
+# from RACK_FAIL_AT to RACK_RECOVER_AT with retry (recovered before a
+# retry's third backoff ends); STRAGGLERS random servers slowed
+# STRAGGLER_FACTOR-fold every STRAGGLER_EVERY slots, for as long, with
+# stealing and speculation; and the jobs re-timed to ONLINE_OVERLOAD_RHO
+# (past saturation) with admission control
+ONLINE_JOBS = 200
+ONLINE_RHO = 0.5
+ONLINE_OVERLOAD_RHO = 1.5
+RACK_SERVERS = tuple(range(128))
+RACK_FAIL_AT, RACK_RECOVER_AT = 30, 50
+STRAGGLERS, STRAGGLER_EVERY, STRAGGLER_FACTOR = 64, 10, 6.0
+# exact: the first EXACT_PROBLEMS arrival problems of the wf_torch fifo
+# plane against OBTA and NLIP, and through the host rd, rd_torch and
+# rd_plus; rd_plus through the plane on the first RD_PLUS_JOBS jobs (one
+# device RD per arrival, ~10,500 K3 launches and ~0.43 s each on the card:
+# 60 jobs took 25.85 s, so the whole trace would take ~7 minutes)
+EXACT_PROBLEMS = 100
+RD_PLUS_JOBS = 60
+# plane_serve: two Mamba2-130M replicas behind a wf_torch router serve the
+# SSM traffic (8 requests, 32-128 prompt tokens, 16 new), one request a
+# slot from the arrival of job PLANE_SERVE_FIRST of the first
+# PLANE_SERVE_JOBS jobs the plane schedules meanwhile
+PLANE_SERVE_ARCH = "mamba2-130m"
+PLANE_SERVE_JOBS = 50
+PLANE_SERVE_FIRST = 10
 
 # the serving main path: Qwen1.5-4B (the launcher's default arch) at full
 # width, two replicas of 4 slots and 1024 positions each
@@ -559,13 +626,15 @@ def _fused_launches(counts: dict) -> int:
     return counts["wf_groups"] + counts["wf_chain"]
 
 
-def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
+def phase_main_path(seed: int, jobs: list) -> tuple[list, dict, dict]:
     """The scheduler under fifo and ocwf-acc, then the batch entry point:
     one fused launch per ``wf_torch`` adapter call, no K1/K2 launch and no
-    plain call, schedules identical to the host ``wf``."""
+    plain call, schedules identical to the host ``wf``.  Returns the
+    bursts, the launches, and each ordering's (result, wall seconds)."""
     bursts = bursts_of(jobs)
     n_arrivals = sum(len(b) for b in bursts)
     launches = {"waterlevel": 0, "waterlevel_batch": 0, "wf_fused": 0, "wf_group_steps": 0}
+    runs = {}
     for ordering in ("fifo", "ocwf-acc"):
         torch.cuda.synchronize()
         wl.reset_counts()
@@ -614,6 +683,7 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
             raise AssertionError(f"{ordering}: K1/K2 launched on the main path: {counts}")
         launches["wf_fused"] += n_fused
         launches["wf_group_steps"] += counts["wf_group_steps"]
+        runs[ordering] = (dev, wall)
 
     # the independent-problems entry point over the same bursts
     busy = np.random.default_rng(seed + 1).integers(0, 50, M_SERVERS)
@@ -646,7 +716,7 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict]:
         raise AssertionError(f"batch path went around the fused kernel: {counts}")
     launches["wf_fused"] += counts["wf_groups"]
     launches["wf_group_steps"] += counts["wf_group_steps"]
-    return bursts, launches
+    return bursts, launches, runs
 
 
 def _rd_groups(rng: np.random.Generator, m: int, k: int, width: int, size_hi: int):
@@ -913,6 +983,458 @@ def phase_rd_main_path(seed: int, jobs: list) -> tuple[int, list]:
         raise AssertionError("rd_torch differs from host rd on the wide-group problem")
     launches += _rd_launch_check("wide groups", counts, reruns)
     return launches, admitted
+
+
+# ---- the control plane on the main path's trace -------------------------------
+
+
+def _same_schedule(a, b) -> bool:
+    return (a.jct == b.jct and a.makespan == b.makespan
+            and a.failed_jobs == b.failed_jobs and a.reassignments == b.reassignments)
+
+
+# every result field the online mechanisms move
+ONLINE_FIELDS = ("jct", "makespan", "failed_jobs", "shed_jobs", "reassignments", "steals",
+                 "speculations", "spec_cancels", "retries", "deferred_peak")
+
+
+def _wf_fused_check(label: str, counts: dict, calls: int) -> int:
+    """The fused launches of a ``wf_torch`` run, after checking one launch
+    per adapter call, no K1/K2 launch and no plain call."""
+    n_fused = _fused_launches(counts)
+    if (n_fused == 0 or n_fused != calls or counts["plain"]
+            or counts["waterlevel"] or counts["waterlevel_batch"]):
+        raise AssertionError(f"{label}: {n_fused} fused launches for {calls} adapter "
+                             f"calls, counts {counts}")
+    return n_fused
+
+
+def _reset_launches() -> None:
+    torch.cuda.synchronize()
+    wl.reset_counts()
+    rdk.reset_counts()
+    rd_torch.reset_counts()
+    wf_torch.CALLS["adapter"] = 0
+
+
+def phase_control_plane(jobs: list, slot_runs: dict) -> dict:
+    """``SchedulingEngine(..., step_mode="event")`` with ``wf_torch`` on the
+    whole trace, against the slot loop's run (main path) and the host
+    ``wf`` plane; then ``ControlPlane(rd_torch, setf)`` on the first
+    ``RD_JOBS`` jobs against the host ``rd`` plane.  Records every
+    ``wf_torch`` call's problems for the exact phase."""
+    policy = make_policy("wf_torch")
+    calls: list[tuple[list, list]] = []  # (problems, assignments) per adapter call
+
+    def one(problem):
+        out = policy.assigner(problem)
+        calls.append(([problem], [out]))
+        return out
+
+    def chain(problems):
+        out = policy.batch_assigner(problems)
+        calls.append((problems, out))
+        return out
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    dev = SchedulingEngine(
+        M_SERVERS, dataclasses.replace(policy, assigner=one, batch_assigner=chain),
+        step_mode="event",
+    ).run(jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, n_calls = dict(wl.COUNTS), wf_torch.CALLS["adapter"]
+    t0 = time.perf_counter()
+    host = SchedulingEngine(M_SERVERS, make_policy("wf"), step_mode="event").run(jobs)
+    host_wall = time.perf_counter() - t0
+    slot, slot_wall = slot_runs["fifo"]
+    emit({
+        "phase": "control_plane",
+        "policy": "wf_torch",
+        "ordering": "fifo",
+        "servers": M_SERVERS,
+        "jobs": len(jobs),
+        "mean_jct": dev.mean_jct,
+        "p99_jct": dev.jct_percentile(99),
+        "makespan": dev.makespan,
+        "failed_jobs": len(dev.failed_jobs),
+        "heap_peak": dev.heap_peak,
+        "event_loop_wall_s": wall,
+        "slot_loop_wall_s": slot_wall,
+        "event_over_slot": wall / slot_wall,
+        "host_wf_plane_wall_s": host_wall,
+        "launches": counts,
+        "adapter_calls": n_calls,
+        "identical_to_slot_loop": _same_schedule(dev, slot),
+        "identical_to_host_wf_plane": _same_schedule(dev, host),
+    })
+    if not (_same_schedule(dev, slot) and _same_schedule(dev, host)):
+        raise AssertionError("the wf_torch event loop differs from the slot loop or host wf")
+    n_fused = _wf_fused_check("control_plane", counts, n_calls)
+
+    head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:RD_JOBS]
+    _reset_launches()
+    t0 = time.perf_counter()
+    plane = ControlPlane(M_SERVERS, policy="rd_torch", ordering="setf")
+    plane.submit_many(head)
+    rd_dev = plane.drain()
+    torch.cuda.synchronize()
+    rd_wall = time.perf_counter() - t0
+    rd_counts, reruns = dict(rdk.COUNTS), rd_torch.COUNTS["host_reruns"]
+    runs = len(rd_torch.ITERATIONS)
+    t0 = time.perf_counter()
+    host_plane = ControlPlane(M_SERVERS, policy="rd", ordering="setf")
+    host_plane.submit_many(head)
+    rd_host = host_plane.drain()
+    rd_host_wall = time.perf_counter() - t0
+    emit({
+        "phase": "control_plane",
+        "policy": "rd_torch",
+        "ordering": "setf",
+        "servers": M_SERVERS,
+        "jobs": len(head),
+        "mean_jct": rd_dev.mean_jct,
+        "makespan": rd_dev.makespan,
+        "device_rd_runs": runs,
+        "plane_wall_s": rd_wall,
+        "host_rd_plane_wall_s": rd_host_wall,
+        "launches": rd_counts,
+        "loop_iterations": sum(n for _, _, n in rd_torch.ITERATIONS),
+        "host_reruns": reruns,
+        "identical_to_host_rd_plane": _same_schedule(rd_dev, rd_host),
+        "reduced": {"jobs": f"the first {RD_JOBS} of {N_JOBS} jobs, as the RD main path"},
+    })
+    if not _same_schedule(rd_dev, rd_host):
+        raise AssertionError("ControlPlane(rd_torch, setf) differs from the host rd plane")
+    rd_launches = _rd_launch_check("control plane setf", rd_counts, reruns)
+    return {"launches": {"wf_fused": n_fused, "rd_step": rd_launches},
+            "calls": calls, "wf_torch": dev, "event_wall_s": wall}
+
+
+def _straggler_timeline(seed: int, horizon: int) -> tuple:
+    """``STRAGGLERS`` random servers slowed ``STRAGGLER_FACTOR``-fold every
+    ``STRAGGLER_EVERY`` slots, each for ``STRAGGLER_EVERY`` slots."""
+    rng = np.random.default_rng(seed + 40)
+    events = []
+    for slot in range(STRAGGLER_EVERY // 2, horizon, STRAGGLER_EVERY):
+        for m in sorted(rng.choice(M_SERVERS, STRAGGLERS, replace=False).tolist()):
+            events.append(ServerEvent(slot, "slowdown", m, factor=STRAGGLER_FACTOR))
+            events.append(ServerEvent(slot + STRAGGLER_EVERY, "speedup", m))
+    return tuple(events)
+
+
+def phase_faults_online(seed: int, jobs: list) -> dict:
+    """The first ``ONLINE_JOBS`` jobs replayed below saturation, through
+    the plane with ``wf_torch`` and with the host ``wf``, under one
+    timeline each: a rack failure with retry, a rotating straggler with
+    stealing and speculation (and without, for the mean JCT it buys), and
+    a point past saturation with admission control.  Every JCT, failed and
+    shed set and counter identical; one fused launch per adapter call."""
+    head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:ONLINE_JOBS]
+    qps = ONLINE_RHO * saturation_qps(head, M_SERVERS)
+    replayed = replay_client(head, qps=qps)
+    rack = rack_failure_timeline(RACK_SERVERS, fail_at=RACK_FAIL_AT,
+                                 recover_at=RACK_RECOVER_AT)
+    horizon = SchedulingEngine(M_SERVERS, make_policy("wf"),
+                               step_mode="event").run(replayed).makespan
+    straggle = _straggler_timeline(seed, horizon)
+    overloaded = overload_client(head, rho=ONLINE_OVERLOAD_RHO, n_servers=M_SERVERS)
+    drills = (
+        ("rack_retry", replayed, dict(events=rack, resilience=ResilienceConfig(retry=True))),
+        ("straggler_plain", replayed, dict(events=straggle)),
+        ("straggler_steal_spec", replayed, dict(events=straggle, stealing=True,
+                                                 speculation=True)),
+        ("overload_admission", overloaded, dict(resilience=ResilienceConfig(admission=True))),
+    )
+    fused = 0
+    rows = {}
+    for label, trace, kw in drills:
+        _reset_launches()
+        t0 = time.perf_counter()
+        dev = SchedulingEngine(M_SERVERS, make_policy("wf_torch"), step_mode="event",
+                               **kw).run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, n_calls = dict(wl.COUNTS), wf_torch.CALLS["adapter"]
+        t0 = time.perf_counter()
+        host = SchedulingEngine(M_SERVERS, make_policy("wf"), step_mode="event",
+                                **kw).run(trace)
+        host_wall = time.perf_counter() - t0
+        differs = [f for f in ONLINE_FIELDS if getattr(dev, f) != getattr(host, f)]
+        rows[label] = dev
+        emit({
+            "phase": "faults_online",
+            "drill": label,
+            "servers": M_SERVERS,
+            "jobs": len(trace),
+            "qps": qps if trace is replayed else None,
+            "rho": ONLINE_RHO if trace is replayed else ONLINE_OVERLOAD_RHO,
+            "events": len(kw.get("events", ())),
+            "mean_jct": dev.mean_jct,
+            "p99_jct": dev.jct_percentile(99),
+            "makespan": dev.makespan,
+            "failed_jobs": len(dev.failed_jobs),
+            "shed_jobs": dev.n_shed,
+            "deferred_peak": dev.deferred_peak,
+            "reassignments": dev.reassignments,
+            "retries": dev.retries,
+            "steals": dev.steals,
+            "speculations": dev.speculations,
+            "spec_cancels": dev.spec_cancels,
+            "heap_peak": dev.heap_peak,
+            "plane_wall_s": wall,
+            "host_wf_plane_wall_s": host_wall,
+            "launches": counts,
+            "adapter_calls": n_calls,
+            "identical_to_host_wf_plane": not differs,
+            "reduced": {"jobs": f"the first {ONLINE_JOBS} of {N_JOBS} jobs, re-timed"},
+        })
+        if differs:
+            raise AssertionError(f"faults_online {label}: wf_torch differs from host wf "
+                                 f"in {differs}")
+        fused += _wf_fused_check(f"faults_online {label}", counts, n_calls)
+    exercised = {
+        "rack_retry": rows["rack_retry"].retries > 0 and rows["rack_retry"].reassignments > 0,
+        "straggler_steal_spec": rows["straggler_steal_spec"].steals > 0
+        and rows["straggler_steal_spec"].speculations > 0,
+        "overload_admission": rows["overload_admission"].deferred_peak > 0,
+    }
+    plain, online = rows["straggler_plain"], rows["straggler_steal_spec"]
+    emit({
+        "phase": "faults_online",
+        "drill": "summary",
+        "steal_spec_mean_jct": online.mean_jct,
+        "plain_mean_jct": plain.mean_jct,
+        "steal_spec_over_plain": online.mean_jct / plain.mean_jct,
+        "steal_spec_p99_jct": online.jct_percentile(99),
+        "plain_p99_jct": plain.jct_percentile(99),
+        "mechanisms_exercised": exercised,
+    })
+    if not all(exercised.values()):
+        raise AssertionError(f"faults_online: a drill did not reach its mechanism: {exercised}")
+    return {"launches": {"wf_fused": fused, "rd_step": 0}}
+
+
+def _arrival_problems(calls: list, n: int) -> list[tuple]:
+    """The first ``n`` (problem, wf_torch assignment) pairs of the recorded
+    calls, each problem with the busy vector its arrival saw (a chained
+    burst's problems carry the pre-burst vector: commit eq. 2 between)."""
+    out = []
+    for problems, assignments in calls:
+        busy = problems[0].busy
+        for problem, assignment in zip(problems, assignments):
+            problem = dataclasses.replace(problem, busy=busy)
+            out.append((problem, assignment))
+            if len(out) == n:
+                return out
+            busy = commit_busy(busy, assignment, problem.mu, problem.n_servers)
+    return out
+
+
+def phase_exact(jobs: list, plane: dict) -> dict:
+    """OBTA and NLIP (host) on the first ``EXACT_PROBLEMS`` arrival problems
+    of the ``wf_torch`` fifo plane: Φ_obta = Φ_nlip ≤ Φ(wf_torch) ≤ K_c ·
+    Φ_obta on each, and Φ_obta ≤ Φ(rd_plus) ≤ Φ(rd_torch), with
+    ``rd_torch``'s allocation equal to the host ``rd``'s.  Then the plane with ``obta``
+    on the whole trace, and ``rd_plus`` / ``obta`` / ``wf_torch`` on the
+    first ``RD_PLUS_JOBS`` jobs: mean and p99 JCT each."""
+    pairs = _arrival_problems(plane["calls"], EXACT_PROBLEMS)
+    obta_s, nlip_s, rows = [], [], []
+    _reset_launches()
+    for i, (problem, wf_a) in enumerate(pairs):
+        t0 = time.perf_counter()
+        opt = obta(problem)
+        obta_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        base = nlip(problem)
+        nlip_s.append(time.perf_counter() - t0)
+        k_c = len(problem.groups)
+        row = {"k_c": k_c, "obta": opt.phi, "nlip": base.phi, "wf_torch": wf_a.phi,
+               "wf_torch_realized": wf_a.realized_phi(problem)}
+        rd_a = rd_torch.replica_deletion_torch(problem)
+        host_rd = replica_deletion(problem)
+        # rd_plus is the 1-opt polish of rd_torch's result
+        # (replica_deletion_plus): polish the device RD just run rather
+        # than run it again; the plane below drives rd_plus itself
+        row["rd_torch"] = rd_a.phi
+        row["rd"] = host_rd.phi
+        row["rd_plus"] = rebalance_1opt(problem, rd_a).phi
+        rows.append(row)
+        if not (opt.phi == base.phi and opt.phi <= wf_a.phi <= k_c * opt.phi):
+            raise AssertionError(f"exact: problem {i} breaks Φ_obta = Φ_nlip ≤ Φ_wf ≤ "
+                                 f"K_c·Φ_obta: {row}")
+        if rd_a.alloc != host_rd.alloc or rd_a.phi != host_rd.phi:
+            raise AssertionError(f"exact: problem {i}: rd_torch differs from host rd: {row}")
+        if not (opt.phi <= row["rd_plus"] <= row["rd_torch"]):
+            raise AssertionError(f"exact: problem {i} breaks Φ_obta ≤ Φ_rd_plus ≤ "
+                                 f"Φ_rd_torch: {row}")
+    torch.cuda.synchronize()
+    rd_counts, reruns = dict(rdk.COUNTS), rd_torch.COUNTS["host_reruns"]
+    rd_launches = _rd_launch_check("exact", rd_counts, reruns)
+    ratios = [r["wf_torch"] / r["obta"] for r in rows]
+    emit({
+        "phase": "exact",
+        "problems": len(rows),
+        "k_c": [min(r["k_c"] for r in rows), max(r["k_c"] for r in rows)],
+        "obta_equals_nlip": True,
+        "obta_ms_per_problem": float(np.mean(obta_s)) * 1e3,
+        "nlip_ms_per_problem": float(np.mean(nlip_s)) * 1e3,
+        "nlip_over_obta": float(np.sum(nlip_s) / np.sum(obta_s)),
+        "wf_over_obta_max": max(ratios),
+        "wf_over_obta_mean": float(np.mean(ratios)),
+        "wf_at_optimum": sum(r["wf_torch"] == r["obta"] for r in rows),
+        "wf_realized_over_obta_max": max(r["wf_torch_realized"] / r["obta"] for r in rows),
+        "rd_torch_over_obta_max": max(r["rd_torch"] / r["obta"] for r in rows),
+        "rd_plus_over_obta_max": max(r["rd_plus"] / r["obta"] for r in rows),
+        "rd_plus_improved": sum(r["rd_plus"] < r["rd_torch"] for r in rows),
+        "rd_launches": rd_counts,
+        "host_reruns": reruns,
+    })
+
+    order = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
+    head = order[:RD_PLUS_JOBS]
+    results, walls = {}, {}
+    fused = 0
+    for label, policy, trace in (
+        ("obta whole trace", "obta", jobs),
+        ("obta", "obta", head),
+        ("wf_torch", "wf_torch", head),
+        ("rd_plus", "rd_plus", head),
+    ):
+        _reset_launches()
+        t0 = time.perf_counter()
+        results[label] = SchedulingEngine(M_SERVERS, make_policy(policy),
+                                          step_mode="event").run(trace)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        if policy == "wf_torch":
+            fused += _wf_fused_check("exact wf_torch", dict(wl.COUNTS),
+                                     wf_torch.CALLS["adapter"])
+        if policy == "rd_plus":
+            rd_plus_launches = _rd_launch_check("exact rd_plus", dict(rdk.COUNTS),
+                                                rd_torch.COUNTS["host_reruns"])
+            rd_launches += rd_plus_launches
+    whole = {"obta": results["obta whole trace"], "wf_torch": plane["wf_torch"]}
+    emit({
+        "phase": "exact",
+        "plane": "whole trace",
+        "jobs": len(jobs),
+        "jct": {name: {"mean": r.mean_jct, "p99": r.jct_percentile(99),
+                       "makespan": r.makespan} for name, r in whole.items()},
+        "obta_plane_wall_s": walls["obta whole trace"],
+        "wf_torch_plane_wall_s": plane["event_wall_s"],
+    })
+    emit({
+        "phase": "exact",
+        "plane": f"first {RD_PLUS_JOBS} jobs",
+        "jobs": len(head),
+        "jct": {name: {"mean": results[name].mean_jct, "p99": results[name].jct_percentile(99),
+                       "makespan": results[name].makespan}
+                for name in ("obta", "wf_torch", "rd_plus")},
+        "plane_wall_s": {name: walls[name] for name in ("obta", "wf_torch", "rd_plus")},
+        "rd_plus_launches": rd_plus_launches,
+        "reduced": {"jobs": f"rd_plus on the first {RD_PLUS_JOBS} of {N_JOBS} jobs: one "
+                    f"device RD per arrival, {rd_plus_launches // len(head)} K3 launches "
+                    "each"},
+    })
+    return {"launches": {"wf_fused": fused, "rd_step": rd_launches}}
+
+
+def _plane_serve_requests(cfg, seed: int) -> list:
+    rng = np.random.default_rng(seed + 31)
+    lo, hi = SSM_PROMPT
+    return [
+        Request(i, rng.integers(1, cfg.vocab, int(rng.integers(lo, hi + 1))
+                                ).astype(np.int32), max_new_tokens=SSM_NEW)
+        for i in range(SSM_REQUESTS)
+    ]
+
+
+def _pool(params, cfg) -> RoutedServePool:
+    engines = {
+        i: ServeEngine(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                       eos_token=-1)
+        for i in range(SERVE_REPLICAS)
+    }
+    return RoutedServePool(engines, ReplicaRouter(SERVE_REPLICAS, policy="wf_torch"))
+
+
+def phase_plane_serve(seed: int, jobs: list) -> dict:
+    """Two Mamba2-130M replicas at full width behind a ``wf_torch`` router
+    serve the SSM traffic through ``ControlPlane.submit_request``, one
+    request a slot, while the plane schedules the trace's first
+    ``PLANE_SERVE_JOBS`` jobs with ``wf_torch``; the tokens equal those of
+    the same pool driven alone on the same cadence (a request joins at
+    its slot, the pool steps once a slot from the first request's next
+    slot)."""
+    cfg = get_config(PLANE_SERVE_ARCH)
+    params = init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:PLANE_SERVE_JOBS]
+    t_first = head[PLANE_SERVE_FIRST].arrival
+
+    alone = _pool(params, cfg)
+    reqs = _plane_serve_requests(cfg, seed)
+    t0 = time.perf_counter()
+    for i, req in enumerate(reqs):  # request i joins at slot i, then the slot's step
+        if i and not alone.busy():  # the plane's heartbeats would have paused
+            raise AssertionError("plane_serve: the pool idled between requests")
+        alone.submit(req)
+        if i:
+            alone.step()
+    while alone.busy():
+        alone.step()
+    torch.cuda.synchronize()
+    alone_wall = time.perf_counter() - t0
+    want = {r.request_id: list(r.generated) for r in reqs}
+
+    pool = _pool(params, cfg)
+    plane_reqs = _plane_serve_requests(cfg, seed)
+    _reset_launches()
+    _reset_model_counts()
+    wf_torch.CALLS["adapter"] = 0
+    t0 = time.perf_counter()
+    plane = ControlPlane(M_SERVERS, policy="wf_torch", serve_pool=pool)
+    plane.submit_many(head)
+    for i, req in enumerate(plane_reqs):
+        plane.submit_request(at=t_first + i, request=req)
+    res = plane.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, n_calls = _model_counts(), wf_torch.CALLS["adapter"]
+    got = {r.request_id: list(r.generated) for r in plane_reqs}
+    emit({
+        "phase": "plane_serve",
+        "arch": PLANE_SERVE_ARCH,
+        "layers": cfg.n_layers,
+        "replicas": SERVE_REPLICAS,
+        "requests": len(plane_reqs),
+        "jobs": len(head),
+        "first_request_slot": t_first,
+        "finished": len(res.serve_latency),
+        "inflight": res.inflight_requests,
+        "serve_latency_slots": res.serve_latency,
+        "mean_jct": res.mean_jct,
+        "plane_wall_s": wall,
+        "pool_alone_wall_s": alone_wall,
+        "launches": counts,
+        "adapter_calls": n_calls,
+        "tokens_equal_pool_alone": got == want,
+        "reduced": {"traffic": f"{SSM_REQUESTS} requests, prompts {SSM_PROMPT[0]}-"
+                    f"{SSM_PROMPT[1]} tokens, {SSM_NEW} new each; the first "
+                    f"{PLANE_SERVE_JOBS} jobs"},
+    })
+    if got != want or len(res.serve_latency) != len(plane_reqs) or res.inflight_requests:
+        raise AssertionError("plane_serve: the plane-driven pool's tokens differ from the "
+                             "pool's alone, or a request did not finish")
+    if any(len(t) != SSM_NEW for t in got.values()):
+        raise AssertionError("plane_serve: a request did not get its tokens")
+    if any(c["plain"] for c in counts.values()) or counts["rmsnorm"]["rmsnorm"] == 0:
+        raise AssertionError(f"plane_serve went around the kernels: {counts}")
+    fused = _wf_fused_check("plane_serve", counts["waterlevel"], n_calls)
+    del params, pool, alone
+    torch.cuda.empty_cache()
+    return {"launches": {"wf_fused": fused, "rd_step": 0}, "counts": counts}
 
 
 def _time_rd_iterations(st0, step, n: int) -> dict:
@@ -2037,8 +2559,23 @@ def main() -> int:
     worst["wf_fused"] = phase_fused_kernel(args.seed)
     jobs = main_path_trace(args.seed)
     rd_worst = phase_rd_kernel(args.seed, jobs)
-    bursts, launches = phase_main_path(args.seed, jobs)
+    bursts, launches, slot_runs = phase_main_path(args.seed, jobs)
     rd_launches, rd_admitted = phase_rd_main_path(args.seed, jobs)
+    seconds = {}
+    t0 = time.perf_counter()
+    plane = phase_control_plane(jobs, slot_runs)
+    seconds["control_plane"] = time.perf_counter() - t0
+    online = phase_faults_online(args.seed, jobs)
+    seconds["faults_online"] = time.perf_counter() - t0 - sum(seconds.values())
+    exact = phase_exact(jobs, plane)
+    seconds["exact"] = time.perf_counter() - t0 - sum(seconds.values())
+    plane_serve = phase_plane_serve(args.seed, jobs)
+    seconds["plane_serve"] = time.perf_counter() - t0 - sum(seconds.values())
+    emit({"phase": "control_plane_phases", "seconds": seconds,
+          "total_s": time.perf_counter() - t0})
+    for extra in (plane, online, exact, plane_serve):
+        launches["wf_fused"] += extra["launches"]["wf_fused"]
+        rd_launches += extra["launches"]["rd_step"]
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity: full fp32
     torch.backends.cudnn.allow_tf32 = False
     model_worst = phase_model_kernels(args.seed)
@@ -2086,7 +2623,8 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes this function
         })
     # the fused water-filling kernel: the scheduler's fifo and ocwf-acc
-    # runs, the batch path, and the two wf_torch-routed serve pools
+    # runs, the batch path, the control-plane phases (added to launches in
+    # main) and the two wf_torch-routed serve pools
     pooled = sum(c["waterlevel"]["wf_groups"] for c in (serve_counts, *ssm_counts[::2]))
     single, chain = timed["fused single"], timed["fused chain"]
     summary.append({
@@ -2128,7 +2666,7 @@ def main() -> int:
     })
     # launches over every main path: the dense serve and prefill paths,
     # then each SSM model's serve and prefill paths
-    paths = [serve_counts, prefill_counts, *ssm_counts]
+    paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"]]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0)) for k, v in model_worst.items()}
     worst_model["ssd_scan"] = ssm_worst["ssd_scan"]
     # beside each row's main timing, the other shapes that rank the

@@ -1,17 +1,22 @@
-"""Carry jobs, problems and model parameters over from the reference package.
+"""Carry jobs, problems, timelines, stores and model parameters over
+from the reference package.
 
 The port and the reference each define their own ``Job``,
-``TaskGroup`` and ``AssignmentProblem``.  These functions rebuild the
-port's objects field for field from any objects with the same
-attributes (``job_id``, ``arrival``, ``groups`` of ``size``/``servers``,
-``mu``, ``busy``), as numpy arrays, without importing the reference.
-:func:`from_reference_params` turns the reference's parameter tree
-(nested dicts of numpy arrays) into the port's model.  Parity tests use
-them to feed both packages the same trace, busy state and weights.
+``TaskGroup``, ``AssignmentProblem``, events, placement store and
+resilience config.  These functions rebuild the port's objects field for
+field from any objects with the same attributes (``job_id``,
+``arrival``, ``groups`` of ``size``/``servers``, ``mu``, ``busy``,
+``blocks``; an event's ``slot``/``kind``/...), as numpy arrays, without
+importing the reference.  :func:`from_reference_params` turns the
+reference's parameter tree (nested dicts of numpy arrays) into the
+port's model.  Parity tests use them to feed both packages the same
+trace, fault and churn timeline, placement state, busy state and
+weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterable, Mapping
 
 import numpy as np
@@ -21,8 +26,23 @@ from . import backend
 from .core import AssignmentProblem, Job, TaskGroup
 from .models.config import ModelConfig
 from .models.model import FAMILIES, LM, check_family
+from .placement import (
+    REPLICATION_POLICIES,
+    PlacedJob,
+    PlacementEvent,
+    PlacementStore,
+)
+from .runtime.events import RackEvent, ServerEvent
+from .runtime.resilience import ResilienceConfig
 
-__all__ = ["from_reference_jobs", "from_reference_params", "from_reference_problem"]
+__all__ = [
+    "from_reference_events",
+    "from_reference_jobs",
+    "from_reference_params",
+    "from_reference_problem",
+    "from_reference_resilience",
+    "from_reference_store",
+]
 
 
 def _groups(groups) -> tuple[TaskGroup, ...]:
@@ -32,16 +52,69 @@ def _groups(groups) -> tuple[TaskGroup, ...]:
 
 
 def from_reference_jobs(jobs: Iterable) -> list[Job]:
-    """The port's :class:`~repro_torch.core.Job` for each reference job."""
-    return [
-        Job(
+    """The port's :class:`~repro_torch.core.Job` for each reference job;
+    a placement-backed job (one with ``blocks``) becomes a
+    :class:`~repro_torch.placement.PlacedJob`."""
+    out: list[Job] = []
+    for j in jobs:
+        fields = dict(
             job_id=int(j.job_id),
             arrival=int(j.arrival),
             groups=_groups(j.groups),
             mu=np.array(j.mu, copy=True),
         )
-        for j in jobs
-    ]
+        blocks = getattr(j, "blocks", None)
+        out.append(
+            Job(**fields) if blocks is None else PlacedJob(**fields, blocks=tuple(blocks))
+        )
+    return out
+
+
+def from_reference_events(events: Iterable) -> tuple:
+    """The port's ``ServerEvent`` / ``RackEvent`` / ``PlacementEvent`` for
+    each reference event (told apart by class name), in order."""
+    out = []
+    for ev in events:
+        kind = type(ev).__name__
+        if kind == "ServerEvent":
+            out.append(ServerEvent(int(ev.slot), ev.kind, int(ev.server), float(ev.factor)))
+        elif kind == "RackEvent":
+            out.append(RackEvent(int(ev.slot), ev.kind, tuple(int(m) for m in ev.servers)))
+        elif kind == "PlacementEvent":
+            out.append(PlacementEvent(
+                int(ev.slot), ev.kind, ev.block,
+                None if ev.server is None else int(ev.server), int(ev.seed),
+            ))
+        else:
+            raise TypeError(f"not a reference timeline event: {ev!r}")
+    return tuple(out)
+
+
+def from_reference_store(store) -> PlacementStore:
+    """The port's :class:`~repro_torch.placement.PlacementStore` holding a
+    reference store's state: its replication policy (same fields), every
+    block's replica set, access counts, active servers and counters."""
+    policy = store.policy
+    cls = REPLICATION_POLICIES.get(policy.name)
+    if cls is None:
+        raise ValueError(f"no port replication policy {policy.name!r}")
+    out = PlacementStore(store.n_servers, policy=cls(**dataclasses.asdict(policy)))
+    for block, servers in store.snapshot().items():
+        out._replicas[block] = {int(m) for m in servers}
+        if store.access_count(block):
+            out._access[block] = int(store.access_count(block))
+    out._active[:] = False
+    out._active[list(store.active_servers())] = True
+    out.version = int(store.version)
+    out.replicas_added = int(store.replicas_added)
+    out.replicas_evicted = int(store.replicas_evicted)
+    return out
+
+
+def from_reference_resilience(cfg) -> ResilienceConfig:
+    """The port's :class:`~repro_torch.runtime.resilience.ResilienceConfig`
+    with a reference config's field values."""
+    return ResilienceConfig(**dataclasses.asdict(cfg))
 
 
 def from_reference_problem(problem) -> AssignmentProblem:

@@ -1,11 +1,17 @@
-"""Cluster runtime of the port: slot-stepped engine, cluster state, policies.
+"""Cluster runtime of the port: scheduling engine, cluster state, events,
+policies, and the event-stepped control plane.
 
-Layered as engine (slot-exact drive + admission) → policies (assignment
-× ordering) → cluster (queues + eq. 2 busy state).
+Layered as loop (event-stepped control plane) → engine (slot-exact
+drive + admission/fault/placement machinery) → policies (assignment ×
+ordering) → cluster (queues + eq. 2 busy state) → events (fault
+timeline).  ``ClusterSimulator`` remains as the legacy façade.  Copies
+of the reference's ``repro/runtime`` modules of the same names.
 """
 
 from .cluster import ClusterState, QueueSegment
 from .engine import SchedulingEngine, SimResult
+from .events import EventTimeline, RackEvent, ServerEvent
+from .loop import ControlPlane
 from .policies import (
     ORDERINGS,
     Policy,
@@ -14,14 +20,23 @@ from .policies import (
     list_policies,
     make_policy,
 )
+from .resilience import ResilienceConfig, ResilienceState
+from .simulator import ClusterSimulator
 
 __all__ = [
+    "ClusterSimulator",
     "ClusterState",
+    "ControlPlane",
+    "EventTimeline",
     "ORDERINGS",
     "Policy",
     "QueueSegment",
+    "RackEvent",
+    "ResilienceConfig",
+    "ResilienceState",
     "SchedulingEngine",
     "SchedulingPolicy",
+    "ServerEvent",
     "SimResult",
     "get_assigner",
     "list_policies",

@@ -1,16 +1,23 @@
-"""Cluster state: server queues and the busy-time model (eq. 2).
+"""Cluster state: server queues, liveness, and the busy-time model (eq. 2).
 
-The part of ``repro/runtime/cluster.py`` that the slot loop reaches.
-Queue segments are keyed by the job's *original* group index, so
-locality sets (``job.groups[g].servers``) stay correct across reorders;
-:meth:`ClusterState.assert_invariant` makes that executable for tests.
+The port's copy of ``repro/runtime/cluster.py`` (less its observability
+hooks).  The bookkeeping invariant that everything here protects: queue segments
+are always keyed by the job's *original* group index, so locality sets
+(``job.groups[g].servers``) stay correct across arbitrarily many reorders
+and fault-driven reassignments.  :meth:`ClusterState.assert_invariant`
+makes the invariant executable for tests.
 
 Busy times are maintained *incrementally*: ``enqueue`` adds each new
-segment's ``⌈o/μ⌉`` cost, ``process_slot`` subtracts the ceiling delta
-as the head segment drains, and ``clear_queues`` / ``mark_failed``
-adjust the affected servers.  With ``debug=True`` every
-:meth:`busy_times` call cross-checks the incremental vector against the
-O(queued segments) rescan.
+segment's ``⌈o/μ⌉`` cost, ``process_slot`` subtracts the ceiling delta as
+the head segment drains, and queue-structure mutations (``clear_queues``,
+``mark_failed``, ``fail_server``) adjust or zero the affected servers.
+Capacity changes (slowdown/speedup via :meth:`invalidate_mu`) mark the
+vector stale and the next :meth:`busy_times` call recomputes it from the
+queues.  With ``debug=True`` every :meth:`busy_times` call cross-checks
+the incremental vector against the O(queued segments) rescan.
+
+reprolint's R005 exempts the reference's ``repro.runtime.cluster`` by
+name, so each write of the eq. 2 state here carries an inline pragma.
 """
 
 from __future__ import annotations
@@ -55,32 +62,53 @@ class QueueSegment:
 class ClusterState:
     """Mutable server-side state the scheduling engine drives.
 
-    Server ``m`` processes up to ``μ_m^h`` head-of-queue tasks per slot,
-    and a partially filled slot is still a full slot, so each queued job
-    costs ``⌈o_m^h/μ_m^h⌉`` slots — eq. 2 holds *by construction*.
+    Time semantics follow the paper's slotted model (Sec. II): server ``m``
+    processes up to ``μ_m^h`` head-of-queue tasks per slot, and a partially
+    filled slot is still a full slot, so each queued job costs
+    ``⌈o_m^h/μ_m^h⌉`` slots — eq. 2 holds *by construction*.
     """
 
-    def __init__(self, n_servers: int, jobs: dict[int, Job], *, debug: bool = False):
+    def __init__(
+        self,
+        n_servers: int,
+        jobs: dict[int, Job],
+        *,
+        debug: bool = False,
+    ):
         self.n_servers = n_servers
         self.jobs = jobs
         self.debug = debug
         self.queues: list[deque[QueueSegment]] = [deque() for _ in range(n_servers)]
         self.alive = np.ones(n_servers, dtype=bool)
+        self.slow = np.ones(n_servers, dtype=np.float64)
         self.remaining = {j.job_id: j.n_tasks for j in jobs.values() if j.n_tasks > 0}
         self.failed: list[int] = []
+        self.reassigned = 0
         self._mu_cache: dict[int, np.ndarray] = {}
         self._busy = np.zeros(n_servers, dtype=np.int64)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+        self._busy_stale = False  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+        # per-tick service observation (read-only for consumers): tasks
+        # the last process_slot took per server, and the head job they
+        # were taken from — valid only where last_progress > 0, which
+        # sidesteps any idle-sentinel collision with negative shadow ids
+        self.last_progress = np.zeros(n_servers, dtype=np.int64)
+        self.last_head_job = np.zeros(n_servers, dtype=np.int64)
 
     # ---- capacity & busy time -------------------------------------------
 
     def effective_mu(self, job: Job) -> np.ndarray:
-        """Per-server tasks/slot for ``job`` (≥ 1); slowdown events, which
-        scale it, belong to a later slice."""
         cached = self._mu_cache.get(job.job_id)
         if cached is None:
-            cached = np.maximum(1, job.mu).astype(np.int64)
+            cached = np.maximum(1, (job.mu / self.slow).astype(np.int64))
             self._mu_cache[job.job_id] = cached
         return cached
+
+    def invalidate_mu(self) -> None:
+        """Per-job capacities changed (slowdown/speedup): every queued
+        segment's ceiling cost changes with them, so the incremental busy
+        vector is stale until the next :meth:`busy_times` rescan."""
+        self._mu_cache.clear()
+        self._busy_stale = True  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
 
     def _segment_cost(self, seg: QueueSegment, m: int) -> int:
         mu = int(self.effective_mu(self.jobs[seg.job_id])[m])
@@ -99,6 +127,9 @@ class ClusterState:
 
     def busy_times(self) -> np.ndarray:
         """eq. 2 busy-time vector, maintained incrementally (O(M) here)."""
+        if self._busy_stale:
+            self._busy = self._rescan_busy()  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+            self._busy_stale = False  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
         if self.debug:
             rescan = self._rescan_busy()
             if not np.array_equal(self._busy, rescan):
@@ -111,6 +142,92 @@ class ClusterState:
     def live_servers(self, group: TaskGroup) -> tuple[int, ...]:
         return tuple(m for m in group.servers if self.alive[m])
 
+    # ---- liveness --------------------------------------------------------
+
+    def fail_server(self, m: int) -> list[QueueSegment]:
+        """Mark ``m`` dead and drain its queue; returns stranded segments."""
+        self.alive[m] = False
+        stranded = list(self.queues[m])
+        self.queues[m].clear()
+        self._busy[m] = 0  # dead servers contribute no busy time  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+        return stranded
+
+    def recover_server(self, m: int) -> None:
+        self.alive[m] = True
+        # queue was drained at failure, so the busy contribution is zero
+        assert not self.queues[m], "recovered server has a non-empty queue"
+
+    # ---- replica eviction (placement layer) ------------------------------
+
+    def evict_queued(self, m: int, job_id: int, g: int) -> int:
+        """Strand queued group-``g`` tasks of ``job_id`` on server ``m``.
+
+        The placement analogue of :meth:`fail_server`: when server ``m``
+        loses its replica of the block group ``g`` reads, the tasks
+        queued there can no longer run locally and must be re-placed.
+        Removes the matching per-group entries (other groups sharing a
+        segment stay queued), keeps the incremental busy vector in step,
+        and returns the stranded task count.
+        """
+        taken = 0
+        q = self.queues[m]
+        track = not self._busy_stale and self.alive[m]
+        for seg in list(q):
+            if seg.job_id != job_id or g not in seg.per_group:
+                continue
+            cost_before = self._segment_cost(seg, m) if track else 0
+            cnt = seg.per_group.pop(g)
+            seg.total -= cnt
+            taken += cnt
+            if track:
+                self._busy[m] -= cost_before - self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+            if seg.total == 0:
+                q.remove(seg)
+        return taken
+
+    # ---- segment surgery (work-stealing / speculation) -------------------
+
+    def pull_from_segment(
+        self, m: int, seg: QueueSegment, gids: list[int]
+    ) -> dict[int, int]:
+        """Remove the given original-group entries from ``seg`` (queued on
+        server ``m``), keeping the incremental busy vector in step.
+
+        Returns ``{gid: count}`` actually pulled; an emptied segment is
+        dropped from the queue.  This is the work-stealing primitive: the
+        puller re-places the pulled fragment through the policy exactly
+        like the fail path re-places stranded segments.
+        """
+        track = not self._busy_stale and self.alive[m]
+        cost_before = self._segment_cost(seg, m) if track else 0
+        pulled: dict[int, int] = {}
+        for g in gids:
+            cnt = seg.per_group.pop(g, 0)
+            if cnt:
+                pulled[g] = cnt
+        seg.total -= sum(pulled.values())
+        if track:
+            self._busy[m] -= cost_before - self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+        if seg.total == 0:
+            self.queues[m].remove(seg)
+        return pulled
+
+    def adopt_segment(self, m: int, seg: QueueSegment) -> None:
+        """Append an existing segment object to ``m``'s queue (speculative
+        clone placement), keeping the incremental busy vector in step.
+        ``seg.job_id`` must already be registered in :attr:`jobs`."""
+        self.queues[m].append(seg)
+        if not self._busy_stale and self.alive[m]:
+            self._busy[m] += self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+
+    def remove_segment(self, m: int, seg: QueueSegment) -> None:
+        """Remove a queued segment (speculative-loser cancellation),
+        delta-correcting the eq. 2 busy vector by the segment's remaining
+        ceiling cost."""
+        self.queues[m].remove(seg)
+        if not self._busy_stale and self.alive[m]:
+            self._busy[m] -= self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+
     # ---- job bookkeeping -------------------------------------------------
 
     def mark_failed(self, job_id: int) -> None:
@@ -122,7 +239,7 @@ class ClusterState:
             for seg in list(q):
                 if seg.job_id == job_id:
                     q.remove(seg)
-                    if self.alive[m]:
+                    if not self._busy_stale and self.alive[m]:
                         self._busy[m] -= self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
 
     def enqueue(self, job_id: int, assignment: Assignment, gids: list[int]) -> None:
@@ -139,12 +256,13 @@ class ClusterState:
         for m, per_group in per_server.items():
             seg = QueueSegment(job_id, per_group)
             self.queues[m].append(seg)
-            if self.alive[m]:
+            if not self._busy_stale and self.alive[m]:
                 self._busy[m] += self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
 
     def clear_queues(self) -> None:
         self.queues = [deque() for _ in range(self.n_servers)]
         self._busy = np.zeros(self.n_servers, dtype=np.int64)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+        self._busy_stale = False  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
 
     # ---- projections onto alive servers ---------------------------------
 
@@ -201,6 +319,7 @@ class ClusterState:
     def process_slot(self) -> dict[int, int]:
         """One slot of head-of-queue service; returns tasks completed per job."""
         done: dict[int, int] = {}
+        self.last_progress.fill(0)
         for m in range(self.n_servers):
             if not self.alive[m] or not self.queues[m]:
                 continue
@@ -208,11 +327,14 @@ class ClusterState:
             mu = int(self.effective_mu(self.jobs[seg.job_id])[m])
             cost_before = -(-seg.total // mu)
             taken = seg.take(mu)
-            self._busy[m] -= cost_before - (-(-seg.total // mu))  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+            if not self._busy_stale:
+                self._busy[m] -= cost_before - (-(-seg.total // mu))  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
             if seg.total == 0:
                 self.queues[m].popleft()
             if taken:
                 done[seg.job_id] = done.get(seg.job_id, 0) + taken
+                self.last_progress[m] = taken
+                self.last_head_job[m] = seg.job_id
         return done
 
     # ---- invariant check (test hook) ------------------------------------
@@ -246,7 +368,9 @@ class ClusterState:
                 raise AssertionError(
                     f"job {job_id}: {total} tasks queued but only {rem} remain"
                 )
-        if not np.array_equal(self._busy, self._rescan_busy()):
+        if not self._busy_stale and not np.array_equal(
+            self._busy, self._rescan_busy()
+        ):
             raise AssertionError(
                 "incremental busy times diverged from the eq. 2 rescan"
             )

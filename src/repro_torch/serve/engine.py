@@ -8,9 +8,11 @@ deployments uses the paper's WF (each inference replica = a server; its
 queued tokens = busy time) via :class:`ReplicaRouter`; with
 ``policy="wf_torch"`` the water level runs on the card.
 
-Left for later slices: the reference's ``debug=`` buffer-aliasing guard,
-its observability hooks around decode, and routing by model / adapter
-through a placement store.
+With ``placement=`` (a :class:`repro_torch.placement.PlacementStore`)
+the router resolves eligible replicas by model / adapter ID.  Left for
+later slices: the reference's ``debug=`` buffer-aliasing guard
+(:class:`repro_torch.analysis.runtime.BufferGuard` exists, unhooked) and
+its observability hooks around decode.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from .. import backend
 from ..core import AssignmentProblem, TaskGroup
 from ..models import LM, ModelConfig, decode_step, init_decode_cache, prefill
+from ..placement.store import lora_block, model_block
 from ..runtime.policies import AssignFn, get_assigner
 
 __all__ = [
@@ -169,11 +172,19 @@ class ReplicaRouter:
     assignment policy (the paper's WF by default).
 
     Replicas = servers; a request batch = a single-group job whose
-    available servers are the eligible replicas; busy time = queued
-    tokens / replica throughput (eq. 2 analogue).  ``policy`` is any name
-    the port's :func:`~repro_torch.runtime.policies.get_assigner` knows
-    (``"wf"``, ``"wf_torch"``, ``"rd"``, ``"rd_torch"``) or a callable
+    available servers are the replicas holding the requested model/LoRA;
+    busy time = queued tokens / replica throughput (eq. 2 analogue).
+    ``policy`` is any name the port's
+    :func:`~repro_torch.runtime.policies.get_assigner` knows (``"wf"``,
+    ``"wf_torch"``, ``"obta"``, ``"rd_torch"``, …) or a callable
     assignment function.
+
+    With ``placement`` (a :class:`repro_torch.placement.PlacementStore`
+    holding ``model/<name>`` and ``lora/<name>`` blocks), callers stop
+    passing ``eligible`` by hand: ``route(n, model="qwen", adapter="x")``
+    resolves the replicas holding *both* the model and the adapter, and
+    records the access so hot-model re-replication can widen the set on
+    the next rebalance.
     """
 
     def __init__(
@@ -182,17 +193,55 @@ class ReplicaRouter:
         tokens_per_step: int = 1024,
         *,
         policy: str | AssignFn = "wf",
+        placement=None,
     ):
         self.n = n_replicas
         self.rate = np.full(n_replicas, tokens_per_step, np.int64)
         self.queued = np.zeros(n_replicas, np.int64)
         self.assign = get_assigner(policy) if isinstance(policy, str) else policy
+        if placement is not None and placement.n_servers != n_replicas:
+            raise ValueError(
+                f"placement store spans {placement.n_servers} servers, "
+                f"router has {n_replicas} replicas"
+            )
+        self.placement = placement
+
+    def _resolve_eligible(
+        self, n_tokens: int, model: str | None, adapter: str | None
+    ) -> tuple[int, ...] | None:
+        if model is None and adapter is None:
+            return None
+        if self.placement is None:
+            raise ValueError(
+                "routing by model/adapter ID needs a placement store "
+                "(pass placement= to ReplicaRouter)"
+            )
+        blocks = []
+        if model is not None:
+            blocks.append(model_block(model))
+        if adapter is not None:
+            blocks.append(lora_block(adapter))
+        eligible = self.placement.eligible(*blocks)
+        for block in blocks:
+            self.placement.record_access(block, n_tokens)
+        return eligible
 
     def route(
-        self, n_tokens: int, eligible: tuple[int, ...] | None = None
+        self,
+        n_tokens: int,
+        eligible: tuple[int, ...] | None = None,
+        *,
+        model: str | None = None,
+        adapter: str | None = None,
     ) -> dict[int, int]:
-        """Assign ``n_tokens`` of work; returns {replica: tokens}.  Without
-        ``eligible``, every replica is eligible."""
+        """Assign ``n_tokens`` of work; returns {replica: tokens}.
+
+        ``eligible`` may be given explicitly or derived from placement
+        via ``model``/``adapter`` IDs; without either, every replica is
+        eligible.
+        """
+        if eligible is None:
+            eligible = self._resolve_eligible(n_tokens, model, adapter)
         eligible = eligible or tuple(range(self.n))
         busy = -(-self.queued // self.rate)  # slots, eq. 2
         prob = AssignmentProblem(
@@ -218,9 +267,12 @@ class RoutedServePool:
     :class:`ReplicaRouter`.
 
     Each request is costed at ``len(prompt) + max_new_tokens`` tokens,
-    routed by the registered policy over the eligible replicas, and
+    routed by the registered policy over the replicas holding its
+    model/LoRA (live placement store) or the eligible replicas, and
     admitted to the replica that received the bulk of the routed tokens.
-    One :meth:`step` is one slot: every replica decodes once.
+    One :meth:`step` is one slot: every replica decodes once; driving it
+    from a :class:`repro_torch.runtime.loop.ControlPlane` heartbeat puts
+    decode progress on the same event timeline as cluster scheduling.
     """
 
     def __init__(self, engines: dict[int, ServeEngine], router: ReplicaRouter):
@@ -229,12 +281,19 @@ class RoutedServePool:
         self.engines = engines
         self.router = router
 
-    def submit(self, req: Request, *, eligible: tuple[int, ...] | None = None) -> int:
+    def submit(
+        self,
+        req: Request,
+        *,
+        model: str | None = None,
+        adapter: str | None = None,
+        eligible: tuple[int, ...] | None = None,
+    ) -> int:
         """Route ``req`` and admit it to a replica; returns the replica id."""
-        if eligible is None:
+        if eligible is None and model is None and adapter is None:
             eligible = tuple(self.engines)
         cost = len(req.prompt) + req.max_new_tokens
-        out = self.router.route(cost, eligible)
+        out = self.router.route(cost, eligible, model=model, adapter=adapter)
         # a discrete request runs on ONE replica: the one the policy gave
         # the bulk of its tokens (splits only arise at the water level)
         routed = [kv for kv in out.items() if kv[0] in self.engines]

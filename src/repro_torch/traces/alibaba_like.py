@@ -48,9 +48,11 @@ class TraceConfig:
     seed: int = 0
 
 
-def generate_trace(cfg: TraceConfig) -> list[Job]:
+def generate_trace(cfg: TraceConfig, store=None) -> list[Job]:
     """Generate the trace (identical to the reference's for the same
-    config)."""
+    config); with a :class:`repro_torch.placement.PlacementStore` the
+    jobs are placement-backed (``PlacedJob``, groups registered as data
+    blocks) — bit-identical to the frozen trace under a static store."""
     rng = np.random.default_rng(cfg.seed)
     sizes = lognormal_sizes(cfg.n_jobs, cfg.total_tasks, rng)
 
@@ -75,6 +77,7 @@ def generate_trace(cfg: TraceConfig) -> list[Job]:
             cap_lo=cfg.cap_lo,
             cap_hi=cfg.cap_hi,
             rng=rng,
+            store=store,
         )
         for j in range(cfg.n_jobs)
     ]

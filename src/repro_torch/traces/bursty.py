@@ -47,9 +47,11 @@ class BurstyTraceConfig:
     seed: int = 0
 
 
-def generate_bursty_trace(cfg: BurstyTraceConfig) -> list[Job]:
+def generate_bursty_trace(cfg: BurstyTraceConfig, store=None) -> list[Job]:
     """Generate the trace (identical to the reference's for the same
-    config)."""
+    config); with a :class:`repro_torch.placement.PlacementStore` the
+    jobs are placement-backed (``PlacedJob``, groups registered as data
+    blocks) — bit-identical to the frozen trace under a static store."""
     rng = np.random.default_rng(cfg.seed)
     sizes = lognormal_sizes(cfg.n_jobs, cfg.total_tasks, rng)
 
@@ -86,7 +88,8 @@ def generate_bursty_trace(cfg: BurstyTraceConfig) -> list[Job]:
                     cap_lo=cfg.cap_lo,
                     cap_hi=cfg.cap_hi,
                     rng=rng,
-                        )
+                    store=store,
+                )
             )
             j += 1
     return jobs

@@ -1,9 +1,9 @@
 """Shared building blocks for the synthetic job traces.
 
-The part of ``repro/traces/placement.py`` (and of
-``repro/placement/store.py``'s ``zipf_weights`` / ``zipf_servers``) that
-the ``alibaba`` and ``bursty`` scenarios use.  Every scenario composes the
-same ingredients from the paper's Sec. V-A setup:
+The port's copy of ``repro/traces/placement.py`` (less the explicit
+group sizes of the CSV replay, which waits with ``cluster_v2017``).
+Every scenario composes the same ingredients from the paper's Sec. V-A
+setup:
 
 - heavy-tailed per-job task counts normalised to a target total;
 - a shifted-Poisson split of each job's tasks into task groups with a
@@ -12,47 +12,34 @@ same ingredients from the paper's Sec. V-A setup:
   random permutation, then ``p`` consecutive servers (mod M) form the
   group's available set.
 
-The RNG is consumed in exactly the reference's order, so a config gives
-the reference's jobs.  Placement-backed jobs (``store=``) belong to a
-later slice of the port.
+Placement can be frozen (``build_job`` bakes the server tuples into the
+trace) or *store-backed*: pass a
+:class:`repro_torch.placement.PlacementStore` and each group becomes a
+named data block registered in the store, returned as a
+:class:`repro_torch.placement.PlacedJob` whose eligible sets the engine
+re-resolves at arrival time.  Both paths consume the RNG identically, in
+exactly the reference's order, so a config gives the reference's jobs,
+and with a static store the trace is bit-identical to the frozen one.
 """
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 
 from ..core import Job, TaskGroup
+from ..placement.store import PlacedJob, data_block, zipf_servers
+
+if TYPE_CHECKING:  # pragma: no cover
+    from ..placement import PlacementStore
 
 __all__ = [
-    "zipf_weights",
-    "zipf_servers",
     "group_split",
     "normalize_sizes",
     "lognormal_sizes",
     "build_job",
 ]
-
-
-def zipf_weights(n: int, alpha: float) -> np.ndarray:
-    """Normalized Zipf(α) rank weights."""
-    w = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** alpha
-    return w / w.sum()
-
-
-def zipf_servers(
-    n_servers: int,
-    rng: np.random.Generator,
-    zipf_alpha: float,
-    avail_lo: int,
-    avail_hi: int,
-) -> tuple[int, ...]:
-    """The paper's placement model (Sec. V-A): a Zipf(α)-ranked anchor
-    server in a random permutation, then ``p ~ U{avail_lo..avail_hi}``
-    consecutive servers (mod M) form the replica set."""
-    perm = rng.permutation(n_servers)
-    anchor = int(perm[rng.choice(n_servers, p=zipf_weights(n_servers, zipf_alpha))])
-    p = int(rng.integers(avail_lo, avail_hi + 1))
-    return tuple(sorted({(anchor + i) % n_servers for i in range(p)}))
 
 
 def normalize_sizes(raw: np.ndarray, total_tasks: int) -> np.ndarray:
@@ -121,14 +108,41 @@ def build_job(
     cap_lo: int,
     cap_hi: int,
     rng: np.random.Generator,
+    store: "PlacementStore | None" = None,
 ) -> Job:
-    """One job under the shared group/placement/capacity model."""
+    """One job under the shared group/placement/capacity model.
+
+    With ``store`` given, every group's replica set is registered as a
+    ``data/j<job>/g<k>`` block and the returned job is a
+    :class:`~repro_torch.placement.PlacedJob` carrying the block names;
+    the RNG stream is consumed identically either way.
+    """
     if mean_groups <= 0:
         raise ValueError("build_job needs mean_groups > 0")
     sizes = group_split(n_tasks, mean_groups, rng)
+    if store is None:
+        groups = tuple(
+            TaskGroup(gs, zipf_servers(n_servers, rng, zipf_alpha, avail_lo, avail_hi))
+            for gs in sizes
+        )
+        mu = rng.integers(cap_lo, cap_hi + 1, size=n_servers)
+        return Job(job_id=job_id, arrival=arrival, groups=groups, mu=mu)
+    if store.n_servers != n_servers:
+        raise ValueError(
+            f"placement store spans {store.n_servers} servers, "
+            f"trace wants {n_servers}"
+        )
+    blocks = [data_block(job_id, k) for k in range(len(sizes))]
     groups = tuple(
-        TaskGroup(gs, zipf_servers(n_servers, rng, zipf_alpha, avail_lo, avail_hi))
-        for gs in sizes
+        TaskGroup(
+            gs,
+            store.place_block(
+                block, rng, zipf_alpha=zipf_alpha, avail_lo=avail_lo, avail_hi=avail_hi
+            ),
+        )
+        for gs, block in zip(sizes, blocks)
     )
     mu = rng.integers(cap_lo, cap_hi + 1, size=n_servers)
-    return Job(job_id=job_id, arrival=arrival, groups=groups, mu=mu)
+    return PlacedJob(
+        job_id=job_id, arrival=arrival, groups=groups, mu=mu, blocks=tuple(blocks)
+    )

@@ -55,6 +55,8 @@ def _job_fields(job):
         ("alibaba", dict(n_jobs=25, total_tasks=2_500, n_servers=20, zipf_alpha=1.6)),
         ("bursty", dict(n_jobs=30, total_tasks=3_000, n_servers=40)),
         ("bursty", dict(n_jobs=40, total_tasks=5_000, n_servers=64, mean_burst=9.0)),
+        ("pareto_diurnal", dict(n_jobs=30, total_tasks=3_000, n_servers=40)),
+        ("pareto_diurnal", dict(n_jobs=40, total_tasks=6_000, n_servers=64, pareto_alpha=1.2)),
     ],
 )
 def test_traces_identical_to_reference(scenario, overrides, seed):
@@ -67,9 +69,9 @@ def test_traces_identical_to_reference(scenario, overrides, seed):
 
 
 def test_scenario_registry():
-    assert list_scenarios() == ["alibaba", "bursty"]
+    assert list_scenarios() == ["alibaba", "bursty", "pareto_diurnal"]
     with pytest.raises(KeyError, match="unknown trace scenario"):
-        generate("pareto_diurnal")
+        generate("cluster_v2017")  # the CSV replay waits for a later slice
 
 
 def _same_schedule(got, want):
@@ -156,6 +158,22 @@ def test_isolation_checks_cover_the_rd_slice():
     walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     assert {"core/rd.py", "core/rd_torch.py", "kernels/rd.py"} <= walked
     assert (PORT / "kernels" / "csrc" / "rd_step.cu").is_file()
+
+
+def test_isolation_checks_cover_the_control_plane_slice():
+    """The exact-assignment, RD+ and control-plane slice's modules are
+    among the files the import checks above and below walk."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    expected = {
+        "core/flow.py", "core/obta.py", "core/rd_reference.py", "core/rd_plus.py",
+        "runtime/events.py", "obs/metrics.py", "runtime/resilience.py",
+        "analysis/runtime.py", "placement/store.py", "placement/events.py",
+        "placement/policies.py", "placement/__init__.py", "runtime/cluster.py",
+        "runtime/engine.py", "runtime/loop.py", "traces/clients.py",
+        "traces/placement.py", "traces/__init__.py", "traces/resilience.py",
+        "traces/pareto.py", "runtime/simulator.py",
+    }
+    assert expected <= walked
 
 
 def test_isolation_checks_cover_the_model_slice():
@@ -267,6 +285,46 @@ def test_entry_point_without_a_cpu_scope_does_not_run_on_the_cpu():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "refused:" in out.stdout
     assert "rd refused:" in out.stdout
+
+
+def test_control_plane_without_a_cpu_scope_does_not_run_on_the_cpu():
+    """``ControlPlane(policy="wf_torch")`` (and ``rd_plus``, through
+    ``rd_torch``) places its assignments on ``cuda`` unless scoped: with
+    no GPU, torch refuses at the first arrival.  ``obta`` is a host
+    algorithm: it runs with no scope and touches no device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    code = (
+        "import numpy as np\n"
+        "from repro_torch import backend\n"
+        "from repro_torch.core import Job, TaskGroup\n"
+        "from repro_torch.runtime import ControlPlane, SchedulingEngine\n"
+        "jobs = [Job(job_id=0, arrival=0, groups=(TaskGroup(6, (0, 1)),),\n"
+        "            mu=np.full(4, 2))]\n"
+        "for policy in ('wf_torch', 'rd_plus'):\n"
+        "    plane = ControlPlane(4, policy=policy)\n"
+        "    plane.submit_many(jobs)\n"
+        "    try:\n"
+        "        plane.drain()\n"
+        "    except (AssertionError, RuntimeError) as exc:\n"
+        "        print(policy, 'refused:', exc)\n"
+        "    else:\n"
+        "        raise SystemExit(policy + ' ran without a device')\n"
+        "    with backend.set_backend(device='cpu'):\n"
+        "        plane = ControlPlane(4, policy=policy)\n"
+        "        plane.submit_many(jobs)\n"
+        "        assert plane.drain().jct == {0: 2}\n"
+        "plane = ControlPlane(4, policy='obta')\n"
+        "plane.submit_many(jobs)\n"
+        "assert plane.drain().jct == {0: 2}\n"
+        "assert SchedulingEngine(4, 'obta', step_mode='event').run(jobs).jct == {0: 2}\n"
+        "import sys\n"
+        "assert 'repro_torch.core.rd_torch' in sys.modules\n"
+    )
+    out = _run_port(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "wf_torch refused:" in out.stdout
+    assert "rd_plus refused:" in out.stdout
 
 
 def test_model_entry_points_without_a_cpu_scope_do_not_run_on_the_cpu():
