@@ -60,6 +60,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``wf_torch`` router serve 8 requests through ``ControlPlane.
    submit_request`` while the plane schedules the first 50 jobs; the
    tokens equal the same pool's driven alone;
+6e. observed main path — the fifo run of 5. again under
+   ``repro_torch.obs.observe()`` (a ring holding the whole trace): the
+   schedule equals the unobserved run's, ``device.wf-*.calls`` equal the
+   adapter calls and the fused launches; the trace's size, both walls and
+   the first-launch / later-launch split; then ``ControlPlane(rd_torch,
+   setf)`` on the first 5 jobs under a session, equal to the host ``rd``
+   plane, ``device.rd-device.calls`` equal to the device RD runs; the
+   Chrome export round-trips through ``parse_chrome_trace``;
+6f. csv replay — a headerless ``batch_task.csv`` in cluster-trace-v2017's
+   8-column schema, drawn from the seed at the paper's segment size (250
+   jobs, 113,653 task instances, 1-8 groups a job, ~2 % of the rows not
+   Terminated), replayed by ``generate("cluster_v2017", path=...)`` in
+   4096-row chunks at the trace's 1,300 machines: equal to a replay in
+   97-row chunks and to a one-shot ``load_batch_task_csv``; ``wf_torch``
+   fifo over all 250 jobs and ``rd_torch`` over the first 10, each
+   identical to the host policy;
+6g. moe balance — DeepSeek-V3's 256 routed experts (top-8, 4 x 2048
+   tokens a step) on its 32-GPU prefill unit, two replicas an expert, 50
+   steps carrying the queue: ``balance_expert_replicas`` on the card (one
+   fused launch a call) equal to the plain loop, tokens conserved, Φ at
+   most the static first-replica split's;
 7. model kernels — the RMSNorm, decode-attention and flash-attention
    kernels against their plain versions on the card, in float32 (flash
    attention on the CUDA cores) and bfloat16 (on the tensor cores), at
@@ -109,9 +130,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
     times and device busy shares; the RD step kernel's device time per launch on a profiled
     chain of the main path's jobs, the chain's busy share, and kernel
     against plain iteration over the same 200 iterations.
+16. observed serve (run after 10., on its weights) — one Qwen1.5-4B
+    engine serves 4 requests under ``observe()`` with ``debug=True`` (the
+    buffer guard armed): the tokens equal the unobserved, unguarded
+    engine's, ``device.serve-decode.calls`` equals the decode steps;
+17. contracts — each of the eight kernel contracts at every geometry the
+    run launched: its shared memory and threads equal the block the
+    wrapper launched with, its static shared memory the compiled
+    kernel's, within the card's opt-in shared memory, which equals
+    kernelcheck's default budget; then ``python -m
+    repro_torch.analysis.kernelcheck`` in-process, exit 0.
 
-Then the ``kernels`` summary line (the ``wf_fused`` and ``rd_step`` rows
-count 6a-6d's launches too), the ``nvidia-smi`` line, and last
+Then the ``new_phases`` line (6e-6g, 16 and 17's walls), the ``kernels``
+summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
+launches too), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
 the repository's ``src/`` beside it.
 """
@@ -125,6 +157,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -135,6 +168,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
+from repro_torch import obs  # noqa: E402
+from repro_torch.analysis import kernelcheck  # noqa: E402
+from repro_torch.analysis.contracts import CONTRACTS  # noqa: E402
 from repro_torch.backend import set_backend  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import AssignmentProblem, TaskGroup, water_filling  # noqa: E402
@@ -156,6 +192,8 @@ from repro_torch.runtime import (  # noqa: E402
     ServerEvent,
     make_policy,
 )
+from repro_torch.obs.trace import parse_chrome_trace  # noqa: E402
+from repro_torch.serve import balance_expert_replicas, replica_placement  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ReplicaRouter,
     Request,
@@ -165,6 +203,7 @@ from repro_torch.serve.engine import (  # noqa: E402
 )
 from repro_torch.traces import (  # noqa: E402
     generate,
+    load_batch_task_csv,
     overload_client,
     rack_failure_timeline,
     replay_client,
@@ -242,6 +281,44 @@ RD_PLUS_JOBS = 60
 PLANE_SERVE_ARCH = "mamba2-130m"
 PLANE_SERVE_JOBS = 50
 PLANE_SERVE_FIRST = 10
+
+# observed_main_path: the fifo main path again under a session whose ring
+# holds the whole trace, and ControlPlane(rd_torch, setf) on the first
+# OBSERVED_RD_JOBS jobs under one
+OBSERVED_TRACE_CAPACITY = 1 << 20
+OBSERVED_RD_JOBS = 5
+# csv_replay: a headerless batch_task.csv in cluster-trace-v2017's published
+# 8-column schema, drawn from the seed at the paper's segment size (Sec.
+# V-A: 250 jobs, 113,653 task instances; 1-8 task groups a job, ~2 % of the
+# rows not Terminated), replayed in 4096-row chunks on the trace's
+# published 1,300 machines; wf_torch over every job, rd_torch over the
+# first CSV_RD_JOBS
+CSV_JOBS = 250
+CSV_TASKS = 113_653
+CSV_GROUPS = (1, 8)
+CSV_OFF_STATUS = 0.02
+CSV_SERVERS = 1300
+CSV_CHUNK_ROWS = 4096
+CSV_SMALL_CHUNK = 97  # a second replay in many chunks
+CSV_RD_JOBS = 10
+# moe_balance: DeepSeek-V3's routed experts (256, top-8) on its prefill
+# deployment unit (technical report Sec. 3.4: 32 GPUs, EP32), two replicas
+# an expert; 4 x 2048 tokens a step, MOE_STEPS steps, Zipf expert loads;
+# identical devices (μ = 1: the time unit is one token's expert pass), the
+# queue drains by a device's even share of a step between steps
+MOE_EXPERTS = 256
+MOE_TOP_K = 8
+MOE_DEVICES = 32
+MOE_REPLICAS = 2
+MOE_TOKENS = 4 * 2048
+MOE_STEPS = 50
+MOE_ZIPF = 1.1
+# observed_serve: one Qwen1.5-4B engine (the serve main path's weights)
+# serving 4 requests of 32-128 prompt tokens and 16 new, under a session
+# with the buffer guard armed, against the same requests without either
+OBSERVED_SERVE_REQUESTS = 4
+OBSERVED_SERVE_PROMPT = (32, 128)
+OBSERVED_SERVE_NEW = 16
 
 # the serving main path: Qwen1.5-4B (the launcher's default arch) at full
 # width, two replicas of 4 slots and 1024 positions each
@@ -1437,6 +1514,434 @@ def phase_plane_serve(seed: int, jobs: list) -> dict:
     return {"launches": {"wf_fused": fused, "rd_step": 0}, "counts": counts}
 
 
+# ---- observability, the CSV replay, MoE routing and the contracts ------------
+
+
+def _hist_total(m, name: str) -> tuple[int, int]:
+    """(samples, summed µs) of one profiler histogram."""
+    h = m.histogram(name)
+    return (h.count, h.total) if h is not None else (0, 0)
+
+
+def _device_split(m) -> dict:
+    """Per dispatch kind: calls, first launches of a variant ("compile")
+    and the later ones, with their summed walls."""
+    kinds = sorted({k.split(".")[1] for k in m.counters if k.startswith("device.")})
+    out = {}
+    for kind in kinds:
+        n_c, us_c = _hist_total(m, f"device.{kind}.compile_us")
+        n_e, us_e = _hist_total(m, f"device.{kind}.exec_us")
+        out[kind] = {"calls": m.counter(f"device.{kind}.calls"),
+                     "first_launches": n_c, "first_launch_ms": us_c / 1e3,
+                     "later_launches": n_e, "later_ms": us_e / 1e3,
+                     "host_fallback": m.counter(f"device.{kind}.host_fallback")}
+    return out
+
+
+def phase_observed_main_path(jobs: list, slot_runs: dict) -> dict:
+    """The 4096-server fifo WF main path again under ``observe()``: the
+    schedule equals the unobserved run's, and the profiler's calls equal
+    the adapter calls and the fused launches; the trace's size, the two
+    walls and the first-launch / later-launch split.  Then
+    ``ControlPlane(rd_torch, setf)`` on the first jobs under a session
+    against the host ``rd`` plane, ``device.rd-device.calls`` equal to
+    the device RD runs; the Chrome export round-trips."""
+    unobserved, unobserved_wall = slot_runs["fifo"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    with obs.observe(trace_capacity=OBSERVED_TRACE_CAPACITY) as session:
+        dev = SchedulingEngine(M_SERVERS, make_policy("wf_torch", "fifo")).run(jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, n_calls = dict(wl.COUNTS), wf_torch.CALLS["adapter"]
+    m = session.metrics
+    split = _device_split(m)
+    profiled = {k: m.counter(f"device.{k}.calls") for k in ("wf-groups", "wf-chain")}
+    identical = (_same_schedule(dev, unobserved)
+                 and len(dev.overhead_s) == len(unobserved.overhead_s))
+    emit({
+        "phase": "observed_main_path",
+        "policy": "wf_torch",
+        "ordering": "fifo",
+        "servers": M_SERVERS,
+        "jobs": len(jobs),
+        "trace_total": session.trace.total,
+        "trace_dropped": session.trace.dropped,
+        "snapshots": m.n_snapshots,
+        "observed_wall_s": wall,
+        "unobserved_wall_s": unobserved_wall,
+        "observed_over_unobserved": wall / unobserved_wall,
+        "device": split,
+        "launches": counts,
+        "adapter_calls": n_calls,
+        "identical_to_unobserved": identical,
+    })
+    if not identical:
+        raise AssertionError("observed_main_path: the observed schedule differs")
+    n_fused = _wf_fused_check("observed_main_path", counts, n_calls)
+    if (profiled["wf-groups"] != counts["wf_groups"] or profiled["wf-chain"] != counts["wf_chain"]
+            or sum(profiled.values()) != n_calls or session.trace.dropped):
+        raise AssertionError(f"observed_main_path: profiled {profiled}, launches {counts}, "
+                             f"{n_calls} adapter calls, {session.trace.dropped} dropped")
+
+    head = sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:OBSERVED_RD_JOBS]
+    _reset_launches()
+    t0 = time.perf_counter()
+    with obs.observe() as rd_session:
+        plane = ControlPlane(M_SERVERS, policy="rd_torch", ordering="setf")
+        plane.submit_many(head)
+        rd_dev = plane.drain()
+    torch.cuda.synchronize()
+    rd_wall = time.perf_counter() - t0
+    rd_counts, reruns = dict(rdk.COUNTS), rd_torch.COUNTS["host_reruns"]
+    runs = len(rd_torch.ITERATIONS)
+    host_plane = ControlPlane(M_SERVERS, policy="rd", ordering="setf")
+    host_plane.submit_many(head)
+    rd_host = host_plane.drain()
+    rd_split = _device_split(rd_session.metrics)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "observed_main_path.trace.json"
+        path.write_text(json.dumps(session.trace.to_chrome_trace()))
+        trace_mb = path.stat().st_size / 1e6
+        records, strings = parse_chrome_trace(json.loads(path.read_text()))
+    round_trip = records == session.trace.records() and tuple(strings) == session.trace.strings
+    emit({
+        "phase": "observed_main_path",
+        "policy": "rd_torch",
+        "ordering": "setf",
+        "servers": M_SERVERS,
+        "jobs": len(head),
+        "plane_wall_s": rd_wall,
+        "device_rd_runs": runs,
+        "device": rd_split,
+        "launches": rd_counts,
+        "loop_iterations": sum(n for _, _, n in rd_torch.ITERATIONS),
+        "identical_to_host_rd_plane": _same_schedule(rd_dev, rd_host),
+        "chrome_trace_mb": trace_mb,
+        "chrome_round_trip": round_trip,
+        "reduced": {"jobs": f"the first {OBSERVED_RD_JOBS} of {N_JOBS} jobs"},
+    })
+    if not _same_schedule(rd_dev, rd_host):
+        raise AssertionError("observed_main_path: ControlPlane(rd_torch, setf) differs from rd")
+    rd_launches = _rd_launch_check("observed setf", rd_counts, reruns)
+    if rd_session.metrics.counter("device.rd-device.calls") != runs or not round_trip:
+        raise AssertionError(f"observed_main_path: rd-device calls {rd_split} for {runs} "
+                             f"device RD runs, Chrome round trip {round_trip}")
+    return {"launches": {"wf_fused": n_fused, "rd_step": rd_launches},
+            "wall_s": wall, "unobserved_wall_s": unobserved_wall}
+
+
+def write_batch_task_csv(path: Path, seed: int) -> dict:
+    """A headerless ``batch_task.csv`` in the published 8-column schema,
+    drawn from ``seed``: CSV_JOBS jobs whose Terminated rows hold
+    CSV_TASKS instances in all, CSV_GROUPS task groups a job, and about
+    CSV_OFF_STATUS of the rows in other statuses (which the replay skips);
+    the rows shuffled.  Data made from a seed in the trace's schema at the
+    paper's segment size, not the trace's statistics."""
+    rng = np.random.default_rng(seed + 50)
+    groups = rng.integers(CSV_GROUPS[0], CSV_GROUPS[1] + 1, CSV_JOBS)
+    raw = rng.lognormal(0.0, 1.0, CSV_JOBS)
+    sizes = np.maximum(groups, np.floor(raw / raw.sum() * CSV_TASKS).astype(np.int64))
+    sizes[np.argmax(sizes)] += CSV_TASKS - int(sizes.sum())
+    create = 86_400 + np.cumsum(rng.exponential(12.0, CSV_JOBS)).astype(np.int64)
+    rows, off = [], 0
+    for j in range(CSV_JOBS):
+        cuts = np.sort(rng.choice(np.arange(1, sizes[j]), groups[j] - 1, replace=False))
+        for k, n in enumerate(np.diff(np.concatenate([[0], cuts, [sizes[j]]]))):
+            t = int(create[j]) + 3 * k
+            cpu, mem = int(rng.choice((50, 100, 200))), float(rng.choice((0.25, 0.5)))
+            rows.append(f"{t},{t + 600},j_{j:05d},task_{k},{n},Terminated,{cpu},{mem}")
+            if rng.random() < CSV_OFF_STATUS:
+                status = str(rng.choice(("Failed", "Waiting", "Running", "Cancelled")))
+                rows.append(f"{t + 1},{t + 900},j_{j:05d},task_{k}_r,"
+                            f"{int(rng.integers(1, 500))},{status},{cpu},{mem}")
+                off += 1
+    path.write_text("\n".join(rows[i] for i in rng.permutation(len(rows))) + "\n")
+    return {"rows": len(rows), "rows_not_terminated": off, "bytes": path.stat().st_size}
+
+
+def _jobs_key(jobs: list) -> list:
+    return [(j.job_id, j.arrival, [(g.size, g.servers) for g in j.groups], j.mu.tolist())
+            for j in jobs]
+
+
+def phase_csv_replay(seed: int) -> dict:
+    """The seeded CSV replayed through ``generate("cluster_v2017",
+    path=...)`` in 4096-row chunks at 1,300 servers: the two-pass replay
+    equals a replay in 97-row chunks and the group sizes and arrival order
+    of a one-shot ``load_batch_task_csv``; ``wf_torch`` fifo over every job
+    and ``rd_torch`` over the first jobs, each against the host policy."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "batch_task.csv"
+        shape = write_batch_task_csv(path, seed)
+        kw = dict(path=str(path), n_servers=CSV_SERVERS, seed=seed)
+        t0 = time.perf_counter()
+        jobs = generate("cluster_v2017", chunk_rows=CSV_CHUNK_ROWS, **kw)
+        replay_s = time.perf_counter() - t0
+        small = generate("cluster_v2017", chunk_rows=CSV_SMALL_CHUNK, **kw)
+        rows = load_batch_task_csv(str(path))
+    first: dict[str, int] = {}
+    for r in rows:
+        first[r.job_id] = min(first.get(r.job_id, r.create_timestamp), r.create_timestamp)
+    order = sorted(first, key=lambda j: (first[j], j))
+    one_shot = [[r.instance_num for r in sorted(
+        (r for r in rows if r.job_id == j), key=lambda r: (r.create_timestamp, r.task_id))]
+        for j in order]
+    chunked_equal = _jobs_key(jobs) == _jobs_key(small)
+    one_shot_equal = [[g.size for g in j.groups] for j in jobs] == one_shot
+    if not (chunked_equal and one_shot_equal and len(jobs) == CSV_JOBS
+            and sum(j.n_tasks for j in jobs) == CSV_TASKS):
+        raise AssertionError(f"csv_replay: {len(jobs)} jobs, chunked equal {chunked_equal}, "
+                             f"one-shot equal {one_shot_equal}")
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    dev = SchedulingEngine(CSV_SERVERS, make_policy("wf_torch")).run(jobs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, n_calls = dict(wl.COUNTS), wf_torch.CALLS["adapter"]
+    t0 = time.perf_counter()
+    host = SchedulingEngine(CSV_SERVERS, make_policy("wf")).run(jobs)
+    host_wall = time.perf_counter() - t0
+    identical = _same_schedule(dev, host)
+    n_fused = _wf_fused_check("csv_replay", counts, n_calls)
+
+    head = jobs[:CSV_RD_JOBS]
+    _reset_launches()
+    t0 = time.perf_counter()
+    rd_dev = SchedulingEngine(CSV_SERVERS, make_policy("rd_torch")).run(head)
+    torch.cuda.synchronize()
+    rd_wall = time.perf_counter() - t0
+    rd_counts, reruns = dict(rdk.COUNTS), rd_torch.COUNTS["host_reruns"]
+    iterations = sum(n for _, _, n in rd_torch.ITERATIONS)
+    t0 = time.perf_counter()
+    rd_host = SchedulingEngine(CSV_SERVERS, make_policy("rd")).run(head)
+    rd_host_wall = time.perf_counter() - t0
+    emit({
+        "phase": "csv_replay",
+        "csv": {**shape, "schema": "cluster-trace-v2017 batch_task.csv, 8 columns, "
+                "headerless", "source": f"drawn from --seed {seed}, not the trace"},
+        "servers": CSV_SERVERS,
+        "jobs": len(jobs),
+        "tasks": sum(j.n_tasks for j in jobs),
+        "groups": sum(len(j.groups) for j in jobs),
+        "chunk_rows": CSV_CHUNK_ROWS,
+        "replay_s": replay_s,
+        "equal_to_small_chunks": chunked_equal,
+        "equal_to_one_shot_load": one_shot_equal,
+        "wf_torch": {"mean_jct": dev.mean_jct, "makespan": dev.makespan, "wall_s": wall,
+                     "host_wf_wall_s": host_wall, "identical_to_host_wf": identical,
+                     "launches": counts, "adapter_calls": n_calls},
+        "rd_torch": {"jobs": len(head), "tasks": sum(j.n_tasks for j in head),
+                     "mean_jct": rd_dev.mean_jct, "wall_s": rd_wall,
+                     "host_rd_wall_s": rd_host_wall, "launches": rd_counts,
+                     "loop_iterations": iterations,
+                     "identical_to_host_rd": _same_schedule(rd_dev, rd_host)},
+    })
+    if not identical or not _same_schedule(rd_dev, rd_host):
+        raise AssertionError("csv_replay: a device schedule differs from the host policy's")
+    rd_launches = _rd_launch_check("csv replay", rd_counts, reruns)
+    return {"launches": {"wf_fused": n_fused, "rd_step": rd_launches}}
+
+
+def phase_moe_balance(seed: int) -> dict:
+    """DeepSeek-V3's routed experts on its 32-GPU prefill unit: each step
+    one ``balance_expert_replicas`` call on the card (one fused launch)
+    against the same call on the CPU tensors (the plain loop), alloc and
+    Φ equal; tokens conserved; Φ at most the static first-replica split's;
+    the queue carried between steps."""
+    gen = torch.Generator().manual_seed(seed)
+    placement = replica_placement(MOE_EXPERTS, MOE_DEVICES, MOE_REPLICAS, generator=gen)
+    first = placement[:, 0].numpy()
+    rng = np.random.default_rng(seed + 60)
+    weights = 1.0 / np.arange(1, MOE_EXPERTS + 1) ** MOE_ZIPF
+    slots = MOE_TOKENS * MOE_TOP_K
+    drain = slots // MOE_DEVICES
+    rate = torch.ones(MOE_DEVICES, dtype=torch.int32)
+    rate_dev, placement_dev = rate.cuda(), placement.cuda()
+    queue = np.zeros(MOE_DEVICES, np.int64)
+    _reset_launches()
+    card_s, plain_s, phis, static_phis = [], [], [], []
+    for _ in range(MOE_STEPS):
+        load = rng.multinomial(slots, rng.permutation(weights / weights.sum()))
+        load_t = torch.from_numpy(load.astype(np.int32))
+        queue_t = torch.from_numpy(queue.astype(np.int32))
+        launched = wl.COUNTS["wf_groups"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alloc, phi = balance_expert_replicas(load_t.cuda(), placement_dev, queue_t.cuda(),
+                                             rate_dev)
+        alloc, phi = alloc.cpu(), int(phi)
+        card_s.append(time.perf_counter() - t0)
+        if wl.COUNTS["wf_groups"] != launched + 1:
+            raise AssertionError("moe_balance: a call took other than one fused launch")
+        t0 = time.perf_counter()
+        want_alloc, want_phi = balance_expert_replicas(load_t, placement, queue_t, rate)
+        plain_s.append(time.perf_counter() - t0)
+        static = queue.copy()
+        np.add.at(static, first, load)
+        a = alloc.numpy()
+        if (not torch.equal(alloc, want_alloc) or phi != int(want_phi)
+                or a.sum() != slots or (a.sum(axis=1) != load).any()
+                or phi > int(static.max())):
+            raise AssertionError("moe_balance: card differs from plain, tokens lost, or Φ "
+                                 "above the static split")
+        phis.append(phi)
+        static_phis.append(int(static.max()))
+        queue = np.maximum(queue + a.sum(axis=0) - drain, 0)
+    counts = dict(wl.COUNTS)
+    emit({
+        "phase": "moe_balance",
+        "experts": MOE_EXPERTS,
+        "top_k": MOE_TOP_K,
+        "devices": MOE_DEVICES,
+        "replicas": MOE_REPLICAS,
+        "token_slots_per_step": slots,
+        "steps": MOE_STEPS,
+        "card_ms_per_call": sorted(card_s)[len(card_s) // 2] * 1e3,
+        "card_ms_first_call": card_s[0] * 1e3,
+        "plain_cpu_ms_per_call": sorted(plain_s)[len(plain_s) // 2] * 1e3,
+        "phi_mean": float(np.mean(phis)),
+        "static_phi_mean": float(np.mean(static_phis)),
+        "launches": counts,
+        "identical_to_plain": True,
+        "source": "src/repro/configs/deepseek_v3_671b.py:26 (256 routed experts, top-8); "
+        "DeepSeek-V3 technical report Sec. 3.4 (prefill unit: 32 GPUs, EP32)",
+    })
+    # the plain loop's water level runs once a group: MOE_EXPERTS a CPU call
+    if counts["wf_groups"] != MOE_STEPS or counts["plain"] != MOE_STEPS * MOE_EXPERTS:
+        raise AssertionError(f"moe_balance: {counts} for {MOE_STEPS} card and plain calls")
+    return {"launches": {"wf_fused": counts["wf_groups"], "rd_step": 0}}
+
+
+def _observed_serve_requests(cfg, seed: int) -> list:
+    rng = np.random.default_rng(seed + 70)
+    lo, hi = OBSERVED_SERVE_PROMPT
+    return [Request(i, rng.integers(1, cfg.vocab, int(rng.integers(lo, hi + 1))
+                                    ).astype(np.int32), max_new_tokens=OBSERVED_SERVE_NEW)
+            for i in range(OBSERVED_SERVE_REQUESTS)]
+
+
+def _serve_alone(params, cfg, seed: int, debug: bool) -> tuple[dict, int, float, object]:
+    eng = ServeEngine(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      eos_token=-1, debug=debug)
+    steps = [0]
+
+    def counted(tokens, _decode=eng._decode):
+        steps[0] += 1
+        return _decode(tokens)
+
+    eng._decode = counted
+    reqs = _observed_serve_requests(cfg, seed)
+    for r in reqs:
+        eng.submit(r)
+    done = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(done) < len(reqs):
+        done += eng.step()
+    torch.cuda.synchronize()
+    return ({r.request_id: list(r.generated) for r in done}, steps[0],
+            time.perf_counter() - t0, eng)
+
+
+def phase_observed_serve(params, seed: int) -> None:
+    """Qwen1.5-4B at full width (the serve main path's weights), one
+    ``ServeEngine``: the requests under ``observe()`` with ``debug=True``
+    give the tokens of the same requests served without the session and
+    the guard; ``device.serve-decode.calls`` equals the decode steps and
+    the guard raises nothing."""
+    cfg = get_config(SERVE_ARCH)
+    want, want_steps, plain_wall, _ = _serve_alone(params, cfg, seed, debug=False)
+    _reset_model_counts()
+    with obs.observe() as session:
+        got, steps, wall, eng = _serve_alone(params, cfg, seed, debug=True)
+    counts = _model_counts()
+    m = session.metrics
+    calls = m.counter("device.serve-decode.calls")
+    emit({
+        "phase": "observed_serve",
+        "arch": SERVE_ARCH,
+        "layers": cfg.n_layers,
+        "dtype": cfg.dtype,
+        "requests": OBSERVED_SERVE_REQUESTS,
+        "decode_steps": steps,
+        "profiled_calls": calls,
+        "device": _device_split(m),
+        "observed_guarded_wall_s": wall,
+        "plain_wall_s": plain_wall,
+        "ms_per_decode_step": wall / steps * 1e3,
+        "plain_ms_per_decode_step": plain_wall / want_steps * 1e3,
+        "guard_armed": eng._guard is not None,
+        "launches": counts,
+        "tokens_equal_unobserved": got == want,
+        "reduced": {"traffic": f"{OBSERVED_SERVE_REQUESTS} requests, prompts "
+                    f"{OBSERVED_SERVE_PROMPT[0]}-{OBSERVED_SERVE_PROMPT[1]} tokens, "
+                    f"{OBSERVED_SERVE_NEW} new each"},
+    })
+    if got != want or any(len(t) != OBSERVED_SERVE_NEW for t in got.values()):
+        raise AssertionError("observed_serve: tokens differ from the unobserved engine's")
+    if calls != steps or steps != want_steps or eng._guard is None or len(eng._guard):
+        raise AssertionError(f"observed_serve: {calls} profiled decode steps of {steps}")
+    if any(c["plain"] for c in counts.values()) or counts["rmsnorm"]["rmsnorm"] != (
+            _norms_per_step(cfg) * steps):
+        raise AssertionError(f"observed_serve went around the kernels: {counts}")
+
+
+def phase_contracts() -> dict:
+    """Each of the eight kernel contracts at every geometry the run
+    launched: its shared memory and threads equal the block the wrapper
+    launched with, its static shared memory the compiled kernel's, all
+    within the card's opt-in shared memory, which is kernelcheck's
+    default budget; then kernelcheck itself."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    by_kernel = {
+        "waterlevel": ("waterlevel.kernel", "waterlevel.kernel-batch"),
+        "wf_fused": ("wf_torch.groups", "wf_torch.batch", "wf_torch.chain"),
+        "rd_step": ("rd.step", "rd_torch.device", "rd_torch.chain"),
+    }
+    checked = {name: [] for names in by_kernel.values() for name in names}
+    launched = [(kernel, {"m": n, "k": 1, "b": 1, "requested": "cuda"}, cfg,
+                 wl.kernel_attributes(kernel == "wf_fused", n))
+                for (kernel, n), cfg in sorted(wl.LAUNCH_CONFIGS.items())]
+    rd_attrs = rdk.kernel_attributes()
+    launched += [("rd_step", {"c": c, "a": a, "m": m, "device": "cuda", "b": 1}, cfg, rd_attrs)
+                 for (c, a, m), cfg in sorted(rdk.LAUNCH_CONFIGS.items())]
+    for kernel, geom, cfg, (static, max_threads) in launched:
+        for name in by_kernel[kernel]:
+            declared = CONTRACTS[name].smem(dict(geom))
+            if (declared != cfg or declared.static_smem != static
+                    or declared.threads > max_threads or declared.smem_bytes > optin):
+                raise AssertionError(f"contracts: {name} at {geom} declares {declared}; the "
+                                     f"launch took {cfg}, the kernel {static} B static, "
+                                     f"{max_threads} threads, opt-in {optin} B")
+            checked[name].append(
+                {k: v for k, v in geom.items() if k in ("m", "c", "a")}
+                | {"smem_bytes": cfg.smem_bytes, "threads": cfg.threads})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rc = kernelcheck.main(["--report", str(Path(tmp) / "KERNELCHECK_TORCH.json"),
+                               "--max-eval", "1"])
+        kc_s = time.perf_counter() - t0
+    emit({
+        "phase": "contracts",
+        "smem_optin_bytes": optin,
+        "kernelcheck_budget_bytes": kernelcheck.DEFAULT_BUDGET_BYTES,
+        "geometries": {name: len(g) for name, g in checked.items()},
+        "largest": {name: max(g, key=lambda x: x["smem_bytes"]) for name, g in checked.items()
+                    if g},
+        "kernelcheck_rc": rc,
+        "kernelcheck_s": kc_s,
+    })
+    if optin != kernelcheck.DEFAULT_BUDGET_BYTES or rc != 0:
+        raise AssertionError(f"contracts: opt-in {optin} B, kernelcheck budget "
+                             f"{kernelcheck.DEFAULT_BUDGET_BYTES} B, kernelcheck exit {rc}")
+    if not all(checked.values()):
+        raise AssertionError(f"contracts: a contract's kernel never launched: "
+                             f"{ {k: len(v) for k, v in checked.items()} }")
+    return {name: len(g) for name, g in checked.items()}
+
+
 def _time_rd_iterations(st0, step, n: int) -> dict:
     """``n`` deletion iterations of ``step`` from clones of ``st0``: CUDA
     events around them (``event_ms``, per iteration), and their device
@@ -2573,7 +3078,19 @@ def main() -> int:
     seconds["plane_serve"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "control_plane_phases", "seconds": seconds,
           "total_s": time.perf_counter() - t0})
-    for extra in (plane, online, exact, plane_serve):
+    # this slice's phases: observability, the CSV replay, MoE routing (the
+    # observed serve and contracts phases run later, timed into new_s)
+    new_s = {}
+    t0 = time.perf_counter()
+    observed = phase_observed_main_path(jobs, slot_runs)
+    new_s["observed_main_path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    csv_replay = phase_csv_replay(args.seed)
+    new_s["csv_replay"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe = phase_moe_balance(args.seed)
+    new_s["moe_balance"] = time.perf_counter() - t0
+    for extra in (plane, online, exact, plane_serve, observed, csv_replay, moe):
         launches["wf_fused"] += extra["launches"]["wf_fused"]
         rd_launches += extra["launches"]["rd_step"]
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity: full fp32
@@ -2584,6 +3101,9 @@ def main() -> int:
                                        SERVE_PROMPT, SERVE_NEW, "serve_main_path")
     phase_decode_profile(params, args.seed)
     prefill_counts = phase_prefill_path(params, args.seed)
+    t0 = time.perf_counter()
+    phase_observed_serve(params, args.seed)
+    new_s["observed_serve"] = time.perf_counter() - t0
     del params
     model_timed = phase_model_timings(args.seed)
     ssm_worst = phase_ssm_kernels(args.seed)
@@ -2600,6 +3120,11 @@ def main() -> int:
         torch.cuda.empty_cache()
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
+    t0 = time.perf_counter()
+    phase_contracts()
+    new_s["contracts"] = time.perf_counter() - t0
+    emit({"phase": "new_phases", "seconds": new_s, "total_s": sum(new_s.values()),
+          "budget_s": 60})
     source = "src/repro_torch/kernels/csrc/waterlevel.cu"
     summary = []
     for name, replaces, shape in (

@@ -12,8 +12,8 @@ only checkable while the system runs:
   reference once made of a live decode-position buffer.
   :class:`BufferGuard` snapshots the buffer at handoff and re-reads the
   device value at the next sync point; any divergence means an in-place
-  mutation leaked through an alias.  (Hooking it into
-  ``ServeEngine(debug=True)`` belongs to a later slice.)
+  mutation leaked through an alias.  ``ServeEngine(debug=True)`` arms
+  one around every decode step.
 
 - **event-heap ordering** (R004's dynamic twin).  The control plane's
   determinism rests on the ``(t, prio, seq)`` heap keys being a *total*

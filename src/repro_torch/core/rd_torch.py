@@ -68,6 +68,14 @@ on the device between jobs; each job has its own slot capacity.  Each
 adapter brings its results to the host once; an overflow re-runs the
 problem (or the whole burst) on the host RD and counts one
 ``host_reruns`` in :data:`COUNTS`.
+
+Under an ambient :mod:`repro_torch.obs` session each adapter call is
+profiled (``device.rd-device`` / ``rd-chain``) after its host read,
+keyed by ``(kind, M, C, A[, B])``; ``host_fallback`` marks an overflow
+re-run and holder rows past the step kernel's ceiling (the counted
+``wide`` route).  The adapters declare the ``rd_torch.*`` geometry
+contracts (the step kernel's block from :func:`repro_torch.kernels.rd.
+launch_config`), verified by ``python -m repro_torch.analysis.kernelcheck``.
 """
 
 from __future__ import annotations
@@ -79,7 +87,9 @@ import numpy as np
 import torch
 
 from .. import backend
+from ..analysis.contracts import Axis, Interval, RangeClaim, choice, contract, span
 from ..kernels import rd as rdk
+from ..obs.session import device_profiler as _obs_device
 from .instance import Assignment, AssignmentProblem
 from .rd import RD_DEVICE_MAX_M, host_commit_walk, replica_deletion
 from .reorder import commit_busy
@@ -349,6 +359,76 @@ def initial_rd_state(
     return _init_state(busy, mu, *slots)
 
 
+# ---------------------------------------------------------------------------
+# kernelcheck geometry contracts (verified by repro_torch.analysis.kernelcheck).
+# The geometry is what the adapter launches at: M servers, C slots (the
+# rd_slot_capacity class), A ids a holder row (the padded group width).
+
+
+def _rd_dispatch(geom: dict) -> str:
+    # past RD_DEVICE_MAX_M (the step kernel's RD_MAX_M) the adapter refuses
+    # and the host rd takes the problem
+    return rdk.rd_route(geom["device"], geom["c"], geom["a"], geom["m"])
+
+
+def _rd_ranges(geom: dict) -> list[RangeClaim]:
+    """The step's claims plus the class hash's int64 words: the XOR of
+    57-bit server words and the group term stay below the free-slot
+    sentinel :data:`~repro_torch.kernels.rd.HASH_FREE`."""
+    claims = rdk.rd_range_claims(geom["m"], geom["a"], geom.get("b", 1))
+    word = Interval(0, _HASH_MASK)
+    claims += [
+        RangeClaim("class hash word (XOR of 57-bit words)", word, dtype="int64"),
+        RangeClaim(
+            "group hash term (grp · mult)",
+            Interval(0, geom["c"]) * _GROUP_MULT,
+            dtype="int64",
+        ),
+        RangeClaim(
+            "free-slot hash sentinel headroom (HASH_FREE - hash)",
+            Interval.const(rdk.HASH_FREE) - word,
+            dtype="int64",
+            positive=True,
+        ),
+    ]
+    return claims
+
+
+def _rd_sig(kind: str, m: int, c: int, a: int, b: int | None = None) -> tuple:
+    sig = (kind, m, c, a)
+    return sig if b is None else sig + (b,)
+
+
+_RD_AXES = (
+    span("m", 2, RD_DEVICE_MAX_M, boundaries=(rdk.MIN_LANES, 4096, RD_DEVICE_MAX_M),
+         past=(RD_DEVICE_MAX_M + 1, 1 << 16)),
+    Axis("c", (rdk.MIN_LANES, 1024, 4096, rdk.RD_MAX_C)),
+    Axis("a", (2, 4, 16, rdk.RD_MAX_ROW_IDS, 2 * rdk.RD_MAX_ROW_IDS)),
+    choice("device", "cuda", "cpu"),
+)
+
+
+def _rd_abstract(geom: dict):
+    return rdk.rd_step, (rdk.zero_state(geom["c"], geom["a"], geom["m"]), False)
+
+
+@contract(
+    "rd_torch.device",
+    axes=_RD_AXES,
+    backends=("kernel", "wide", "plain", "host"),
+    device_backends=("kernel",),
+    dispatch=_rd_dispatch,
+    smem=lambda geom: rdk.launch_config(geom["c"], geom["m"]),
+    ranges=_rd_ranges,
+    signature=lambda geom: _rd_sig("rd-device", geom["m"], geom["c"], geom["a"]),
+    max_signatures=256,  # m lattice points × slot classes × row widths
+    abstract=_rd_abstract,
+    eval_points=2,
+    notes="single-problem device RD: one step launch a loop iteration; "
+    "more than RD_DEVICE_MAX_M servers route to the host rd, a slot "
+    "overflow re-runs on the host at run time, rows past 64 ids take the "
+    "plain iteration on the card",
+)
 def replica_deletion_torch(problem: AssignmentProblem) -> Assignment:
     """Host-facing RD with its iterations on the device (registered as
     ``"rd_torch"``); the same assignment as the host
@@ -360,8 +440,13 @@ def replica_deletion_torch(problem: AssignmentProblem) -> Assignment:
         result = Assignment(alloc=[], phi=0)
         result.phi = result.realized_phi(problem)
         return result
+    prof = _obs_device()
+    t0 = prof.start() if prof is not None else 0.0
     st = run_rd(initial_rd_state(problem))
     parts, headroom = _split(_result(st).cpu().numpy())
+    if prof is not None:  # past the host read; sig = the kernelcheck key
+        sig = _rd_sig("rd-device", problem.n_servers, st.c_slots, st.row_ids)
+        prof.record("rd-device", sig, t0, fallback=headroom < 0 or st.route == "wide")
     if headroom < 0:
         COUNTS["host_reruns"] += 1
         return replica_deletion(problem)
@@ -370,6 +455,22 @@ def replica_deletion_torch(problem: AssignmentProblem) -> Assignment:
     return _decode(problem, *parts)
 
 
+@contract(
+    "rd_torch.chain",
+    axes=(*_RD_AXES, choice("b", 1, 2, 7, 32, rdk.RD_ENV_CHAIN_JOBS_MAX)),
+    backends=("kernel", "wide", "plain", "host"),
+    device_backends=("kernel",),
+    dispatch=_rd_dispatch,
+    smem=lambda geom: rdk.launch_config(geom["c"], geom["m"]),
+    ranges=_rd_ranges,
+    signature=lambda geom: _rd_sig("rd-chain", geom["m"], geom["c"], geom["a"], geom["b"]),
+    max_signatures=1280,  # × burst lengths
+    abstract=_rd_abstract,
+    eval_points=2,
+    notes="same-slot RD burst: the jobs one after another on the device, "
+    "eq. 2 committed between them; an overflow of any job re-walks the "
+    "whole burst on the host",
+)
 def replica_deletion_torch_chain(
     problems: list[AssignmentProblem],
 ) -> list[Assignment]:
@@ -398,13 +499,21 @@ def replica_deletion_torch_chain(
             "chained RD requires every problem to carry the same pre-burst "
             "busy vector (eq. 2 is committed inside the chain)"
         )
+    prof = _obs_device()
+    t0 = prof.start() if prof is not None else 0.0
     (busy,) = _to_device(_i32(base))
     outs = []
+    c_max, a_max, wide = 0, 0, False
     for p in problems:
         st = run_rd(initial_rd_state(p, busy))
+        c_max, a_max = max(c_max, st.c_slots), max(a_max, st.row_ids)
+        wide |= st.route == "wide"
         if int(st.headroom) < 0:
             # an overflowed job corrupts every later job's busy carry:
             # walk the burst on the host (identical assignments)
+            if prof is not None:
+                sig = _rd_sig("rd-chain", m, c_max, a_max, len(problems))
+                prof.record("rd-chain", sig, t0, fallback=True)
             COUNTS["host_reruns"] += 1
             return host_commit_walk(problems)
         loads = torch.zeros(m + 1, dtype=I32, device=busy.device)
@@ -413,6 +522,9 @@ def replica_deletion_torch_chain(
         busy = busy + torch.where(loads > 0, _ceil_div(loads, st.mu), 0)  # eq. 2
         outs.append(_result(st))
     flat = torch.cat(outs).cpu().numpy()
+    if prof is not None:  # past the host read; sig = the kernelcheck key
+        sig = _rd_sig("rd-chain", m, c_max, a_max, len(problems))
+        prof.record("rd-chain", sig, t0, fallback=wide)
     busy_h = np.asarray(base)
     out: list[Assignment] = []
     at = 0

@@ -19,6 +19,14 @@ reference.  Each adapter brings its result to the host once.  Unlike the
 reference, K and B are not padded to powers of two: that padding only
 bounds a jit cache, and padded steps are no-ops.  ``CALLS`` counts the
 adapter calls that reach the device.
+
+Under an ambient :mod:`repro_torch.obs` session each adapter call is
+profiled (``device.wf-groups`` / ``wf-batch`` / ``wf-chain``) after its
+one host read, keyed by the kernelcheck signature of the variant it
+reaches: ``(kind, lanes, K, route[, B])``.  The adapters declare the
+``wf_torch.*`` geometry contracts (the fused kernel's block from
+:func:`repro_torch.kernels.waterlevel.launch_config`), verified by
+``python -m repro_torch.analysis.kernelcheck``.
 """
 
 from __future__ import annotations
@@ -27,7 +35,9 @@ import numpy as np
 import torch
 
 from .. import backend
+from ..analysis.contracts import Interval, RangeClaim, choice, contract, span
 from ..kernels import waterlevel as wl
+from ..obs.session import device_profiler as _obs_device
 from .instance import Assignment, AssignmentProblem
 
 __all__ = [
@@ -232,6 +242,77 @@ def _to_device(*arrays: np.ndarray) -> list[torch.Tensor]:
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
+# ---------------------------------------------------------------------------
+# kernelcheck geometry contracts (verified by repro_torch.analysis.kernelcheck)
+
+
+def _wf_sig(kind: str, m: int, k: int, route: str, b: int | None = None) -> tuple:
+    """The variant an adapter call reaches: the fused kernel's lane class
+    on the ``cuda`` route (the unpadded width on ``torch``), K, the route,
+    and B for the batch and the chain; the profiler's and the contracts'
+    key."""
+    lanes = wl.n_lanes_for(m) if route == "cuda" else m
+    sig = (kind, lanes, k, route)
+    return sig if b is None else sig + (b,)
+
+
+def _wf_dispatch(geom: dict) -> str:
+    return wl.resolve_waterlevel(geom["requested"], geom["m"])
+
+
+def _wf_ranges(geom: dict) -> list:
+    """The kernel's claims plus the adapter-level carry claims: evolved
+    levels stay within the busy envelope (eq. 10 max / eq. 2 commit) and
+    the burst preserves the kernel's Σ busy·μ precondition."""
+    m = geom["m"]
+    claims = wl.wl_range_claims(m)
+    claims.append(
+        RangeClaim(
+            "eq. 10 / eq. 2 busy carry (levels fed back as busy)",
+            Interval(0, wl.WL_BUSY0_MAX + wl.WL_TOTAL_DEMAND_MAX),
+            bound=wl.WL_LEVEL_MAX,
+        )
+    )
+    claims.append(
+        RangeClaim(
+            "Σ busy·μ preserved across the burst (kernel precondition)",
+            Interval(
+                0,
+                wl.WL_BUSY0_MAX * wl.WL_MU_MAX * m
+                + wl.WL_TOTAL_DEMAND_MAX
+                + m * wl.WL_MU_MAX,
+            ),
+            bound=wl.WL_SUM_BMU_MAX,
+        )
+    )
+    return claims
+
+
+def _wf_signature(geom: dict, kind: str) -> tuple:
+    return _wf_sig(kind, geom["m"], geom["k"], _wf_dispatch(geom), geom.get("b"))
+
+
+def _wf_abstract(geom: dict, kind: str):
+    """Zero-filled CPU inputs through the fused kernel's wrapper (its
+    checks, then its plain loop)."""
+    m, k = geom["m"], geom["k"]
+    rows = geom.get("b", 1)
+    i32 = torch.int32
+    mu = torch.ones((rows, m), dtype=i32)
+    masks = torch.zeros((rows, k, m), dtype=torch.bool)
+    demands = torch.zeros((rows, k), dtype=i32)
+    if kind == "wf-chain":
+        return wl.wf_chain, (torch.zeros(m, dtype=i32), mu, masks, demands)
+    return wl.wf_groups, (torch.zeros((rows, m), dtype=i32), mu, masks, demands)
+
+
+_ROUTES = choice("requested", "auto", "torch", "cuda")
+
+
+def _fused_smem(geom: dict):
+    return wl.launch_config(wl.n_lanes_for(geom["m"]), fused=True)
+
+
 def _fetch(alloc: torch.Tensor, phi: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """One device→host transfer for both results."""
     flat = torch.cat([alloc.reshape(-1), phi.reshape(-1)]).cpu().numpy()
@@ -239,6 +320,31 @@ def _fetch(alloc: torch.Tensor, phi: torch.Tensor) -> tuple[np.ndarray, np.ndarr
     return flat[:n].reshape(alloc.shape), flat[n:]
 
 
+@contract(
+    "wf_torch.groups",
+    axes=(
+        span(
+            "m",
+            1,
+            wl.WL_M_MAX,
+            boundaries=(wl.LANES, wl.FUSED_SMEM_MAX_LANES, wl.MAX_LANES),
+        ),
+        choice("k", 1, 3, 16, 128),
+        _ROUTES,
+    ),
+    backends=("cuda", "torch"),
+    device_backends=("cuda",),
+    dispatch=_wf_dispatch,
+    smem=_fused_smem,
+    ranges=_wf_ranges,
+    signature=lambda geom: _wf_signature(geom, "wf-groups"),
+    max_signatures=32,  # fused lane classes × K
+    abstract=lambda geom: _wf_abstract(geom, "wf-groups"),
+    eval_points=4,
+    notes="K-group scan adapter: one fused launch a call; rows past 8,192 "
+    "lanes run on the L2 scratch, widths past MAX_LANES take the torch "
+    "route (admissible, no past probes needed)",
+)
 def water_filling_torch(
     problem: AssignmentProblem, *, impl: str | None = None
 ) -> Assignment:
@@ -248,14 +354,39 @@ def water_filling_torch(
     if not problem.groups:
         return Assignment(alloc=[], phi=0)  # parity with host water_filling
     CALLS["adapter"] += 1
-    busy, mu, masks, demands = _dense_inputs([problem], len(problem.groups))
+    k = len(problem.groups)
+    busy, mu, masks, demands = _dense_inputs([problem], k)
+    prof = _obs_device()
+    t0 = prof.start() if prof is not None else 0.0
     alloc, _, phi = water_fill_groups(
         *_to_device(busy[0], mu[0], masks[0], demands[0]), impl=impl
     )
     alloc, phi = _fetch(alloc, phi)
+    if prof is not None:  # past the host read; sig = the kernelcheck key
+        m = problem.n_servers
+        prof.record("wf-groups", _wf_sig("wf-groups", m, k, wl.resolve_waterlevel(impl, m)), t0)
     return _to_assignment(problem, alloc, int(phi[0]))
 
 
+@contract(
+    "wf_torch.batch",
+    axes=(
+        choice("m", 1, 128, 4096, wl.FUSED_SMEM_MAX_LANES, wl.MAX_LANES, wl.WL_M_MAX),
+        choice("k", 1, 16),
+        choice("b", 1, 2, 7, 32),
+        _ROUTES,
+    ),
+    backends=("cuda", "torch"),
+    device_backends=("cuda",),
+    dispatch=_wf_dispatch,
+    smem=_fused_smem,  # one block a problem, each with its row
+    ranges=_wf_ranges,
+    signature=lambda geom: _wf_signature(geom, "wf-batch"),
+    max_signatures=48,
+    abstract=lambda geom: _wf_abstract(geom, "wf-batch"),
+    eval_points=3,
+    notes="independent-problems batch: one fused launch over B blocks",
+)
 def water_filling_torch_batch(
     problems: list[AssignmentProblem], *, impl: str | None = None
 ) -> list[Assignment]:
@@ -269,13 +400,39 @@ def water_filling_torch_batch(
     k = max(len(p.groups) for p in problems)
     busy, mu, masks, demands = _dense_inputs(problems, k)
     CALLS["adapter"] += 1
+    prof = _obs_device()
+    t0 = prof.start() if prof is not None else 0.0
     alloc, _, phi = water_fill_batch(*_to_device(busy, mu, masks, demands), impl=impl)
     alloc, phi = _fetch(alloc, phi)
+    if prof is not None:  # past the host read; sig = the kernelcheck key
+        route = wl.resolve_waterlevel(impl, m)
+        prof.record("wf-batch", _wf_sig("wf-batch", m, k, route, len(problems)), t0)
     return [
         _to_assignment(p, alloc[i], int(phi[i])) for i, p in enumerate(problems)
     ]
 
 
+@contract(
+    "wf_torch.chain",
+    axes=(
+        choice("m", 1, 128, wl.FUSED_SMEM_MAX_LANES, wl.MAX_LANES, wl.WL_M_MAX),
+        choice("k", 1, 16),
+        choice("b", 1, 2, 7, 32, 64),
+        _ROUTES,
+    ),
+    backends=("cuda", "torch"),
+    device_backends=("cuda",),
+    dispatch=_wf_dispatch,
+    smem=_fused_smem,  # one block walks the burst
+    ranges=_wf_ranges,
+    signature=lambda geom: _wf_signature(geom, "wf-chain"),
+    max_signatures=48,
+    abstract=lambda geom: _wf_abstract(geom, "wf-chain"),
+    eval_points=3,
+    notes="same-slot burst chain: one fused launch, one block, eq. 2 "
+    "committed between jobs in shared memory (on the L2 scratch past "
+    "8,192 lanes)",
+)
 def water_filling_torch_chain(
     problems: list[AssignmentProblem], *, impl: str | None = None
 ) -> list[Assignment]:
@@ -307,10 +464,15 @@ def water_filling_torch_chain(
     k = max(len(p.groups) for p in problems)
     busy, mu, masks, demands = _dense_inputs(problems, k)
     CALLS["adapter"] += 1
+    prof = _obs_device()
+    t0 = prof.start() if prof is not None else 0.0
     alloc, phi, _ = water_fill_chain(
         *_to_device(busy[0], mu, masks, demands), impl=impl
     )
     alloc, phi = _fetch(alloc, phi)
+    if prof is not None:  # past the host read; sig = the kernelcheck key
+        route = wl.resolve_waterlevel(impl, m)
+        prof.record("wf-chain", _wf_sig("wf-chain", m, k, route, len(problems)), t0)
     return [
         _to_assignment(p, alloc[i], int(phi[i])) for i, p in enumerate(problems)
     ]

@@ -532,17 +532,22 @@ struct DeviceConfig {
 
 }  // namespace
 
-// Launch one iteration on `stream` (dedup != 0: the dedup loop's).
-// Returns cudaGetLastError() after the launch (0 on success); nothing here
+// Launch one iteration on `stream` (dedup != 0: the dedup loop's) with
+// `threads` threads and `smem_bytes` of dynamic shared memory, as the
+// wrapper's launch_config (kernels/rd.py) gives them: kThreads, and the
+// peek counts (M + 1 ints) or the candidates' keys and slots (12 bytes a
+// slot), whichever is larger, rounded up to 16 bytes.  Returns
+// cudaGetLastError() after the launch (0 on success); nothing here
 // synchronises.
 extern "C" int rd_step_launch(void* holders, void* size, void* cnt, void* grp,
                               void* hash, void* load, void* multi,
                               void* busy_est, const void* busy0, const void* mu,
                               const void* words, void* targets0, void* flags,
                               void* scratch, int C, int A, int M, int dedup,
-                              void* stream) {
+                              int smem_bytes, int threads, void* stream) {
   if (C < kMinSlots || C > kMaxSlots || (C & (C - 1)) != 0 || A < 2 ||
-      A > kMaxRowIds || (A & (A - 1)) != 0 || M < 1 || M > kMaxServers) {
+      A > kMaxRowIds || (A & (A - 1)) != 0 || M < 1 || M > kMaxServers ||
+      threads != kThreads) {
     return (int)cudaErrorInvalidValue;
   }
   static DeviceConfig configs[kMaxDevices];
@@ -561,17 +566,18 @@ extern "C" int rd_step_launch(void* holders, void* size, void* cnt, void* grp,
     if (err != cudaSuccess) return (int)err;
     cfg.configured = true;
   }
-  // peek counts (M + 1 ints) while picking, then the candidates' keys and
-  // slots (12 bytes a slot)
+  // the layout needs the peek counts (M + 1 ints) while picking, then the
+  // candidates' keys and slots (12 bytes a slot)
   const size_t peek = (size_t)(M + 1) * sizeof(int);
   const size_t cands = (size_t)12 * C;
-  const size_t smem = ((peek > cands ? peek : cands) + 15) & ~(size_t)15;
-  if (smem > (size_t)(cfg.smem_optin - kStaticSmemMargin)) {
+  const size_t smem = (size_t)(smem_bytes > 0 ? smem_bytes : 0);
+  if (smem < (peek > cands ? peek : cands) ||
+      smem > (size_t)(cfg.smem_optin - kStaticSmemMargin)) {
     return (int)cudaErrorInvalidValue;
   }
   int logA = 0;
   while ((1 << logA) < A) ++logA;
-  rd_step_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  rd_step_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(holders), static_cast<int*>(size),
       static_cast<int*>(cnt), static_cast<int*>(grp),
       static_cast<long long*>(hash), static_cast<int*>(load),
@@ -581,4 +587,15 @@ extern "C" int rd_step_launch(void* holders, void* size, void* cnt, void* grp,
       static_cast<unsigned char*>(targets0), static_cast<int*>(flags),
       static_cast<int*>(scratch), C, A, logA, M, dedup);
   return (int)cudaGetLastError();
+}
+
+// The compiled kernel's static shared memory and thread limit.  Returns 0
+// or the CUDA error.
+extern "C" int rd_step_kernel_attributes(int* static_smem, int* max_threads) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, rd_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *static_smem = (int)a.sharedSizeBytes;
+  *max_threads = a.maxThreadsPerBlock;
+  return 0;
 }

@@ -54,7 +54,10 @@
 // them, so its positions add nothing to find (6 barriers a step, against
 // about 15 for the full-row step).
 //
-// Memory: a row's sorted keys (8 B) and w (4 B) live in dynamic shared
+// Memory: a block's threads and dynamic shared memory come from the
+// wrapper (launch_config in kernels/waterlevel.py, which the kernel
+// contracts read too); the launchers check them against the layout
+// below.  A row's sorted keys (8 B) and w (4 B) live in dynamic shared
 // memory up to 16384 lanes for K1; the fused kernel adds the busy vector
 // being raised, the committed busy vector and the chain's loads, in
 // shared memory up to 8192 lanes.  Wider rows run the same code on a
@@ -653,18 +656,19 @@ wf_fused_kernel(const int* __restrict__ busy_in, const int* __restrict__ mu,
   }
 }
 
-// Raise the kernel's dynamic shared-memory ceiling once per device.
+// Raise the kernel's dynamic shared-memory ceiling to `bytes` on the
+// current device, where it is lower.
 template <typename Kernel>
-cudaError_t configure_smem(Kernel kernel, bool* configured, size_t bytes) {
+cudaError_t configure_smem(Kernel kernel, size_t* configured, size_t bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
+  if (configured[dev] < bytes) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)bytes);
     if (err != cudaSuccess) return err;
-    configured[dev] = true;
+    configured[dev] = bytes;
   }
   return cudaSuccess;
 }
@@ -673,21 +677,37 @@ bool valid_width(int n) {
   return n >= kMinLanes && n <= kMaxLanes && (n & (n - 1)) == 0;
 }
 
-int threads_for(int n) { return n / 2 < kMaxThreads ? n / 2 : kMaxThreads; }
+// The block the wrapper passes (kernels/waterlevel.py launch_config): a
+// whole number of warps, at most kMaxThreads, each thread owning a
+// power of two of 2-32 consecutive lanes.
+bool valid_block(int n, int threads) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || n % threads != 0) {
+    return false;
+  }
+  const int per = n / threads;
+  return per >= 2 && per <= 32 && (per & (per - 1)) == 0;
+}
+
+// Shared memory as the wrapper passes it: the row buffers, at least
+// row_bytes(n, fused), up to the kernel's shared-memory width; 0 above
+// it, where the rows run on the scratch.
+cudaError_t check_smem(size_t smem, int n, bool fused, const void* scratch) {
+  const int cap = fused ? kFusedSmemMaxLanes : kSmemMaxLanes;
+  if (n <= cap) return smem >= row_bytes(n, fused) ? cudaSuccess : cudaErrorInvalidValue;
+  return smem == 0 && scratch != nullptr ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 template <int PER>
 int launch_waterlevel(const int* b, const int* w, const int* demand, int* level, int* take,
-                      int* idx, void* scratch, int batch, int n, cudaStream_t st) {
-  size_t smem = 0;
-  if (n <= kSmemMaxLanes) {
-    static bool configured[kMaxDevices] = {};
-    const cudaError_t err =
-        configure_smem(waterlevel_kernel<PER>, configured, row_bytes(kSmemMaxLanes, false));
+                      int* idx, void* scratch, int batch, int n, size_t smem,
+                      cudaStream_t st) {
+  cudaError_t err = check_smem(smem, n, false, scratch);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 0) {
+    static size_t configured[kMaxDevices] = {};
+    err = configure_smem(waterlevel_kernel<PER>, configured, smem);
     if (err != cudaSuccess) return (int)err;
-    smem = row_bytes(n, false);
     scratch = nullptr;
-  } else if (scratch == nullptr) {
-    return (int)cudaErrorInvalidValue;
   }
   waterlevel_kernel<PER><<<batch, n / PER, smem, st>>>(
       b, w, demand, level, take, idx, static_cast<unsigned char*>(scratch), n);
@@ -698,22 +718,29 @@ template <int PER>
 int launch_fused(const int* busy, const int* mu, const unsigned char* masks,
                  const int* demands, int* alloc, int* levels, int* phi, int* busy_out,
                  unsigned char* scratch, int rows, int jobs, int k_groups, int m, int n,
-                 int chain, cudaStream_t st) {
-  size_t smem = 0;
-  if (n <= kFusedSmemMaxLanes) {
-    static bool configured[kMaxDevices] = {};
-    const cudaError_t err = configure_smem(wf_fused_kernel<PER>, configured,
-                                           row_bytes(kFusedSmemMaxLanes, true));
+                 int chain, size_t smem, cudaStream_t st) {
+  cudaError_t err = check_smem(smem, n, true, scratch);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 0) {
+    static size_t configured[kMaxDevices] = {};
+    err = configure_smem(wf_fused_kernel<PER>, configured, smem);
     if (err != cudaSuccess) return (int)err;
-    smem = row_bytes(n, true);
     scratch = nullptr;
-  } else if (scratch == nullptr) {
-    return (int)cudaErrorInvalidValue;
   }
   wf_fused_kernel<PER><<<rows, n / PER, smem, st>>>(busy, mu, masks, demands, alloc, levels,
                                                      phi, busy_out, scratch, m, n, k_groups,
                                                      jobs, chain);
   return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int attributes_of(Kernel kernel, int* static_smem, int* max_threads) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  *static_smem = (int)a.sharedSizeBytes;
+  *max_threads = a.maxThreadsPerBlock;
+  return 0;
 }
 
 }  // namespace
@@ -726,15 +753,21 @@ extern "C" long long waterlevel_scratch_bytes(int rows, int n_lanes, int fused) 
   return n_lanes <= cap ? 0 : (long long)rows * (long long)row_bytes(n_lanes, fused != 0);
 }
 
-// K1/K2.  Launch on `stream`.  `scratch` must hold
-// waterlevel_scratch_bytes(batch, n_lanes, 0) bytes.  Returns
-// cudaGetLastError() after the launch (0 on success); nothing here
-// synchronises.
+// K1/K2.  Launch on `stream` with `threads` threads and `smem_bytes` of
+// dynamic shared memory a block, as the wrapper's launch_config gives
+// them.  `scratch` must hold waterlevel_scratch_bytes(batch, n_lanes, 0)
+// bytes.  Returns cudaGetLastError() after the launch (0 on success);
+// nothing here synchronises.
 extern "C" int waterlevel_launch(const void* b, const void* w,
                                  const void* demand, void* level, void* take,
                                  void* idx, void* scratch, int batch,
-                                 int n_lanes, void* stream) {
-  if (batch < 1 || !valid_width(n_lanes)) return (int)cudaErrorInvalidValue;
+                                 int n_lanes, int smem_bytes, int threads,
+                                 void* stream) {
+  if (batch < 1 || !valid_width(n_lanes) || !valid_block(n_lanes, threads) ||
+      smem_bytes < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)smem_bytes;
   const int* bp = static_cast<const int*>(b);
   const int* wp = static_cast<const int*>(w);
   const int* dp = static_cast<const int*>(demand);
@@ -744,12 +777,17 @@ extern "C" int waterlevel_launch(const void* b, const void* w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // lanes per thread: a compile-time count, so that the per-lane loops
   // unroll and their loads are in flight together
-  switch (n_lanes / threads_for(n_lanes)) {
-    case 2: return launch_waterlevel<2>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, st);
-    case 4: return launch_waterlevel<4>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, st);
-    case 8: return launch_waterlevel<8>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, st);
-    case 16: return launch_waterlevel<16>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, st);
-    case 32: return launch_waterlevel<32>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, st);
+  switch (n_lanes / threads) {
+    case 2:
+      return launch_waterlevel<2>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, smem, st);
+    case 4:
+      return launch_waterlevel<4>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, smem, st);
+    case 8:
+      return launch_waterlevel<8>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, smem, st);
+    case 16:
+      return launch_waterlevel<16>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, smem, st);
+    case 32:
+      return launch_waterlevel<32>(bp, wp, dp, lp, tp, ip, scratch, batch, n_lanes, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -759,17 +797,21 @@ extern "C" int waterlevel_launch(const void* b, const void* w,
 // = rows (groups mode, chain = 0, jobs = 1) or P = jobs (chain mode, chain
 // = 1, rows = 1); writes alloc (P, K, m), levels (P, K), phi (P,) and, in
 // chain mode, busy_out (m,).  n_lanes is the padded power-of-two width of
-// m.  `scratch` must hold waterlevel_scratch_bytes(rows, n_lanes, 1)
-// bytes.  Returns cudaGetLastError() after the launch.
+// m.  `threads` and `smem_bytes` (dynamic shared memory a block) are the
+// wrapper's launch_config.  `scratch` must hold
+// waterlevel_scratch_bytes(rows, n_lanes, 1) bytes.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int wf_fused_launch(const void* busy, const void* mu, const void* masks,
                                const void* demands, void* alloc, void* levels, void* phi,
                                void* busy_out, void* scratch, int rows, int jobs,
-                               int k_groups, int m, int n_lanes, int chain, void* stream) {
+                               int k_groups, int m, int n_lanes, int chain, int smem_bytes,
+                               int threads, void* stream) {
   if (rows < 1 || jobs < 1 || k_groups < 1 || m < 1 || m > n_lanes ||
-      !valid_width(n_lanes) || (chain && (rows != 1 || busy_out == nullptr)) ||
-      (!chain && jobs != 1)) {
+      !valid_width(n_lanes) || !valid_block(n_lanes, threads) || smem_bytes < 0 ||
+      (chain && (rows != 1 || busy_out == nullptr)) || (!chain && jobs != 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const size_t smem = (size_t)smem_bytes;
   const int* bu = static_cast<const int*>(busy);
   const int* mp = static_cast<const int*>(mu);
   const unsigned char* mk = static_cast<const unsigned char*>(masks);
@@ -780,22 +822,48 @@ extern "C" int wf_fused_launch(const void* busy, const void* mu, const void* mas
   int* bo = static_cast<int*>(busy_out);
   unsigned char* sc = static_cast<unsigned char*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (n_lanes / threads_for(n_lanes)) {
+  switch (n_lanes / threads) {
     case 2:
       return launch_fused<2>(bu, mp, mk, dm, al, lv, ph, bo, sc, rows, jobs, k_groups, m,
-                             n_lanes, chain, st);
+                             n_lanes, chain, smem, st);
     case 4:
       return launch_fused<4>(bu, mp, mk, dm, al, lv, ph, bo, sc, rows, jobs, k_groups, m,
-                             n_lanes, chain, st);
+                             n_lanes, chain, smem, st);
     case 8:
       return launch_fused<8>(bu, mp, mk, dm, al, lv, ph, bo, sc, rows, jobs, k_groups, m,
-                             n_lanes, chain, st);
+                             n_lanes, chain, smem, st);
     case 16:
       return launch_fused<16>(bu, mp, mk, dm, al, lv, ph, bo, sc, rows, jobs, k_groups, m,
-                              n_lanes, chain, st);
+                              n_lanes, chain, smem, st);
     case 32:
       return launch_fused<32>(bu, mp, mk, dm, al, lv, ph, bo, sc, rows, jobs, k_groups, m,
-                              n_lanes, chain, st);
+                              n_lanes, chain, smem, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The compiled kernel's static shared memory and thread limit, for the
+// variant with `per` lanes a thread (fused != 0: the fused water-filling
+// kernel, else K1/K2).  Returns 0 or the CUDA error.
+extern "C" int waterlevel_kernel_attributes(int fused, int per, int* static_smem,
+                                            int* max_threads) {
+  switch (per) {
+    case 2:
+      return fused ? attributes_of(wf_fused_kernel<2>, static_smem, max_threads)
+                   : attributes_of(waterlevel_kernel<2>, static_smem, max_threads);
+    case 4:
+      return fused ? attributes_of(wf_fused_kernel<4>, static_smem, max_threads)
+                   : attributes_of(waterlevel_kernel<4>, static_smem, max_threads);
+    case 8:
+      return fused ? attributes_of(wf_fused_kernel<8>, static_smem, max_threads)
+                   : attributes_of(waterlevel_kernel<8>, static_smem, max_threads);
+    case 16:
+      return fused ? attributes_of(wf_fused_kernel<16>, static_smem, max_threads)
+                   : attributes_of(waterlevel_kernel<16>, static_smem, max_threads);
+    case 32:
+      return fused ? attributes_of(wf_fused_kernel<32>, static_smem, max_threads)
+                   : attributes_of(waterlevel_kernel<32>, static_smem, max_threads);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -42,10 +42,19 @@ One iteration, as both versions here carry it out:
   of :func:`resolve_rd_step`).
 - :func:`rd_step_plain` is the same iteration in plain PyTorch.
 
+A launch's threads and dynamic shared memory come from
+:func:`launch_config`, the one formula the launcher passes to the launch
+and the ``rd.step`` contract below (and the ``rd_torch.*`` contracts of
+:mod:`repro_torch.core.rd_torch`) declare, verified without a card by
+``python -m repro_torch.analysis.kernelcheck``.
+
 ``COUNTS`` holds plain integers: ``rd_step`` counts kernel launches,
 ``plain`` counts iterations of the plain version, and ``wide`` the
 plain iterations the rule sent past the kernel's row ceiling on the
-card.  :func:`reset_counts` zeroes them.
+card.  :func:`reset_counts` zeroes them.  ``LAUNCH_CONFIGS`` maps each
+``(C, A, M)`` launched since the process started (or since the caller
+cleared it) to the :class:`~repro_torch.analysis.contracts.BlockConfig`
+it was launched with.
 """
 
 from __future__ import annotations
@@ -56,17 +65,21 @@ import functools
 
 import torch
 
+from ..analysis.contracts import Axis, BlockConfig, Interval, RangeClaim, contract, span
 from . import _build
 
 __all__ = [
     "BIG",
     "COUNTS",
     "HASH_FREE",
+    "LAUNCH_CONFIGS",
     "MIN_LANES",
     "RD_MAX_C",
     "RD_MAX_M",
     "RD_MAX_ROW_IDS",
     "RDState",
+    "kernel_attributes",
+    "launch_config",
     "rd_step",
     "rd_step_plain",
     "rd_strip_takes_plain",
@@ -87,11 +100,44 @@ RD_MAX_M = (1 << 15) - 1
 HASH_FREE = (1 << 63) - 1  # sorts after every class hash (57-bit words)
 
 COUNTS = {"rd_step": 0, "plain": 0, "wide": 0}
+# (C, A, M) -> the block the step kernel launched with
+LAUNCH_CONFIGS: dict[tuple[int, int, int], BlockConfig] = {}
+
+RD_THREADS = 1024  # csrc/rd_step.cu's kThreads: one block of 32 warps
+# the kernel's static shared memory: csrc/rd_step.cu's Scalars (per-warp
+# 64- and 32-bit reductions and scan totals, four counts; 528 bytes),
+# held against the compiled kernel's attributes by chip_smoke.py
+RD_STATIC_SMEM = 528
 
 
 def reset_counts() -> None:
     for key in COUNTS:
         COUNTS[key] = 0
+
+
+def launch_config(c_slots: int, m_servers: int) -> BlockConfig:
+    """The block one RD iteration launches with: :data:`RD_THREADS`
+    threads, and as dynamic shared memory the peek counts (M + 1 ints)
+    or the candidates' 64-bit keys and slots (12 bytes a slot), whichever
+    is larger, rounded up to 16 bytes.  The launcher passes these to the
+    launch, and the kernel contracts declare them."""
+    need = max(4 * (m_servers + 1), 12 * c_slots)
+    return BlockConfig(
+        static_smem=RD_STATIC_SMEM, dynamic_smem=(need + 15) & ~15, threads=RD_THREADS
+    )
+
+
+def kernel_attributes() -> tuple[int, int]:
+    """(static shared memory, max threads a block) of the compiled step
+    kernel; needs the card."""
+    fn = _build.library("rd_step").rd_step_kernel_attributes
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    static, threads = ctypes.c_int(), ctypes.c_int()
+    err = fn(ctypes.byref(static), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {err}")
+    return static.value, threads.value
 
 
 def resolve_rd_step(device_type: str, row_ids: int) -> str:
@@ -396,6 +442,88 @@ def rd_step_plain(st: RDState, dedup: bool) -> None:
         st.stop.copy_(done | (st.headroom < 0))
 
 
+# ---- the kernel contract -------------------------------------------------------
+#
+# kernelcheck geometry contract (verified by repro_torch.analysis.kernelcheck).
+# The admissible input envelope is the reference's (repro/core/rd_jax.py
+# RD_ENV_*): replica counts from per-task holder sets, member counts
+# summing to at most RD_ENV_TASKS_MAX per job, busy times up to
+# RD_ENV_BUSY0_MAX, μ up to RD_ENV_MU_MAX, bursts up to
+# RD_ENV_CHAIN_JOBS_MAX jobs.
+
+RD_ENV_BUSY0_MAX = 1 << 20  # pre-burst busy time per server
+RD_ENV_TASKS_MAX = 1 << 20  # tasks per job
+RD_ENV_MU_MAX = 1 << 4  # per-server tasks/slot (μ)
+RD_ENV_CHAIN_JOBS_MAX = 64  # jobs per chained same-slot burst
+
+
+def rd_route(device_type: str, c_slots: int, row_ids: int, m_servers: int) -> str:
+    """The route of an iteration at a geometry: :func:`resolve_rd_step`'s
+    ``kernel`` / ``wide`` / ``plain``, or ``host`` past the slot or server
+    ceilings — the adapters never launch there: the slot capacity is
+    capped at :data:`RD_MAX_C` (an overflow re-runs the problem on the
+    host rd) and ``rd_torch`` refuses more than :data:`RD_MAX_M`
+    servers."""
+    if c_slots > RD_MAX_C or m_servers > RD_MAX_M:
+        return "host"
+    return resolve_rd_step(device_type, row_ids)
+
+
+def rd_range_claims(m_servers: int, row_ids: int, chain_jobs: int = 1) -> list[RangeClaim]:
+    """The iteration's int32 claims over the envelope: holder ids and the
+    pad id, the 64-bit candidate key's two 32-bit words, the quota walk,
+    the per-server scatters and the eq. 2 carry of a chain."""
+    server_id = Interval(0, m_servers)  # holder ids, pad id = M
+    neg_count = Interval(-row_ids, 0)
+    tasks = Interval(0, RD_ENV_TASKS_MAX)
+    busy0 = Interval(0, RD_ENV_BUSY0_MAX)
+    # eq. 2 carry: each admitted job raises a server's busy estimate by
+    # at most ⌈load/μ⌉ ≤ load ≤ its task total
+    busy_est = busy0 + Interval(0, chain_jobs) * tasks
+    return [
+        RangeClaim("holder id field (pad id = M)", server_id, bits=15),
+        RangeClaim("candidate key high word (-count)", neg_count),
+        RangeClaim(
+            "non-candidate sentinel headroom (BIG - max real -count)",
+            Interval.const(BIG) - neg_count,
+            positive=True,
+        ),
+        RangeClaim("candidate key low word (alt: busy or BIG)", Interval(0, BIG)),
+        RangeClaim("member-count prefix sum", tasks),
+        RangeClaim("quota clamp (quota - prev)", Interval(-RD_ENV_TASKS_MAX, RD_ENV_TASKS_MAX)),
+        RangeClaim("strip quota ((load-1) mod μ + 1)", Interval(1, RD_ENV_MU_MAX)),
+        RangeClaim("per-server load scatter", tasks),
+        RangeClaim("eq. 2 busy estimate", busy_est),
+        RangeClaim(
+            "sole-copy alt sentinel headroom (BIG - busy_est)",
+            Interval.const(BIG) - busy_est,
+            positive=True,
+        ),
+    ]
+
+
+def zero_state(c_slots: int, row_ids: int, m_servers: int) -> RDState:
+    """An empty state on the CPU at a geometry (every slot free, μ = 1):
+    what a contract's abstract call puts through the wrapper's checks and
+    the plain iteration."""
+    i32 = torch.int32
+    return RDState(
+        holders=torch.full((c_slots + 1, row_ids), m_servers, dtype=i32),
+        size=torch.zeros(c_slots + 1, dtype=i32),
+        cnt=torch.zeros(c_slots + 1, dtype=i32),
+        grp=torch.zeros(c_slots + 1, dtype=i32),
+        hash=torch.zeros(c_slots + 1, dtype=torch.int64),
+        load=torch.zeros(m_servers + 1, dtype=i32),
+        multi=torch.zeros(m_servers + 1, dtype=i32),
+        busy_est=torch.zeros(m_servers, dtype=i32),
+        busy0=torch.zeros(m_servers, dtype=i32),
+        mu=torch.ones(m_servers, dtype=i32),
+        words=torch.zeros(m_servers + 1, dtype=torch.int64),
+        targets0=torch.zeros(m_servers, dtype=torch.bool),
+        flags=torch.tensor([-2, 0, c_slots, 0], dtype=i32),
+    )
+
+
 # ---- the kernel -----------------------------------------------------------------
 
 
@@ -403,24 +531,48 @@ def rd_step_plain(st: RDState, dedup: bool) -> None:
 def _launcher():
     fn = _build.library("rd_step").rd_step_launch
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 14 + [ctypes.c_int] * 4 + [ptr]
+    fn.argtypes = [ptr] * 14 + [ctypes.c_int] * 6 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _args(st: RDState) -> tuple:
+def _args(st: RDState) -> tuple[tuple, BlockConfig]:
     """The launch's pointer and size arguments, with the kernel's per-mover
-    scratch (five int32 slot vectors), made at the state's first launch."""
+    scratch (five int32 slot vectors), and its block, made at the state's
+    first launch."""
     args = st.__dict__.get("_launch_args")
     if args is None:
         scratch = torch.empty(5 * st.c_slots, dtype=torch.int32, device=st.holders.device)
         ptrs = [t.data_ptr() for t in st.buffers().values()]
-        args = (*ptrs, scratch.data_ptr(), st.c_slots, st.row_ids, st.m_servers)
+        cfg = launch_config(st.c_slots, st.m_servers)
+        args = ((*ptrs, scratch.data_ptr(), st.c_slots, st.row_ids, st.m_servers), cfg)
         st.__dict__["_launch_args"] = args
         st.__dict__["_scratch"] = scratch  # keeps the scratch alive with the state
     return args
 
 
+@contract(
+    "rd.step",
+    axes=(
+        Axis("c", (128, 256, 1024, 4096, RD_MAX_C), past=(RD_MAX_C * 2,)),
+        Axis("a", (2, 4, 16, 32, RD_MAX_ROW_IDS, 2 * RD_MAX_ROW_IDS)),
+        span("m", 1, RD_MAX_M, boundaries=(4096, RD_MAX_M), past=(RD_MAX_M + 1,)),
+        Axis("device", ("cuda", "cpu")),
+    ),
+    backends=("kernel", "wide", "plain", "host"),
+    device_backends=("kernel",),
+    dispatch=lambda geom: rd_route(geom["device"], geom["c"], geom["a"], geom["m"]),
+    smem=lambda geom: launch_config(geom["c"], geom["m"]),
+    ranges=lambda geom: rd_range_claims(geom["m"], geom["a"]),
+    signature=lambda geom: ("rd-step", geom["c"], geom["a"], geom["m"]),
+    max_signatures=192,  # slot classes × row widths × server counts: each sets the state
+    abstract=lambda geom: (rd_step, (zero_state(geom["c"], geom["a"], geom["m"]), False)),
+    eval_points=3,
+    notes="one RD iteration (target pick, strip sort and walk, re-homing, "
+    "deltas) in one block; rows past 64 ids take the plain iteration on "
+    "the card (counted as wide); slots past RD_MAX_C or servers past "
+    "RD_MAX_M never reach it (the host rd takes them)",
+)
 def rd_step(st: RDState, dedup: bool) -> None:
     """One RD iteration on ``st``: the CUDA kernel for CUDA state (one
     launch on the current stream, no synchronisation); the plain version
@@ -432,9 +584,12 @@ def rd_step(st: RDState, dedup: bool) -> None:
             COUNTS["wide"] += 1
         rd_step_plain(st, dedup)
         return
+    args, cfg = _args(st)
     err = _launcher()(
-        *_args(st),
+        *args,
         int(dedup),
+        cfg.dynamic_smem,
+        cfg.threads,
         torch.cuda.current_stream(st.holders.device).cuda_stream,
     )
     if err != 0:
@@ -443,3 +598,4 @@ def rd_step(st: RDState, dedup: bool) -> None:
             f"A={st.row_ids}, M={st.m_servers})"
         )
     COUNTS["rd_step"] += 1
+    LAUNCH_CONFIGS[st.c_slots, st.row_ids, st.m_servers] = cfg

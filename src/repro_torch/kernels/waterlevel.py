@@ -25,7 +25,12 @@ Counterpart of ``repro/kernels/waterlevel.py``.  The TPU kernel
 
 Rows up to 16,384 lanes (K1) or 8,192 (the fused kernel) stay in a
 block's shared memory; wider rows run on an L2 scratch the wrapper
-allocates at the size the source states.
+allocates at the size the source states.  A block's threads and dynamic
+shared memory come from :func:`launch_config`, the one formula the
+launchers pass to the launch and the kernel contracts declare
+(``waterlevel.kernel`` and ``waterlevel.kernel-batch`` here, the
+``wf_torch.*`` contracts of :mod:`repro_torch.core.wf_torch`), verified
+without a card by ``python -m repro_torch.analysis.kernelcheck``.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes
 the plain version only for a tensor on the CPU.
@@ -35,7 +40,10 @@ count K1/K2 launches over one row and over several rows, ``wf_groups``
 and ``wf_chain`` count fused launches, ``wf_group_steps`` the group
 steps (one per problem row and group) done inside them, and ``plain``
 counts calls of :func:`waterlevel_sorted_plain`.  :func:`reset_counts`
-zeroes them.
+zeroes them.  ``LAUNCH_CONFIGS`` maps each ``(kernel, n_lanes)``
+launched since the process started (or since the caller cleared it) to
+the :class:`~repro_torch.analysis.contracts.BlockConfig` it was launched
+with.
 """
 
 from __future__ import annotations
@@ -46,12 +54,16 @@ import functools
 import torch
 
 from .. import backend
+from ..analysis.contracts import BlockConfig, Interval, RangeClaim, choice, contract, span
 from . import _build
 
 __all__ = [
     "BIG",
     "COUNTS",
+    "LAUNCH_CONFIGS",
     "MAX_LANES",
+    "kernel_attributes",
+    "launch_config",
     "n_lanes_for",
     "reset_counts",
     "resolve_waterlevel",
@@ -75,6 +87,18 @@ COUNTS = {
     "wf_group_steps": 0,
     "plain": 0,
 }
+# (kernel, n_lanes) -> the block it launched with ("waterlevel": K1/K2,
+# "wf_fused": the fused water-filling kernel)
+LAUNCH_CONFIGS: dict[tuple[str, int], BlockConfig] = {}
+
+MAX_THREADS = 1024
+SMEM_MAX_LANES = 1 << 14  # K1/K2 rows held in shared memory up to here
+FUSED_SMEM_MAX_LANES = 1 << 13  # the fused kernel's rows, likewise
+# both kernels' static shared memory: csrc/waterlevel.cu's RowShared
+# (per-warp scan totals, the scan's selection and the one-warp step's
+# live lanes; 800 bytes), held against the compiled kernels' attributes
+# by chip_smoke.py
+STATIC_SMEM = 800
 
 
 def reset_counts() -> None:
@@ -92,6 +116,44 @@ def _next_pow2(n: int) -> int:
 def n_lanes_for(m: int) -> int:
     """Padded row width for ``m`` servers."""
     return max(LANES, _next_pow2(m))
+
+
+def _row_bytes(n_lanes: int, fused: bool) -> int:
+    """One row's buffers in csrc/waterlevel.cu's layout: sorted keys (8 B)
+    and w (4 B), the fused kernel's raised, committed and load vectors
+    (4 B each), padded one word in 16 keys / 32 ints."""
+    key_slots = n_lanes + (n_lanes >> 4)
+    int_slots = n_lanes + (n_lanes >> 5)
+    return 8 * key_slots + 4 * int_slots * (4 if fused else 1)
+
+
+def launch_config(n_lanes: int, fused: bool) -> BlockConfig:
+    """The block one launch over rows of ``n_lanes`` lanes takes: half a
+    thread a lane up to 1024 threads (2-32 lanes a thread), and the row's
+    buffers as dynamic shared memory up to :data:`SMEM_MAX_LANES` (K1/K2)
+    or :data:`FUSED_SMEM_MAX_LANES` (``fused``), none above (the rows run
+    on the L2 scratch).  The launchers pass these to the launch, and the
+    kernel contracts declare them."""
+    cap = FUSED_SMEM_MAX_LANES if fused else SMEM_MAX_LANES
+    return BlockConfig(
+        static_smem=STATIC_SMEM,
+        dynamic_smem=_row_bytes(n_lanes, fused) if n_lanes <= cap else 0,
+        threads=min(n_lanes // 2, MAX_THREADS),
+    )
+
+
+def kernel_attributes(fused: bool, n_lanes: int) -> tuple[int, int]:
+    """(static shared memory, max threads a block) of the compiled kernel
+    variant that rows of ``n_lanes`` lanes launch; needs the card."""
+    fn = _build.library("waterlevel").waterlevel_kernel_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    static, threads = ctypes.c_int(), ctypes.c_int()
+    per = n_lanes // launch_config(n_lanes, fused).threads
+    err = fn(int(fused), per, ctypes.byref(static), ctypes.byref(threads))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {err}")
+    return static.value, threads.value
 
 
 def resolve_waterlevel(explicit: str | None, m: int) -> str:
@@ -113,6 +175,71 @@ def resolve_waterlevel(explicit: str | None, m: int) -> str:
 
 def _ceil_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# kernelcheck geometry contract (verified by repro_torch.analysis.kernelcheck).
+#
+# The admissible input envelope the int32 range proofs assume, the
+# reference's (repro/kernels/waterlevel.py): busy times, μ and demands are
+# small integers (paper Sec. V: μ ≤ 4, per-job task counts ≲ 10^4), with
+# orders of magnitude of headroom.  WL_SUM_BMU_MAX bounds Σ busy·μ at
+# entry; one burst raises it by at most the allocated demand plus one
+# level step (Σ μ), so the adapters preserve it up to WL_M_MAX lanes.
+# Levels fed back as busy stay ≤ WL_BUSY0_MAX + WL_TOTAL_DEMAND_MAX.
+
+WL_BUSY0_MAX = 1 << 10  # initial (pre-burst) per-server busy time
+WL_MU_MAX = 1 << 4  # per-server tasks/slot (μ)
+WL_DEMAND_MAX = 1 << 20  # tasks per water-level call (one group)
+WL_TOTAL_DEMAND_MAX = 1 << 20  # tasks per job/burst (Σ groups, Σ jobs)
+WL_M_MAX = 1 << 16  # widest cluster the torch route is certified for
+WL_LEVEL_MAX = WL_BUSY0_MAX + WL_TOTAL_DEMAND_MAX
+WL_SUM_BMU_MAX = (1 << 30) + (1 << 22)  # admissible Σ busy·μ at entry
+
+
+def _wl_dispatch(geom: dict) -> str:
+    return resolve_waterlevel(geom["requested"], geom["m"])
+
+
+def wl_range_claims(m: int) -> list[RangeClaim]:
+    """Interval claims shared by the kernels and their plain versions
+    (identical int32 arithmetic).  ``m`` only enters through Σ μ; the
+    Σ busy·μ prefix is bounded by the declared envelope."""
+    busy = Interval(0, WL_LEVEL_MAX)  # evolved levels feed back as busy
+    mu = Interval(0, WL_MU_MAX)
+    demand = Interval(0, WL_DEMAND_MAX)
+    sum_bmu = Interval(0, WL_SUM_BMU_MAX)
+    cw = mu * m  # inclusive prefix sum of μ
+    xi_num = demand + sum_bmu  # ξ numerator: T + Σ busy·μ
+    level = busy + demand + 1  # minimality + the ξ ≥ b+1 clamp
+    caps = level * mu  # per-lane capacity at the level
+    alloc_prefix = demand + cw  # Σ caps ≤ T + one level step of capacity
+    return [
+        RangeClaim(
+            "sort sentinel headroom (BIG - busy)",
+            Interval.const(BIG) - busy,
+            positive=True,
+        ),
+        # the kernel's 64-bit sort key: busy with its sign bit flipped in
+        # the high word, the lane in the low word
+        RangeClaim("sort key lane field", Interval(0, MAX_LANES - 1), dtype=None, bits=32),
+        RangeClaim("cw prefix sum (Σ μ)", cw),
+        RangeClaim("cbw prefix sum (Σ busy·μ)", sum_bmu),
+        RangeClaim("ξ numerator (T + Σ busy·μ)", xi_num),
+        RangeClaim("water level", level),
+        RangeClaim("per-lane capacity at level", caps),
+        RangeClaim("allocation prefix (Alg. 2 clamp)", alloc_prefix),
+    ]
+
+
+def _wl_smem(geom: dict) -> BlockConfig:
+    return launch_config(n_lanes_for(geom["m"]), fused=False)
+
+
+def _wl_abstract(geom: dict, rows: int = 1):
+    lanes = n_lanes_for(geom["m"])
+    zeros = torch.zeros((rows, lanes), dtype=torch.int32)
+    return waterlevel_sorted, (zeros, zeros.clone(), torch.zeros(rows, dtype=torch.int32))
 
 
 def waterlevel_sorted_plain(
@@ -184,11 +311,55 @@ def _scratch(rows: int, n: int, fused: bool, device: torch.device) -> torch.Tens
 def _launcher():
     fn = _build.library("waterlevel").waterlevel_launch
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 7 + [ctypes.c_int, ctypes.c_int, ptr]
+    fn.argtypes = [ptr] * 7 + [ctypes.c_int] * 4 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
+_M_AXIS = span(
+    "m",
+    1,
+    MAX_LANES,
+    boundaries=(LANES, FUSED_SMEM_MAX_LANES, SMEM_MAX_LANES, MAX_LANES),
+    past=(MAX_LANES + 1, MAX_LANES * 2),
+)
+
+
+@contract(
+    "waterlevel.kernel",
+    axes=(_M_AXIS, choice("requested", "auto", "torch", "cuda")),
+    backends=("cuda", "torch"),
+    device_backends=("cuda",),
+    dispatch=_wl_dispatch,
+    smem=_wl_smem,
+    ranges=lambda geom: wl_range_claims(geom["m"]),
+    signature=lambda geom: ("waterlevel", n_lanes_for(geom["m"])),
+    max_signatures=16,  # pow2 lane classes from 128 to MAX_LANES
+    abstract=_wl_abstract,
+    eval_points=3,
+    notes="K1: one row's water level and takes in one block; rows past "
+    "16,384 lanes run on the L2 scratch (no dynamic shared memory), "
+    "widths past MAX_LANES take the torch route even when cuda is asked",
+)
+@contract(
+    "waterlevel.kernel-batch",
+    axes=(
+        span("m", 1, MAX_LANES, boundaries=(LANES, SMEM_MAX_LANES), past=(MAX_LANES + 1,)),
+        choice("b", 1, 2, 7, 32, 64),
+        choice("requested", "auto", "torch", "cuda"),
+    ),
+    backends=("cuda", "torch"),
+    device_backends=("cuda",),
+    dispatch=_wl_dispatch,
+    smem=_wl_smem,  # the (B,) grid gives each block one row
+    ranges=lambda geom: wl_range_claims(geom["m"]),
+    signature=lambda geom: ("waterlevel-batch", n_lanes_for(geom["m"])),
+    max_signatures=16,  # pow2 lane classes: B is the grid, not a variant
+    abstract=lambda geom: _wl_abstract(geom, geom["b"]),
+    eval_points=3,
+    notes="K2: the same kernel over a (B,) grid, one block a row; B is "
+    "the grid, so the compiled variant is the lane class's",
+)
 def waterlevel_sorted(
     b: torch.Tensor, w: torch.Tensor, demand: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -210,6 +381,7 @@ def waterlevel_sorted(
     take = torch.empty_like(b)
     idx = torch.empty_like(b)
     scratch = _scratch(bsz, n, False, b.device)
+    cfg = launch_config(n, False)
     err = _launcher()(
         b.data_ptr(),
         w.data_ptr(),
@@ -220,6 +392,8 @@ def waterlevel_sorted(
         None if scratch is None else scratch.data_ptr(),
         bsz,
         n,
+        cfg.dynamic_smem,
+        cfg.threads,
         torch.cuda.current_stream(b.device).cuda_stream,
     )
     if err != 0:
@@ -228,6 +402,7 @@ def waterlevel_sorted(
             f"(B={bsz}, n_lanes={n})"
         )
     COUNTS["waterlevel" if bsz == 1 else "waterlevel_batch"] += 1
+    LAUNCH_CONFIGS["waterlevel", n] = cfg
     return level, take, idx
 
 
@@ -381,7 +556,7 @@ def _check_fused(
 def _fused_launcher():
     fn = _build.library("waterlevel").wf_fused_launch
     ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 6 + [ptr]
+    fn.argtypes = [ptr] * 9 + [ctypes.c_int] * 8 + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -396,6 +571,7 @@ def _launch_fused(busy, mu, masks, demands, chain: bool):
     phi = torch.empty(p, dtype=I32, device=dev)
     busy_out = torch.empty(m, dtype=I32, device=dev) if chain else None
     scratch = _scratch(rows, n, True, dev)
+    cfg = launch_config(n, True)
     err = _fused_launcher()(
         busy.data_ptr(),
         mu.data_ptr(),
@@ -412,6 +588,8 @@ def _launch_fused(busy, mu, masks, demands, chain: bool):
         m,
         n,
         int(chain),
+        cfg.dynamic_smem,
+        cfg.threads,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
@@ -421,6 +599,7 @@ def _launch_fused(busy, mu, masks, demands, chain: bool):
         )
     COUNTS["wf_chain" if chain else "wf_groups"] += 1
     COUNTS["wf_group_steps"] += p * k
+    LAUNCH_CONFIGS["wf_fused", n] = cfg
     return alloc, levels, phi, busy_out
 
 

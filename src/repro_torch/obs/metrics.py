@@ -1,24 +1,34 @@
 """Counters, gauges, and power-of-two histograms for the control plane.
 
-The port's copy of ``Histogram`` and ``Metrics`` from
-``repro/obs/metrics.py``.  :class:`Metrics` is a flat name-keyed
-registry: the hot path is a dict lookup plus an integer add.  Histograms
-bucket by bit length (bucket ``i`` holds values in ``[2**(i-1), 2**i)``;
-bucket 0 holds 0).
+The port's copy of ``repro/obs/metrics.py``.  Besides the session's
+registry, :class:`repro_torch.runtime.resilience.ResilienceState` keeps
+a private one, whose clone win counters steer the speculation budget
+(they change schedules, so they cannot live in an optional session).
 
-In this slice its one user is the private registry of
-:class:`repro_torch.runtime.resilience.ResilienceState`, whose clone
-win counters steer the speculation budget (so they change schedules).
-The reference's snapshot tables (``snapshot`` / ``to_table`` /
-``save_npz``), ``perf_regressions`` and the session that reads them
-belong to the observability slice.
+:class:`Metrics` is a flat name-keyed registry.  The hot path is a dict
+lookup plus an integer add — no allocation, no formatting — so the
+scheduler can call it per event.  Histograms bucket by bit length
+(bucket ``i`` holds values in ``[2**(i-1), 2**i)``; bucket 0 holds 0),
+which is enough resolution for queue depths, latencies in slots, and
+microsecond wall times without storing samples.
+
+:meth:`Metrics.snapshot` captures every gauge (and cumulative counter
+values) into a row tagged with the sim tick; :meth:`Metrics.to_table`
+converts the row history to columnar numpy arrays, and
+:meth:`Metrics.save_npz` writes them next to the benchmark artifacts.
+
+Naming convention (``.``-separated, as the reference's
+``docs/OBSERVABILITY.md`` catalogues them): ``jobs.*`` lifecycle counts, ``queue.*``
+depths, ``busy.*`` eq. 2 levels, ``locality.*`` hit tiers, ``steal.*`` /
+``spec.*`` outcome accounting, ``placement.*`` churn, ``serve.*``
+latency, ``device.<kind>.*`` dispatch profiling.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Histogram", "Metrics"]
+__all__ = ["Histogram", "Metrics", "perf_regressions"]
 
 _NBUCKETS = 64
 
@@ -78,6 +88,8 @@ class Metrics:
         self._counters: dict[str, int] = {}
         self._gauges: dict[str, float] = {}
         self._hists: dict[str, Histogram] = {}
+        self._rows: list[dict[str, float]] = []
+        self._row_ticks: list[int] = []
 
     # ---- write path ------------------------------------------------------
 
@@ -115,3 +127,90 @@ class Metrics:
     @property
     def histograms(self) -> dict[str, Histogram]:
         return dict(self._hists)
+
+    # ---- snapshots -------------------------------------------------------
+
+    def snapshot(self, tick: int) -> None:
+        """Record the current gauge values and cumulative counters as one
+        row tagged with ``tick``."""
+        row: dict[str, float] = {}
+        for name, value in self._gauges.items():
+            row[f"gauge.{name}"] = value
+        for name, value in self._counters.items():
+            row[f"counter.{name}"] = float(value)
+        self._rows.append(row)
+        self._row_ticks.append(int(tick))
+
+    @property
+    def n_snapshots(self) -> int:
+        return len(self._rows)
+
+    def to_table(self) -> dict[str, np.ndarray]:
+        """Snapshot history as columns (missing cells are 0); ``"tick"``
+        carries the snapshot ticks.  Histogram summaries ride along as
+        scalar ``hist.<name>.<stat>`` columns of length 1."""
+        names = sorted({k for row in self._rows for k in row})
+        out: dict[str, np.ndarray] = {
+            "tick": np.asarray(self._row_ticks, dtype=np.int64)
+        }
+        for name in names:
+            out[name] = np.asarray(
+                [row.get(name, 0.0) for row in self._rows], dtype=np.float64
+            )
+        for name, hist in sorted(self._hists.items()):
+            for stat, value in hist.summary().items():
+                out[f"hist.{name}.{stat}"] = np.asarray([value], dtype=np.float64)
+        return out
+
+    def save_npz(self, path: str) -> None:
+        np.savez_compressed(path, **self.to_table())
+
+
+def _final(table, key: str) -> float:
+    arr = np.asarray(table[key]).ravel()
+    return float(arr[-1]) if arr.size else 0.0
+
+
+def perf_regressions(
+    old,
+    new,
+    *,
+    threshold: float = 2.0,
+    min_value: float = 0.0,
+) -> list[dict]:
+    """Compare two metric tables (:meth:`Metrics.to_table` dicts or
+    loaded ``.npz`` mappings) on the performance-tracking columns:
+    control-plane tick-phase host times (``hist.tick.<phase>.us`` mean
+    and p99) and cumulative device compile counts
+    (``counter.device.<kind>.compiles``, final row).
+
+    Returns one ``{"name", "old", "new", "ratio"}`` record per column
+    where ``new > threshold * old`` — including columns absent from the
+    old run (``old == 0``, reported with an infinite ratio).  Columns
+    whose new value is at or below ``min_value`` are skipped, which is
+    the noise floor for sub-microsecond host-time jitter."""
+    keys = set(old) & set(new)
+    watched = [
+        k
+        for k in sorted(keys)
+        if (
+            k.startswith("hist.tick.")
+            and (k.endswith(".mean") or k.endswith(".p99"))
+        )
+        or (k.startswith("counter.device.") and k.endswith(".compiles"))
+    ]
+    out: list[dict] = []
+    for k in watched:
+        o, n = _final(old, k), _final(new, k)
+        if n <= min_value:
+            continue
+        if n > threshold * o:
+            out.append(
+                {
+                    "name": k,
+                    "old": o,
+                    "new": n,
+                    "ratio": (n / o) if o else float("inf"),
+                }
+            )
+    return out

@@ -1,7 +1,8 @@
 """The placement store: blocks → server replica sets, as mutable runtime state.
 
-The port's copy of ``repro/placement/store.py`` (its observability hooks
-belong to the observability slice).
+The port's copy of ``repro/placement/store.py``; each replica change is
+recorded on the ambient :mod:`repro_torch.obs` session, as the
+reference's is.
 
 The paper treats a task group's available-server set as a given — frozen
 into the trace when the job is generated.  This module makes that set
@@ -37,6 +38,7 @@ import dataclasses
 import numpy as np
 
 from ..core import Job, TaskGroup
+from ..obs.session import active as _obs_active
 
 __all__ = [
     "PlacementDelta",
@@ -298,6 +300,9 @@ class PlacementStore:
         reps.add(server)
         self.version += 1
         self.replicas_added += 1
+        obs = _obs_active()
+        if obs is not None:
+            obs.placement_event(obs.sim_now, "add", block, server)
         return True
 
     def evict(self, block: str, server: int) -> bool:
@@ -316,6 +321,9 @@ class PlacementStore:
         reps.discard(server)
         self.version += 1
         self.replicas_evicted += 1
+        obs = _obs_active()
+        if obs is not None:
+            obs.placement_event(obs.sim_now, "evict", block, server)
         return True
 
     def record_access(self, block: str, n: int = 1) -> None:
@@ -330,6 +338,9 @@ class PlacementStore:
         if not self._active[server]:
             self._active[server] = True
             self.version += 1
+            obs = _obs_active()
+            if obs is not None:
+                obs.placement_event(obs.sim_now, "join", "", server)
 
     def server_leave(self, server: int) -> list[str]:
         """Deactivate a server, evicting every replica it holds; returns
@@ -342,6 +353,11 @@ class PlacementStore:
         if self._active[server] or affected:
             self.version += 1
         self._active[server] = False
+        obs = _obs_active()
+        if obs is not None:
+            obs.placement_event(
+                obs.sim_now, "leave", f"{len(affected)} blocks", server
+            )
         return affected
 
     # ---- re-replication --------------------------------------------------

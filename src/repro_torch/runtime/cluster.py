@@ -1,7 +1,7 @@
 """Cluster state: server queues, liveness, and the busy-time model (eq. 2).
 
-The port's copy of ``repro/runtime/cluster.py`` (less its observability
-hooks).  The bookkeeping invariant that everything here protects: queue segments
+The port's copy of ``repro/runtime/cluster.py``, observability hooks
+included.  The bookkeeping invariant that everything here protects: queue segments
 are always keyed by the job's *original* group index, so locality sets
 (``job.groups[g].servers``) stay correct across arbitrarily many reorders
 and fault-driven reassignments.  :meth:`ClusterState.assert_invariant`
@@ -74,10 +74,12 @@ class ClusterState:
         jobs: dict[int, Job],
         *,
         debug: bool = False,
+        obs=None,
     ):
         self.n_servers = n_servers
         self.jobs = jobs
         self.debug = debug
+        self.obs = obs  # ObsSession | None; observation-only hooks
         self.queues: list[deque[QueueSegment]] = [deque() for _ in range(n_servers)]
         self.alive = np.ones(n_servers, dtype=bool)
         self.slow = np.ones(n_servers, dtype=np.float64)
@@ -233,6 +235,8 @@ class ClusterState:
     def mark_failed(self, job_id: int) -> None:
         if job_id not in self.failed:
             self.failed.append(job_id)
+            if self.obs is not None:
+                self.obs.job_failed(self.obs.sim_now, job_id)
         self.remaining.pop(job_id, None)
         # purge zombie segments so queues don't process unaccounted tasks
         for m, q in enumerate(self.queues):
@@ -253,11 +257,15 @@ class ClusterState:
                     continue
                 bucket = per_server.setdefault(m, {})
                 bucket[g] = bucket.get(g, 0) + cnt
+        obs = self.obs
+        job = self.jobs.get(job_id) if obs is not None else None
         for m, per_group in per_server.items():
             seg = QueueSegment(job_id, per_group)
             self.queues[m].append(seg)
             if not self._busy_stale and self.alive[m]:
                 self._busy[m] += self._segment_cost(seg, m)  # reprolint: disable=R005 the port's ClusterState owns its eq. 2 vector
+            if job is not None:
+                obs.enqueued(job, m, seg.per_group)
 
     def clear_queues(self) -> None:
         self.queues = [deque() for _ in range(self.n_servers)]

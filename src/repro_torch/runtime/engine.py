@@ -1,8 +1,8 @@
 """The scheduling engine: drives job traces through a cluster under a policy.
 
-The port's copy of ``repro/runtime/engine.py`` (less its observability
-hooks; the port has no ambient observability session yet, and the
-reference's schedules are the same with it on or off).  Implements the
+The port's copy of ``repro/runtime/engine.py``, observability hooks
+included (:mod:`repro_torch.obs`: an ambient session records the run and
+changes nothing in it).  Implements the
 paper's execution model exactly (Sec. II): time is divided
 into identical slots, servers hold FIFO queues of outstanding job tasks,
 and server ``m`` processes up to ``μ_m^h`` tasks of its *head* job per
@@ -53,6 +53,7 @@ import numpy as np
 
 from ..core import AssignmentProblem, Job, OutstandingJob, TaskGroup
 from ..obs import clock
+from ..obs.session import ObsSession, active as obs_active
 from ..placement import PlacedJob, PlacementEvent, PlacementStore
 
 from .cluster import ClusterState
@@ -142,6 +143,7 @@ class SchedulingEngine:
         speculation: bool = False,
         spec_factor: float | None = None,
         resilience: ResilienceConfig | None = None,
+        obs: ObsSession | None = None,
     ):
         if step_mode not in ("slot", "event"):
             raise ValueError(
@@ -182,9 +184,10 @@ class SchedulingEngine:
         ):
             raise ValueError("placement events require a placement store")
         self.max_slots = max_slots
-        self.on_slot = on_slot  # test hook, called once per slot
+        self.on_slot = on_slot  # observability/test hook, called once per slot
         self.debug = debug
         self.batch_arrivals = batch_arrivals
+        self.obs = obs if obs is not None else obs_active()
         self.cluster: ClusterState | None = None  # populated by run()
         # block -> [(job_id, original gid)] for arrived placement-backed jobs
         self._block_groups: dict[str, list[tuple[int, int]]] = {}
@@ -271,6 +274,10 @@ class SchedulingEngine:
                 assignment.validate(prob)
             cluster.enqueue(job_id, assignment, gids)
             cluster.reassigned += sum(per_group.values())
+            if self.obs is not None:
+                self.obs.reassign(
+                    self.obs.sim_now, job_id, sum(per_group.values())
+                )
 
     def _apply_rack_event(self, ev: RackEvent) -> None:
         """Correlated fault: fail (or recover) every server in the rack
@@ -384,6 +391,10 @@ class SchedulingEngine:
                 assignment.validate(prob)
             cluster.enqueue(job_id, assignment, gids)
             cluster.reassigned += sum(per_group.values())
+            if self.obs is not None:
+                self.obs.reassign(
+                    self.obs.sim_now, job_id, sum(per_group.values())
+                )
 
     def _apply_placement_event(self, ev: PlacementEvent) -> None:
         store = self.placement
@@ -464,7 +475,10 @@ class SchedulingEngine:
             if self.debug:
                 assignment.validate(prob)
             cluster.enqueue(job.job_id, assignment, gids)
-        return clock.perf_counter() - t0
+        elapsed = clock.perf_counter() - t0
+        if self.obs is not None:
+            self.obs.job_admitted(self.obs.sim_now, job.job_id, elapsed)
+        return elapsed
 
     def _project_batch(self, batch: list[Job]) -> list[tuple[Job, tuple, list[int]]]:
         """Project each burst job onto alive servers; jobs whose data is
@@ -533,6 +547,11 @@ class SchedulingEngine:
                 assignment.validate(prob)
             cluster.enqueue(job.job_id, assignment, gids)
         elapsed = clock.perf_counter() - t0
+        if self.obs is not None:
+            for job, _, _ in admitted:
+                self.obs.job_admitted(
+                    self.obs.sim_now, job.job_id, elapsed / len(admitted)
+                )
         return [elapsed / len(admitted)] * len(admitted)
 
     def _admit_burst_reorder(self, batch: list[Job]) -> list[float]:
@@ -562,6 +581,11 @@ class SchedulingEngine:
             return []
         self._reschedule(extras)
         elapsed = clock.perf_counter() - t0
+        if self.obs is not None:
+            for extra, _ in extras:
+                self.obs.job_admitted(
+                    self.obs.sim_now, extra.job_id, elapsed / len(extras)
+                )
         return [elapsed / len(extras)] * len(extras)
 
     # ---- main loop -------------------------------------------------------
@@ -583,6 +607,7 @@ class SchedulingEngine:
                 on_slot=self.on_slot,
                 debug=self.debug,
                 batch_arrivals=self.batch_arrivals,
+                obs=self.obs,
             )
             plane.submit_many(jobs)
             result = plane.drain()
@@ -595,14 +620,18 @@ class SchedulingEngine:
             self.n_servers,
             {j.job_id: j for j in jobs},
             debug=self.debug,
+            obs=self.obs,
         )
         self._block_groups = {}
         timeline = EventTimeline(self.events)
         arrivals = sorted(jobs, key=lambda j: (j.arrival, j.job_id))
         jct: dict[int, int] = {}
         overheads: list[float] = []
+        obs = self.obs
         ai = slot = 0
         while slot < self.max_slots:
+            if obs is not None:
+                obs.sim_now = slot
             for ev in timeline.due(slot):
                 if isinstance(ev, PlacementEvent):
                     self._apply_placement_event(ev)
@@ -612,8 +641,12 @@ class SchedulingEngine:
             while ai < len(arrivals) and arrivals[ai].arrival <= slot:
                 job = arrivals[ai]
                 ai += 1
+                if obs is not None:
+                    obs.job_arrival(slot, job.job_id, job.n_tasks)
                 if job.n_tasks == 0:
                     jct[job.job_id] = 0  # empty job completes at arrival
+                    if obs is not None:
+                        obs.job_complete(slot, job.job_id, job.arrival, 0, 0)
                     continue
                 batch.append(job)
             if batch:
@@ -621,13 +654,21 @@ class SchedulingEngine:
             for job_id, n_done in cluster.process_slot().items():
                 if job_id not in cluster.remaining:
                     continue
+                if obs is not None:
+                    obs.service_progress(slot, job_id, n_done)
                 cluster.remaining[job_id] -= n_done
                 if cluster.remaining[job_id] <= 0:
                     job = cluster.jobs[job_id]
                     jct[job_id] = slot + 1 - job.arrival
                     del cluster.remaining[job_id]
+                    if obs is not None:
+                        obs.job_complete(
+                            slot, job_id, job.arrival, jct[job_id], job.n_tasks
+                        )
             if self.on_slot is not None:
                 self.on_slot(cluster, slot)
+            if obs is not None:
+                obs.snapshot(slot, cluster)
             slot += 1
             if ai >= len(arrivals) and not cluster.remaining:
                 break

@@ -1,8 +1,9 @@
 """Event-stepped control plane over the slot-exact scheduling engine.
 
-The port's copy of ``repro/runtime/loop.py`` (less its observability
-hooks: the reference's schedules are the same with them on or off, and
-the port's observability slice comes later).  :class:`ControlPlane`
+The port's copy of ``repro/runtime/loop.py``, observability hooks
+included: each emits what the reference's emits, in the same order, so
+a trace of the port equals the reference's record for record.
+:class:`ControlPlane`
 replaces the slot-stepped ``while`` loop with a
 priority event queue: job arrivals, service ticks, server fault events,
 placement churn, serve-request routing, and heartbeats all ride one
@@ -80,6 +81,12 @@ from typing import Callable
 from .. import registry
 from ..analysis import runtime as sanitizers
 from ..core import Job
+from ..obs import clock
+from ..obs.session import (
+    SPEC_ABORTED,
+    ObsSession,
+    active as obs_active,
+)
 from ..placement import PlacementEvent, PlacementStore
 
 from .cluster import ClusterState, QueueSegment
@@ -96,6 +103,9 @@ _P_ARRIVAL = 1  # job arrival burst
 _P_REQUEST = 2  # serve-request routing
 _P_SERVICE = 3  # one ClusterState.process_slot
 _P_HEARTBEAT = 4  # router / serve-pool drain
+
+# tick-phase names for obs spans, indexed by priority
+_PHASE_NAMES = ("event", "arrival", "request", "service", "heartbeat")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +125,7 @@ class _SpecPair:
     copies: list[tuple[int, QueueSegment, int]]  # (server, seg, shadow id)
     done: list[int]  # cumulative tasks per copy
     credited: int = 0  # progress already credited to the real job
+    obs_link: int = 0  # trace causality id binding launch to resolution
 
 
 class ControlPlane:
@@ -150,6 +161,7 @@ class ControlPlane:
         on_heartbeat: Callable[[int], None] | None = None,
         debug: bool = False,
         batch_arrivals: bool = True,
+        obs: ObsSession | None = None,
     ):
         scenario_jobs: list[Job] = []
         if scenario is not None:
@@ -175,6 +187,7 @@ class ControlPlane:
         # behave exactly like debug=True
         debug = debug or sanitizers.enabled()
         self.debug = debug
+        self.obs = obs if obs is not None else obs_active()
         # the engine is used for its admission / fault / placement
         # machinery only — the plane owns time, so the engine gets no
         # timeline of its own and its slot loop is never entered
@@ -185,9 +198,10 @@ class ControlPlane:
             max_slots=max_slots,
             debug=debug,
             batch_arrivals=batch_arrivals,
+            obs=self.obs,
         )
         self.engine.cluster = ClusterState(
-            n_servers, {}, debug=debug
+            n_servers, {}, debug=debug, obs=self.obs
         )
         self.n_servers = n_servers
         self.stealing = stealing
@@ -258,6 +272,8 @@ class ControlPlane:
             cluster.remaining[job.job_id] = job.n_tasks
         self._push(t, _P_ARRIVAL, job)
         self._pending_arrivals += 1
+        if self.obs is not None:
+            self.obs.job_arrival(t, job.job_id, job.n_tasks)
         return t
 
     def submit_many(self, jobs: list[Job]) -> None:
@@ -358,6 +374,10 @@ class ControlPlane:
     def _pop_next(self) -> None:
         t, prio, _, payload = heapq.heappop(self._heap)
         self._now = max(self._now, t)
+        o = self.obs
+        if o is not None:
+            o.sim_now = t
+            t0 = clock.perf_counter()
         if prio == _P_EVENT:
             self._handle_cluster_event(t, payload)
         elif prio == _P_ARRIVAL:
@@ -373,6 +393,8 @@ class ControlPlane:
         else:
             self._heartbeat_pending = False
             self._handle_heartbeat(t)
+        if o is not None:
+            o.tick_phase(_PHASE_NAMES[prio], t0)
 
     def _ensure_service(self, t: int) -> None:
         if self._service_at is None:
@@ -409,6 +431,8 @@ class ControlPlane:
         for job in jobs:
             if job.n_tasks == 0:
                 self.jct[job.job_id] = 0  # empty job completes at arrival
+                if self.obs is not None:
+                    self.obs.job_complete(t, job.job_id, job.arrival, 0, 0)
                 if self.on_complete is not None:
                     self.on_complete(job.job_id, 0)
                 continue
@@ -424,6 +448,8 @@ class ControlPlane:
     def _handle_request(self, t: int, payload) -> None:
         rid, n_tokens, model, adapter, eligible, request = payload
         self._pending_requests -= 1
+        if self.obs is not None:
+            self.obs.serve_request(t, rid, n_tokens)
         if self.serve_pool is not None and request is not None:
             self.serve_pool.submit(
                 request, model=model, adapter=adapter, eligible=eligible
@@ -440,6 +466,8 @@ class ControlPlane:
                 for m in out
             )
             self.serve_latency[rid] = latency
+            if self.obs is not None:
+                self.obs.serve_done(t + latency, rid, latency)
         self._ensure_heartbeat(t + 1)
 
     def _handle_service(self, t: int) -> None:
@@ -471,15 +499,20 @@ class ControlPlane:
                 pair.credited = adv
             if adv >= pair.size:  # first finisher wins; cancel the other
                 self._close_pair(pair)
+        o = self.obs
         for job_id, n_done in done.items():
             if job_id not in cluster.remaining:
                 continue
+            if o is not None:
+                o.service_progress(t, job_id, n_done)
             cluster.remaining[job_id] -= n_done
             if cluster.remaining[job_id] <= 0:
                 job = cluster.jobs[job_id]
                 jct = t + 1 - job.arrival
                 self.jct[job_id] = jct
                 del cluster.remaining[job_id]
+                if o is not None:
+                    o.job_complete(t, job_id, job.arrival, jct, job.n_tasks)
                 if self.on_complete is not None:
                     self.on_complete(job_id, jct)
         if self.on_slot is not None:
@@ -487,6 +520,8 @@ class ControlPlane:
         self._makespan = max(self._makespan, t + 1)
         if self.speculation:
             self._spec_scan()
+        if o is not None:
+            o.snapshot(t, cluster)
         if any(cluster.queues) or (st is not None and st.deferred):
             self._ensure_service(t + 1)
 
@@ -497,6 +532,8 @@ class ControlPlane:
                 if rid in self._submit_t:
                     latency = t + 1 - self._submit_t.pop(rid)
                     self.serve_latency[rid] = latency
+                    if self.obs is not None:
+                        self.obs.serve_done(t + 1, rid, latency)
         elif self.router is not None:
             self.router.drain()
         if self.on_heartbeat is not None:
@@ -539,6 +576,10 @@ class ControlPlane:
         for m in idle:
             if cluster.queues[m]:  # an earlier steal already landed here
                 continue
+            if self.obs is not None:
+                # the reference counts an attempt for every idle server
+                # it walks, whether or not a donor can give it work
+                self.obs.steal_attempt(self._now, m)
             if thieves is None:
                 thieves = self._thief_index(donors)
             sources = thieves.get(m)
@@ -630,6 +671,8 @@ class ControlPlane:
                 cluster.enqueue(job_id, assignment, gids)
                 n = sum(per_group.values())
                 moved += n
+                if self.obs is not None:
+                    self.obs.steal(self._now, job_id, p, m, n)
             self.steals += moved
             st.steal_won(p)
             st.metrics.inc("steal.moved_cost", planned)
@@ -748,6 +791,10 @@ class ControlPlane:
         self._specs[shadow_b] = (pair, 1)
         self._spec_jobs.add(pair.job_id)
         self.speculations += 1
+        if self.obs is not None:
+            pair.obs_link = self.obs.spec_launch(
+                self._now, pair.job_id, m, target
+            )
 
     def _close_pair(self, pair: _SpecPair) -> None:
         """First-finisher-wins resolution: cancel the laggard copy (its
@@ -763,6 +810,11 @@ class ControlPlane:
                 "spec.aborted"
                 if not finished
                 else ("spec.won_original" if winner == 0 else "spec.won_clone")
+            )
+        if self.obs is not None:
+            outcome = winner if finished else SPEC_ABORTED
+            self.obs.spec_resolve(
+                self._now, pair.job_id, outcome, max(pair.done), pair.obs_link
             )
         for ci, (server, seg, shadow) in enumerate(pair.copies):
             if seg.total > 0:
@@ -811,6 +863,8 @@ class ControlPlane:
             else:
                 st.deferred.append(job)
                 st.metrics.inc("admit.deferred")
+                if self.obs is not None:
+                    self.obs.job_deferred(t, job.job_id)
         if len(st.deferred) > st.deferred_peak:
             st.deferred_peak = len(st.deferred)
         return []
@@ -826,6 +880,8 @@ class ControlPlane:
         st = self._res
         st.shed[job.job_id] = job.arrival
         st.metrics.inc("jobs.shed")
+        if self.obs is not None:
+            self.obs.job_shed(t, job.job_id)
 
     def _admit_deferred(self, t: int) -> None:
         """Drain the pending queue FIFO while the lag stays inside the
@@ -881,6 +937,8 @@ class ControlPlane:
         st.retry_attempts[job_id] = st.retry_attempts.get(job_id, 0) + 1
         st.metrics.inc("retry.attempted")
         self.retries += 1
+        if self.obs is not None:
+            self.obs.job_retry(t, job_id)
         job = cluster.jobs[job_id]
         proj = cluster.project(job, per_group)
         if proj is None:
@@ -895,4 +953,6 @@ class ControlPlane:
             assignment.validate(prob)
         cluster.enqueue(job_id, assignment, gids)
         cluster.reassigned += sum(per_group.values())
+        if self.obs is not None:
+            self.obs.reassign(t, job_id, sum(per_group.values()))
         self._ensure_service(t)

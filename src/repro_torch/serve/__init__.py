@@ -1,4 +1,5 @@
-"""Serving: prefill/decode steps, continuous batching, replica routing."""
+"""Serving: prefill/decode steps, continuous batching, replica routing,
+WF-balanced MoE expert replicas."""
 
 from .engine import (
     ReplicaRouter,
@@ -8,12 +9,15 @@ from .engine import (
     make_decode_step,
     make_prefill_step,
 )
+from .moe_balance import balance_expert_replicas, replica_placement
 
 __all__ = [
     "ReplicaRouter",
     "Request",
     "RoutedServePool",
     "ServeEngine",
+    "balance_expert_replicas",
     "make_decode_step",
     "make_prefill_step",
+    "replica_placement",
 ]

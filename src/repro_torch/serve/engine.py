@@ -9,10 +9,12 @@ queued tokens = busy time) via :class:`ReplicaRouter`; with
 ``policy="wf_torch"`` the water level runs on the card.
 
 With ``placement=`` (a :class:`repro_torch.placement.PlacementStore`)
-the router resolves eligible replicas by model / adapter ID.  Left for
-later slices: the reference's ``debug=`` buffer-aliasing guard
-(:class:`repro_torch.analysis.runtime.BufferGuard` exists, unhooked) and
-its observability hooks around decode.
+the router resolves eligible replicas by model / adapter ID.  As in the
+reference, ``ServeEngine(debug=True)`` arms the buffer-aliasing guard
+(:class:`repro_torch.analysis.runtime.BufferGuard`) around every decode
+step, and an ambient :mod:`repro_torch.obs` session profiles each decode
+step (``device.serve-decode.*``) and counts each routing
+(``serve.routed``).
 """
 
 from __future__ import annotations
@@ -24,8 +26,11 @@ import numpy as np
 import torch
 
 from .. import backend
+from ..analysis import runtime as sanitizers
 from ..core import AssignmentProblem, TaskGroup
 from ..models import LM, ModelConfig, decode_step, init_decode_cache, prefill
+from ..obs.session import active as _obs_active
+from ..obs.session import device_profiler as _obs_device
 from ..placement.store import lora_block, model_block
 from ..runtime.policies import AssignFn, get_assigner
 
@@ -77,6 +82,12 @@ class ServeEngine:
     every other slot's conv and SSM state, and a reused slot keeps the
     state its last request left.  The port keeps this so that its tokens
     equal the reference's.
+
+    ``debug=True`` (or a process-wide :func:`repro_torch.analysis.runtime.
+    enable`) arms the buffer-aliasing sanitizer: every decode step
+    snapshots the position buffer at the handoff and re-checks it after
+    the step's host read, catching the zero-copy aliasing race (a view of
+    the live ``_pos`` handed to the step) the moment it is reintroduced.
     """
 
     def __init__(
@@ -87,6 +98,7 @@ class ServeEngine:
         batch_slots: int = 8,
         max_len: int = 512,
         eos_token: int = 0,
+        debug: bool = False,
     ):
         self.params = params
         self.cfg = cfg
@@ -97,6 +109,8 @@ class ServeEngine:
         self.cache = init_decode_cache(params, cfg, batch_slots, max_len)
         self._pos = np.zeros(batch_slots, np.int32)
         self._pending: list[Request] = []
+        self.debug = debug or sanitizers.enabled()
+        self._guard = sanitizers.BufferGuard() if self.debug else None
 
     def submit(self, req: Request) -> None:
         self._pending.append(req)
@@ -125,10 +139,17 @@ class ServeEngine:
         Mamba2 state; see the class docstring)."""
         tokens = np.zeros((len(self.slots), 1), np.int32)
         tokens[slot, 0] = token
+        prof = _obs_device()
+        t0 = prof.start() if prof is not None else 0.0
         logits = self._decode(tokens)
         # only commit slot's position advance
         self._pos[slot] += 1
-        return int(logits[slot, 0].argmax())
+        nxt = int(logits[slot, 0].argmax())
+        if prof is not None:  # past the host read: the step's whole wall time
+            prof.record("serve-decode", (len(self.slots),), t0)
+        if self._guard is not None:  # the step has completed above
+            self._guard.verify()
+        return nxt
 
     def _with_pos(self) -> dict:
         cache = dict(self.cache)
@@ -137,6 +158,8 @@ class ServeEngine:
         # it (torch.from_numpy would share the buffer — the reference's
         # PR 5 race, shifted decode outputs under load)
         cache["pos"] = torch.tensor(self._pos, device=self.device)
+        if self._guard is not None:
+            self._guard.capture("pos", self._pos, cache["pos"])
         return cache
 
     def step(self) -> list[Request]:
@@ -148,8 +171,14 @@ class ServeEngine:
         tokens = np.zeros((len(self.slots), 1), np.int32)
         for i in active:
             tokens[i, 0] = self.slots[i]._last
+        prof = _obs_device()
+        t0 = prof.start() if prof is not None else 0.0
         logits = self._decode(tokens)
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()
+        if prof is not None:  # past the host read: the step's whole wall time
+            prof.record("serve-decode", (len(self.slots),), t0)
+        if self._guard is not None:  # the step has completed above
+            self._guard.verify()
         finished = []
         for i in active:
             req = self.slots[i]
@@ -255,6 +284,9 @@ class ReplicaRouter:
             for m, cnt in per.items():
                 self.queued[m] += cnt
                 out[m] = out.get(m, 0) + cnt
+        obs = _obs_active()
+        if obs is not None:
+            obs.serve_routed(len(out))
         return out
 
     def drain(self) -> None:

@@ -1,8 +1,7 @@
 """Shared building blocks for the synthetic job traces.
 
-The port's copy of ``repro/traces/placement.py`` (less the explicit
-group sizes of the CSV replay, which waits with ``cluster_v2017``).
-Every scenario composes the same ingredients from the paper's Sec. V-A
+The port's copy of ``repro/traces/placement.py``.  Every scenario (the
+synthetic ones and the ``cluster_v2017`` CSV replay) composes the same ingredients from the paper's Sec. V-A
 setup:
 
 - heavy-tailed per-job task counts normalised to a target total;
@@ -101,7 +100,7 @@ def build_job(
     n_tasks: int,
     *,
     n_servers: int,
-    mean_groups: float,
+    mean_groups: float = 0.0,
     zipf_alpha: float,
     avail_lo: int,
     avail_hi: int,
@@ -109,6 +108,7 @@ def build_job(
     cap_hi: int,
     rng: np.random.Generator,
     store: "PlacementStore | None" = None,
+    group_sizes: list[int] | None = None,
 ) -> Job:
     """One job under the shared group/placement/capacity model.
 
@@ -117,9 +117,14 @@ def build_job(
     :class:`~repro_torch.placement.PlacedJob` carrying the block names;
     the RNG stream is consumed identically either way.
     """
-    if mean_groups <= 0:
-        raise ValueError("build_job needs mean_groups > 0")
-    sizes = group_split(n_tasks, mean_groups, rng)
+    if group_sizes is None:
+        if mean_groups <= 0:
+            raise ValueError(
+                "build_job needs mean_groups > 0 or explicit group_sizes"
+            )
+        sizes = group_split(n_tasks, mean_groups, rng)
+    else:
+        sizes = group_sizes
     if store is None:
         groups = tuple(
             TaskGroup(gs, zipf_servers(n_servers, rng, zipf_alpha, avail_lo, avail_hi))

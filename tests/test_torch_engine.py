@@ -69,9 +69,12 @@ def test_traces_identical_to_reference(scenario, overrides, seed):
 
 
 def test_scenario_registry():
-    assert list_scenarios() == ["alibaba", "bursty", "pareto_diurnal"]
+    assert list_scenarios() == ["alibaba", "bursty", "cluster_v2017", "pareto_diurnal"]
+    assert list_scenarios() == ref_traces.list_scenarios()
     with pytest.raises(KeyError, match="unknown trace scenario"):
-        generate("cluster_v2017")  # the CSV replay waits for a later slice
+        generate("no_such_scenario")
+    with pytest.raises(FileNotFoundError, match="ClusterTraceConfig.path"):
+        generate("cluster_v2017")  # the CSV replay needs its path
 
 
 def _same_schedule(got, want):
@@ -174,6 +177,42 @@ def test_isolation_checks_cover_the_control_plane_slice():
         "traces/pareto.py", "runtime/simulator.py",
     }
     assert expected <= walked
+
+
+def test_isolation_checks_cover_the_observability_slice():
+    """The observability, contracts, CSV replay and MoE routing modules
+    are among the files the import checks above and below walk."""
+    walked = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    expected = {
+        "obs/__init__.py", "obs/clock.py", "obs/metrics.py", "obs/session.py",
+        "obs/trace.py", "obs/report.py", "analysis/__init__.py",
+        "analysis/contracts.py", "analysis/kernelcheck.py",
+        "traces/cluster_v2017.py", "serve/moe_balance.py",
+    }
+    assert expected <= walked
+
+
+def test_report_without_a_cpu_scope_does_not_run_on_the_cpu(tmp_path):
+    """``python -m repro_torch.obs.report`` runs on the card unless given
+    ``--device cpu``: with no GPU its default ``wf_torch`` run is refused
+    at the first arrival, and ``--device cpu`` writes the artifacts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    code = (
+        "from repro_torch.obs import report\n"
+        f"out = {str(tmp_path)!r}\n"
+        "try:\n"
+        "    report.main(['--scenario', 'bursty', '--out', out])\n"
+        "except (AssertionError, RuntimeError) as exc:\n"
+        "    print('refused:', exc)\n"
+        "else:\n"
+        "    raise SystemExit('the report ran without a device')\n"
+        "assert report.main(['--scenario', 'bursty', '--out', out, '--device', 'cpu']) == 0\n"
+    )
+    out = _run_port(code)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "refused:" in out.stdout
+    assert (tmp_path / "OBS_bursty.trace.json").is_file()
 
 
 def test_isolation_checks_cover_the_model_slice():

@@ -201,3 +201,23 @@ def test_a_job_with_more_tasks_than_kernel_lanes_runs_on_the_card():
     assert peak <= capacity
     want = replica_deletion(problem)
     assert got.alloc == want.alloc and got.phi == want.phi
+
+
+@pytest.mark.gpu
+def test_launch_config_matches_the_compiled_kernel():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.analysis.contracts import CONTRACTS
+
+    static, max_threads = rdk.kernel_attributes()
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    problem, capacity = _case("random")
+    st = rd_torch.initial_rd_state(problem, capacity=capacity)
+    rdk.LAUNCH_CONFIGS.clear()
+    rd_torch.run_rd(st)
+    ((c, a, m), cfg), = rdk.LAUNCH_CONFIGS.items()
+    assert (c, a, m) == (st.c_slots, st.row_ids, st.m_servers)
+    assert cfg == CONTRACTS["rd.step"].smem({"c": c, "a": a, "m": m, "device": "cuda"})
+    assert cfg.static_smem == static and cfg.threads == max_threads
+    for c, m in ((rdk.RD_MAX_C, rdk.RD_MAX_M), (rdk.MIN_LANES, 1)):
+        assert rdk.launch_config(c, m).smem_bytes <= optin - 1024  # the launcher's margin

@@ -110,3 +110,87 @@ def test_standalone_kernel_sorts_only_the_live_lanes(card, live):
             want = wl.waterlevel_sorted_plain(*args)
             for g, p in zip(got, want):
                 assert torch.equal(g, p), (live, m, bsz)
+
+
+# ---- the launch configuration, observability and MoE routing on the card ----
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+def test_launch_config_matches_the_compiled_kernels(card, fused):
+    """Every lane class: the contracts' static shared memory is the
+    compiled variant's, the threads fit it, and the block fits the card's
+    opt-in shared memory."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    n = wl.LANES
+    while n <= wl.MAX_LANES:
+        cfg = wl.launch_config(n, fused)
+        static, max_threads = wl.kernel_attributes(fused, n)
+        assert static == cfg.static_smem
+        assert cfg.threads <= max_threads
+        assert cfg.smem_bytes <= optin
+        n *= 2
+
+
+@pytest.mark.gpu
+def test_launches_record_the_contracts_block(card):
+    from repro_torch.analysis.contracts import CONTRACTS
+    from repro_torch.core import wf_torch  # noqa: F401  (registers the wf_torch contracts)
+
+    rng = np.random.default_rng(7)
+    wl.LAUNCH_CONFIGS.clear()
+    for m in (100, 4096, 16384):
+        wl.wf_groups(*fused_inputs(rng, "random", 2, 3, m, chain=False))
+        wl.waterlevel_sorted(*_rows(rng, m, 1, 10))
+    assert len(wl.LAUNCH_CONFIGS) == 6
+    for (kernel, n), cfg in wl.LAUNCH_CONFIGS.items():
+        name = "wf_torch.groups" if kernel == "wf_fused" else "waterlevel.kernel"
+        assert CONTRACTS[name].smem({"m": n, "k": 3, "requested": "cuda"}) == cfg
+
+
+@pytest.mark.gpu
+def test_profiler_counts_equal_fused_launches(card):
+    from repro_torch import obs
+    from repro_torch.backend import set_backend
+    from repro_torch.core import AssignmentProblem, TaskGroup
+    from repro_torch.core import wf_torch
+
+    rng = np.random.default_rng(3)
+    problems = [
+        AssignmentProblem(
+            busy=rng.integers(0, 50, 64), mu=rng.integers(1, 4, 64),
+            groups=tuple(TaskGroup(int(rng.integers(1, 90)),
+                                   tuple(sorted(rng.choice(64, 6, replace=False).tolist())))
+                         for _ in range(int(rng.integers(1, 5)))),
+        )
+        for _ in range(12)
+    ]
+    with set_backend(device="cuda"):
+        want = [wf_torch.water_filling_torch(p) for p in problems]
+        wl.reset_counts()
+        with obs.observe() as s:
+            got = [wf_torch.water_filling_torch(p) for p in problems]
+    assert [(a.alloc, a.phi) for a in got] == [(a.alloc, a.phi) for a in want]
+    m = s.metrics
+    assert m.counter("device.wf-groups.calls") == wl.COUNTS["wf_groups"] == 12
+    assert m.counter("device.wf-groups.compiles") == len(
+        {len(p.groups) for p in problems})  # one variant a K
+    assert wl.COUNTS["plain"] == 0
+
+
+@pytest.mark.gpu
+def test_moe_balance_is_one_fused_launch_equal_to_the_plain_loop(card):
+    from repro_torch.serve import balance_expert_replicas, replica_placement
+
+    gen = torch.Generator().manual_seed(0)
+    placement = replica_placement(256, 32, 2, generator=gen)
+    rng = np.random.default_rng(0)
+    load = torch.from_numpy(rng.multinomial(65_536, np.full(256, 1 / 256)).astype(np.int32))
+    queue = torch.from_numpy(rng.integers(0, 3000, 32).astype(np.int32))
+    rate = torch.ones(32, dtype=torch.int32)
+    wl.reset_counts()
+    alloc, phi = balance_expert_replicas(load.cuda(), placement, queue.cuda(), rate)
+    assert wl.COUNTS["wf_groups"] == 1 and wl.COUNTS["plain"] == 0
+    want_alloc, want_phi = balance_expert_replicas(load, placement, queue, rate)
+    assert torch.equal(alloc.cpu(), want_alloc) and int(phi) == int(want_phi)
+    assert int(alloc.sum()) == 65_536
