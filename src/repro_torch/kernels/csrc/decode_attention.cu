@@ -11,8 +11,8 @@
 // last valid cache index of each sequence.  Query head h reads KV head
 // h / (H / Hkv).  Keys t <= min(pos, T - 1) take part; the rest are never
 // read, which is the reference's mask (their logit is -1e30, so their
-// weight is exactly 0).  Any T; hd <= 128; at most 8 query heads per KV
-// head.  Logits, softmax and the weighted sum of V run in fp32; the result
+// weight is exactly 0).  Any T; hd <= 128; at most 16 query heads per
+// KV head.  Logits, softmax and the weighted sum of V run in fp32; the result
 // is cast back to the input dtype, and is 0 for pos < 0 (no key), as the
 // TPU kernel gives.
 //
@@ -43,6 +43,17 @@
 // the counter to 0 for the next launch.  So there is one launch per layer, and the counters stay valid
 // from launch to launch (and under a CUDA graph) as long as launches
 // sharing them run one at a time.
+//
+// Groups past 8 query heads per KV head (Qwen3-MoE: 64 over 4, a group
+// of 16): each key slot keeps an online-softmax state per query head in
+// registers, so 16 heads at hd 128 would hold ~128 fp32 accumulators a
+// lane besides q and spill.  Instead the group is cut into n_slices =
+// ceil(G / 8) slices of at most 8 heads, and the grid's y axis runs over
+// (KV head, slice): a block serves one slice and reads its (sequence, KV
+// head)'s cache rows itself, so the cache is read once per slice (twice
+// at a group of 16).  Partials and ticket counters are per (sequence, KV
+// head, slice).  A group of at most 8 is one slice: the grid, the
+// instantiation and the scratch layout are those of the kernel before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +64,8 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxGroup = 8;
+constexpr int kMaxGroup = 16;  // query heads per KV head
+constexpr int kMaxSlice = 8;   // query heads one block serves
 constexpr int kMaxSplits = 64;  // blocks per (sequence, KV head)
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -114,8 +126,9 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
                             const T* __restrict__ v, const int* __restrict__ pos,
                             T* __restrict__ out, float* __restrict__ part,
                             int* __restrict__ tickets, int n_heads, int n_kv_heads,
-                            int t_len, int hd, int group, int chunk, int splits,
-                            int lanes_log2, float scale) {
+                            int t_len, int hd, int group, int slice_heads,
+                            int n_slices, int chunk, int splits, int lanes_log2,
+                            float scale) {
   constexpr int U = NG <= 2 ? 8 : 4;  // loads of K and of V a lane has in flight
   __shared__ float sm_m[kWarps][NG];
   __shared__ float sm_l[kWarps][NG];
@@ -123,8 +136,12 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
   __shared__ int sm_last;
 
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const int kvh = blockIdx.y / n_slices;
+  const int slice = blockIdx.y - kvh * n_slices;
   const int b = blockIdx.z;
+  const int g0 = slice * slice_heads;                // its first head in the group
+  const int gs = min(slice_heads, group - g0);       // the heads this block serves
+  const int h0 = kvh * group + g0;                   // ... as a query head index
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row_lanes = 1 << lanes_log2;      // lanes holding one cache row
@@ -133,9 +150,10 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
   const int d0 = (lane & (row_lanes - 1)) * EPL;
   const bool lane_on = d0 < hd;
   const int last = min(pos[b], t_len - 1);  // last key that takes part
-  const size_t bh = (size_t)b * n_kv_heads + kvh;
+  const size_t bh = (size_t)b * n_kv_heads + kvh;  // its cache rows
+  const size_t bs = bh * n_slices + slice;          // its partials and ticket
   const int row_p = hd + 2;  // a partial row: acc[hd], m, l
-  float* pb = part + (bh * splits + split) * group * row_p;
+  float* pb = part + (bs * splits + split) * slice_heads * row_p;
 
   if (split * chunk <= last) {
     const size_t kv_base = bh * (size_t)t_len * hd;
@@ -145,9 +163,9 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       Vec<T, EPL> raw{};
-      if (g < group && lane_on) {
+      if (g < gs && lane_on) {
         raw = *reinterpret_cast<const Vec<T, EPL>*>(
-            q + ((size_t)b * n_heads + (size_t)kvh * group + g) * hd + d0);
+            q + ((size_t)b * n_heads + (size_t)h0 + g) * hd + d0);
       }
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qr[g][e] = elem<T, EPL>(raw, e) * scale;
@@ -181,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
         }
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
-          if (g >= group) break;
+          if (g >= gs) break;
           float s[U];
           float mx = m[g];
 #pragma unroll
@@ -242,7 +260,7 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
       }
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < gs * hd; idx += kThreads) {
       const int g = idx / hd;
       const int d = idx - g * hd;
       float mt = -INFINITY;
@@ -262,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
       }
     }
   } else {
-    for (int idx = threadIdx.x; idx < group * row_p; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < gs * row_p; idx += kThreads) {
       pb[idx] = idx % row_p == hd ? -INFINITY : 0.f;
     }
   }
@@ -270,20 +288,20 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
   // the last block of this (sequence, KV head) to finish merges
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) sm_last = atomicAdd(&tickets[bh], 1) == splits - 1;
+  if (threadIdx.x == 0) sm_last = atomicAdd(&tickets[bs], 1) == splits - 1;
   __syncthreads();
   if (!sm_last) return;
   __threadfence();
   // one pass over the splits' partials, their loads independent of one
   // another (an empty partial is m = -inf, l = 0, acc = 0)
-  const float* pbh = part + bh * splits * group * row_p;
-  for (int idx = threadIdx.x; idx < group * hd; idx += kThreads) {
+  const float* pbh = part + bs * splits * slice_heads * row_p;
+  for (int idx = threadIdx.x; idx < gs * hd; idx += kThreads) {
     const int g = idx / hd;
     const int d = idx - g * hd;
     float mt = -INFINITY, lt = 0.f, o = 0.f;
 #pragma unroll 8
     for (int sp = 0; sp < splits; ++sp) {
-      const float* ps = pbh + ((size_t)sp * group + g) * row_p;
+      const float* ps = pbh + ((size_t)sp * slice_heads + g) * row_p;
       const float m = __ldcg(ps + hd);
       const float l = __ldcg(ps + hd + 1);
       const float a = __ldcg(ps + d);
@@ -294,10 +312,10 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
       o = o * fa + a * fb;
       mt = mn;
     }
-    out[((size_t)b * n_heads + (size_t)kvh * group + g) * hd + d] =
+    out[((size_t)b * n_heads + (size_t)h0 + g) * hd + d] =
         from_float<T>(lt > 0.f ? o / lt : 0.f);
   }
-  if (threadIdx.x == 0) tickets[bh] = 0;
+  if (threadIdx.x == 0) tickets[bs] = 0;
 }
 
 struct Args {
@@ -306,7 +324,7 @@ struct Args {
   void* out;
   float* part;
   int* tickets;
-  int batch, n_heads, n_kv_heads, t_len, hd, group, chunk, splits;
+  int batch, n_heads, n_kv_heads, t_len, hd, group, slice_heads, n_slices, chunk, splits;
   float scale;
 };
 
@@ -316,10 +334,10 @@ int launch_one(const Args& a, cudaStream_t s) {
   while ((1 << lanes_log2) * EPL < a.hd) ++lanes_log2;
   if (lanes_log2 > 5) return (int)cudaErrorInvalidValue;
   decode_attention_kernel<T, NG, EPL>
-      <<<dim3(a.splits, a.n_kv_heads, a.batch), kThreads, 0, s>>>(
+      <<<dim3(a.splits, a.n_kv_heads * a.n_slices, a.batch), kThreads, 0, s>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
           a.pos, static_cast<T*>(a.out), a.part, a.tickets, a.n_heads, a.n_kv_heads, a.t_len,
-          a.hd, a.group, a.chunk, a.splits, lanes_log2, a.scale);
+          a.hd, a.group, a.slice_heads, a.n_slices, a.chunk, a.splits, lanes_log2, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -340,12 +358,13 @@ int launch_epl(const Args& a, int epl, cudaStream_t s) {
   }
 }
 
+// the instantiation serving a slice of slice_heads query heads
 template <typename T>
 int launch(const Args& a, int epl, cudaStream_t s) {
-  if (a.group <= 1) return launch_epl<T, 1>(a, epl, s);
-  if (a.group <= 2) return launch_epl<T, 2>(a, epl, s);
-  if (a.group <= 4) return launch_epl<T, 4>(a, epl, s);
-  return launch_epl<T, 8>(a, epl, s);
+  if (a.slice_heads <= 1) return launch_epl<T, 1>(a, epl, s);
+  if (a.slice_heads <= 2) return launch_epl<T, 2>(a, epl, s);
+  if (a.slice_heads <= 4) return launch_epl<T, 4>(a, epl, s);
+  return launch_epl<T, kMaxSlice>(a, epl, s);
 }
 
 }  // namespace
@@ -353,14 +372,17 @@ int launch(const Args& a, int epl, cudaStream_t s) {
 // dtype: 0 = float32, 1 = bfloat16.  epl: elements of a head row each lane
 // loads at once (the wrapper's choice: 16 bytes where hd allows).  The
 // caller gives the split plan (chunks of `chunk` keys dealt to `splits`
-// blocks per (sequence, KV head)), a float32 scratch of
-// B * Hkv * splits * G * (hd + 2) elements, and an int32 ticket counter
-// per (sequence, KV head), 0 before the launch (the kernel leaves it 0).
+// blocks per (sequence, KV head, slice)), a float32 scratch of
+// B * Hkv * n_slices * splits * slice_heads * (hd + 2) elements, and an
+// int32 ticket counter per (sequence, KV head, slice), 0 before the launch
+// (the kernel leaves it 0).  The group G = H / Hkv is cut into n_slices =
+// ceil(G / 8) slices of slice_heads = ceil(G / n_slices) heads (the last
+// may hold fewer); the caller sizes its buffers by the same rule.
 // Launches on `stream` and returns cudaGetLastError() after the launch (0
 // on success); nothing here synchronises.  Refuses (cudaErrorInvalidValue)
 // what the kernel does not take: hd past 128, not a multiple of epl, or
-// wider than 32 lanes of epl; more than 8 query heads per KV head; H not a
-// multiple of Hkv; more than 64 splits.
+// wider than 32 lanes of epl; more than 16 query heads per KV head; H not
+// a multiple of Hkv; more than 64 splits.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, void* part,
                                        void* tickets, int batch, int n_heads,
@@ -374,9 +396,12 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   }
   const int group = n_heads / n_kv_heads;
   if (group < 1 || group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  const int n_slices = (group + kMaxSlice - 1) / kMaxSlice;
+  const int slice_heads = (group + n_slices - 1) / n_slices;
+  if ((long long)n_kv_heads * n_slices > 65535) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
                static_cast<int*>(tickets), batch, n_heads, n_kv_heads, t_len, hd, group,
-               chunk, splits, scale};
+               slice_heads, n_slices, chunk, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:

@@ -4,11 +4,12 @@ Counterpart of ``repro/kernels/decode_attention.py``.  The TPU kernel
 ``_decode_kernel`` (launched by ``decode_attention_pallas`` on a
 ``(batch, q_heads)`` grid over 512-row KV slices) is
 ``csrc/decode_attention.cu`` here, built from source at first use
-(:mod:`._build`): the cache is split over a grid of ``(splits, Hkv, B)``
-blocks (:func:`split_plan`, from the shapes alone), each serving the
-group's query heads over its 64-key chunks, and the last block of each
-(sequence, KV head) to finish merges the blocks' partial softmax states
-in the same launch.
+(:mod:`._build`): the cache is split over a grid of ``(splits, Hkv *
+slices, B)`` blocks (:func:`split_plan`, from the shapes alone), each
+serving a slice of at most 8 of the group's query heads over its 64-key
+chunks (:func:`group_slices`: one slice up to a group of 8, two at
+Qwen3-MoE's 16), and the last block of each (sequence, KV head, slice)
+to finish merges the blocks' partial softmax states in the same launch.
 
 Both functions take ``q`` ``(B, H, hd)`` (one token per sequence),
 ``k``/``v`` ``(B, Hkv, T, hd)`` — the port's KV-cache layout — and
@@ -25,8 +26,8 @@ head ``h`` reads KV head ``h // (H // Hkv)``.
   the plain version averages every value row, the kernel returns 0, as
   the TPU kernel does.
 
-The kernel's merge finds the last block of a (sequence, KV head) by a
-ticket counter that this module keeps per device and the kernel resets
+The kernel's merge finds the last block of a (sequence, KV head, slice)
+by a ticket counter that this module keeps per device and the kernel resets
 to 0; launches that share the counters run one at a time (one stream).
 
 ``COUNTS`` holds plain integers: ``decode_attention`` counts kernel
@@ -48,9 +49,11 @@ __all__ = [
     "COUNTS",
     "MAX_GROUP",
     "MAX_HEAD_DIM",
+    "MAX_SLICE",
     "NEG_INF",
     "decode_attention",
     "decode_attention_plain",
+    "group_slices",
     "lane_width",
     "reset_counts",
     "split_plan",
@@ -58,7 +61,8 @@ __all__ = [
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128  # the kernel's per-lane accumulators hold one head row
-MAX_GROUP = 8  # query heads per KV head one block serves
+MAX_GROUP = 16  # query heads per KV head the kernel takes (csrc kMaxGroup)
+MAX_SLICE = 8  # query heads per KV head one block serves (csrc kMaxSlice)
 CHUNK = 64  # keys a block takes at a time: one load of K and V per lane
 MAX_SPLITS = 64  # blocks per (sequence, KV head): the length of the merge's loop
 BLOCKS_PER_SM = 4  # the kernel's residency at <= 128 registers a thread
@@ -90,17 +94,34 @@ def decode_attention_plain(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def split_plan(b: int, hkv: int, t: int, sms: int) -> tuple[int, int]:
-    """``(chunk, splits)`` for B sequences of Hkv KV heads over a cache of
-    ``t`` positions on a card of ``sms`` SMs: chunks of ``chunk`` keys,
-    dealt round-robin to ``splits`` blocks per (sequence, KV head).  As
+def group_slices(group: int) -> tuple[int, int]:
+    """``(n_slices, slice_heads)``: a group of ``group`` query heads per KV
+    head cut into ``ceil(group / 8)`` slices of ``ceil(group / n_slices)``
+    heads (the last may hold fewer), one block's share each; the kernel
+    cuts it by the same rule.  Refuses a group past ``MAX_GROUP``."""
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(
+            f"decode_attention: the kernel takes 1 to {MAX_GROUP} query heads per KV "
+            f"head; got {group}"
+        )
+    n_slices = -(-group // MAX_SLICE)
+    return n_slices, -(-group // n_slices)
+
+
+def split_plan(b: int, hkv: int, t: int, sms: int, group: int = 1) -> tuple[int, int]:
+    """``(chunk, splits)`` for B sequences of Hkv KV heads (each serving
+    ``group`` query heads) over a cache of ``t`` positions on a card of
+    ``sms`` SMs: chunks of ``chunk`` keys, dealt round-robin to
+    ``splits`` blocks per (sequence, KV head, slice of the group).  As
     many splits as the grid can hold resident at once (4 blocks per SM),
     at most one per chunk and 64 in all; at least one.  So a 4 x 20-head
     serving batch runs 6 splits (480 blocks on 132 SMs) at any cache
-    length.  It reads shapes only, never ``pos``, which lies on the
-    device."""
+    length, and Qwen3-MoE's 4 x 4 KV heads of 16 query heads (two slices)
+    16 splits over 1024 positions.  It reads shapes only, never ``pos``,
+    which lies on the device."""
     chunks = -(-t // CHUNK)
-    return CHUNK, max(1, min(chunks, MAX_SPLITS, BLOCKS_PER_SM * sms // (b * hkv)))
+    blocks = b * hkv * group_slices(group)[0]
+    return CHUNK, max(1, min(chunks, MAX_SPLITS, BLOCKS_PER_SM * sms // blocks))
 
 
 @functools.cache
@@ -169,19 +190,21 @@ def decode_attention(
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     epl = lane_width(hd, q.element_size())
-    if epl is None or h // hkv > MAX_GROUP:
+    if epl is None:
         raise ValueError(
-            f"decode_attention: the kernel takes hd <= {MAX_HEAD_DIM} (odd only up to 32) "
-            f"and <= {MAX_GROUP} query heads per KV head; got hd={hd}, group={h // hkv}"
+            f"decode_attention: the kernel takes hd <= {MAX_HEAD_DIM} (odd only up to 32); "
+            f"got hd={hd}"
         )
+    n_slices, slice_heads = group_slices(h // hkv)
     if not all(x.is_contiguous() for x in (q, k, v, pos)):
         raise ValueError("decode_attention: q, k, v and pos must be contiguous")
     align = epl * q.element_size()
     if any(x.data_ptr() % align for x in (q, k, v)):
         raise ValueError(f"decode_attention: q, k and v must be {align}-byte aligned")
-    chunk, splits = split_plan(b, hkv, t, _sms(q.device.index))
+    chunk, splits = split_plan(b, hkv, t, _sms(q.device.index), h // hkv)
     out = torch.empty_like(q)
-    part = torch.empty(b * splits * h * (hd + 2), dtype=torch.float32, device=q.device)
+    rows = b * hkv * n_slices * splits * slice_heads  # partial rows of hd + 2
+    part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
     err = _launcher()(
         q.data_ptr(),
         k.data_ptr(),
@@ -189,7 +212,7 @@ def decode_attention(
         pos.data_ptr(),
         out.data_ptr(),
         part.data_ptr(),
-        _tickets(q.device, b * hkv).data_ptr(),
+        _tickets(q.device, b * hkv * n_slices).data_ptr(),
         b,
         h,
         hkv,

@@ -4,7 +4,9 @@ The port's counterpart of ``repro/launch/serve.py``, with the same
 flags plus ``--device`` (``cuda`` by default; ``cpu`` runs the kernels'
 plain versions).  Continuous batching over a shared decode cache with
 WF replica routing; parameters are random, drawn from a seeded
-generator on the device.
+generator on the device.  The two MoE archs (qwen3-moe-235b-a22b,
+deepseek-v3-671b) do not fit one card at full depth: serve them with
+``--smoke``.
 """
 
 from __future__ import annotations

@@ -1,11 +1,16 @@
-"""Model assembly: init / prefill / decode for the dense, mamba2 and zamba2
-families.
+"""Model assembly: init / prefill / decode for the dense, moe, mla_moe,
+mamba2 and zamba2 families.
 
 The port's counterpart of ``repro/models/model.py`` for
 ``block_pattern`` ``"dense"`` (pre-norm transformer, GQA attention,
-SwiGLU FFN), ``"mamba2"`` (an attention-free stack of Mamba2 blocks)
-and ``"zamba2"`` (Mamba2 blocks with one *shared* attention + FFN block
-applied before every ``hybrid_period`` of them).  Entry points::
+SwiGLU FFN), ``"moe"`` (GQA attention + a mixture-of-experts FFN),
+``"mla_moe"`` (DeepSeek-style MLA attention + MoE with a shared expert;
+the multi-token-prediction block is held so weights carry over, and
+serving never runs it), ``"mamba2"`` (an attention-free stack of Mamba2
+blocks) and ``"zamba2"`` (Mamba2 blocks with one *shared* attention +
+FFN block applied before every ``hybrid_period`` of them).  A layer's FFN
+is the MoE wherever the config has experts, as in the reference.  Entry
+points::
 
     init_params(generator, cfg)                       -> params
     prefill(params, cfg, batch, max_len=None)         -> (logits, cache)
@@ -15,11 +20,14 @@ applied before every ``hybrid_period`` of them).  Entry points::
 ``params`` is the family's module (:data:`FAMILIES`): the embedding
 table (also the unembedding's weight, as in the reference), the final
 norm, the layers as an ``nn.ModuleList`` and, for zamba2, the shared
-block ``shared_attn``.  Caches, every leaf stacked over layers (or over
-the shared block's uses), with ``"pos"`` (B,) int32 beside them:
+block ``shared_attn``; for mla_moe with ``mtp_depth``, ``mtp``.  Caches,
+every leaf stacked over layers (or over the shared block's uses), with
+``"pos"`` (B,) int32 beside them:
 
-- dense: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
+- dense, moe: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
   stacks ``(L, B, S_max, Hkv, hd)``;
+- mla_moe: ``{"c_kv": (L, B, S_max, kv_lora_rank), "k_rope": (L, B,
+  S_max, qk_rope_head_dim)}``, as the reference's;
 - mamba2: ``{"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N) fp32}``, as
   the reference's;
 - zamba2: ``{"attn": {"k", "v"} (n_super, B, Hkv, S_max, hd), "mamba":
@@ -27,12 +35,17 @@ the shared block's uses), with ``"pos"`` (B,) int32 beside them:
   ``(n_super, period, ...)``.
 
 :func:`decode_step` writes the step into that cache in place and returns
-it with ``pos + 1``; the reference returns a new cache.
+it with ``pos + 1``; the reference returns a new cache.  The decode
+path's MoE drops nothing (``no_drop``), the prefill's drops past the
+experts' capacity, as the reference's.  The reference's expert-parallel
+dispatch (``moe_sharded``, taken only under a mesh with a ``model`` axis)
+waits for the port's ``parallel/``; without a mesh the reference takes
+``moe_apply``, as the port does.
 
 Tensors go on :func:`repro_torch.backend.device` (``cuda`` unless a
 ``set_backend(device=...)`` scope says otherwise); parameters that lie
-elsewhere are refused.  Other families, and ``forward_train``, wait for
-later slices.
+elsewhere are refused.  The encdec and vlm families, and
+``forward_train`` (with MTP), wait for later slices.
 """
 
 from __future__ import annotations
@@ -43,15 +56,28 @@ from torch import nn
 from .. import backend
 from .attention import (
     GQA,
+    MLA,
     cache_slots,
     gqa_decode,
     gqa_init_,
     gqa_prefill,
+    mla_decode,
+    mla_init_,
+    mla_prefill,
     rope_for,
 )
 from .config import ModelConfig
-from .ffn import SwiGLU, swiglu, swiglu_init_
-from .layers import Embed, RMSNorm, embed, embed_init_, rmsnorm, unembed
+from .ffn import MoE, SwiGLU, moe_apply, moe_init_, swiglu, swiglu_init_
+from .layers import (
+    Dense,
+    Embed,
+    RMSNorm,
+    _normal,
+    embed,
+    embed_init_,
+    rmsnorm,
+    unembed,
+)
 from .ssm import Mamba2, mamba2_apply, mamba2_decode, mamba2_init_, mamba2_init_state
 
 __all__ = [
@@ -59,8 +85,11 @@ __all__ = [
     "DenseLM",
     "FAMILIES",
     "LM",
+    "MLAMoELM",
+    "MTP",
     "Mamba2LM",
     "MambaLayer",
+    "MoELM",
     "Zamba2LM",
     "check_family",
     "decode_step",
@@ -74,16 +103,36 @@ Cache = dict
 
 
 class DecoderLayer(nn.Module):
-    """``norm1``, ``attn`` (GQA), ``norm2``, ``ffn`` (SwiGLU); also
-    zamba2's shared block."""
+    """``norm1``, ``attn`` (GQA; MLA for mla_moe), ``norm2``, ``ffn``
+    (SwiGLU; the MoE where the config has experts); also zamba2's shared
+    block."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
         dt = cfg.torch_dtype
         self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.attn = GQA(cfg, device=device)
+        if cfg.block_pattern == "mla_moe":
+            self.attn = MLA(cfg, device=device)
+        else:
+            self.attn = GQA(cfg, device=device)
         self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
+        if cfg.moe.n_experts:
+            self.ffn = MoE(cfg, device=device)
+        else:
+            self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
+
+
+class MTP(nn.Module):
+    """DeepSeek-V3's multi-token prediction head: ``proj`` (2d, d), one
+    ``block`` (a decoder layer, not stacked) and ``norm``.  Held so that
+    weights carry over; serving never runs it."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        dt = cfg.torch_dtype
+        self.proj = Dense(2 * cfg.d_model, cfg.d_model, bias=False, dtype=dt, device=device)
+        self.block = DecoderLayer(cfg, device=device)
+        self.norm = RMSNorm(cfg.d_model, dtype=dt, device=device)
 
 
 class MambaLayer(nn.Module):
@@ -115,6 +164,24 @@ class DenseLM(_LM):
     layer = DecoderLayer
 
 
+class MoELM(_LM):
+    """GQA attention + MoE: ``layers`` of :class:`DecoderLayer`."""
+
+    layer = DecoderLayer
+
+
+class MLAMoELM(_LM):
+    """MLA attention + MoE with a shared expert: ``layers`` of
+    :class:`DecoderLayer` and, with ``mtp_depth``, ``mtp``."""
+
+    layer = DecoderLayer
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__(cfg, device=device)
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, device=device)
+
+
 class Mamba2LM(_LM):
     """An attention-free stack: ``layers`` of :class:`MambaLayer`."""
 
@@ -135,26 +202,36 @@ class Zamba2LM(_LM):
         self.shared_attn = DecoderLayer(cfg, device=device)
 
 
-LM = DenseLM | Mamba2LM | Zamba2LM
-FAMILIES: dict[str, type[_LM]] = {"dense": DenseLM, "mamba2": Mamba2LM, "zamba2": Zamba2LM}
+LM = DenseLM | MoELM | MLAMoELM | Mamba2LM | Zamba2LM
+FAMILIES: dict[str, type[_LM]] = {
+    "dense": DenseLM,
+    "moe": MoELM,
+    "mla_moe": MLAMoELM,
+    "mamba2": Mamba2LM,
+    "zamba2": Zamba2LM,
+}
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.block_pattern not in FAMILIES or cfg.moe.n_experts:
+    ssm = cfg.block_pattern in ("mamba2", "zamba2")
+    if cfg.block_pattern not in FAMILIES or (cfg.moe.n_experts and ssm):
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families so far; "
             f"block_pattern={cfg.block_pattern!r} (n_experts={cfg.moe.n_experts}) "
             f"waits for a later slice"
         )
+    if cfg.block_pattern == "mla_moe" and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: block_pattern 'mla_moe' needs an MLAConfig")
 
 
 @torch.no_grad()
 def init_params(generator: torch.Generator, cfg: ModelConfig) -> LM:
     """Random parameters on :func:`backend.device`, drawn from ``generator``
     (which must live on that device) with the reference's rules:
-    projections N(0, 1/fan_in), the embedding N(0, 0.02²), the conv
-    weight N(0, 0.1²), norms and ``D`` one, biases and ``A_log`` zero.
-    Not the reference's numbers: its generator differs."""
+    projections N(0, 1/fan_in) (the MoE router in fp32), the embedding
+    and the MTP projection N(0, 0.02²), the conv weight N(0, 0.1²), norms
+    and ``D`` one, biases and ``A_log`` zero.  Not the reference's
+    numbers: its generator differs."""
     check_family(cfg)
     params = FAMILIES[cfg.block_pattern](cfg, device=backend.device())
     embed_init_(params.embed, generator)
@@ -162,12 +239,24 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> LM:
         if isinstance(layer, MambaLayer):
             mamba2_init_(layer.mamba, generator)
         else:
-            gqa_init_(layer.attn, generator)
-            swiglu_init_(layer.ffn, generator)
+            _decoder_init_(layer, generator)
     if isinstance(params, Zamba2LM):
-        gqa_init_(params.shared_attn.attn, generator)
-        swiglu_init_(params.shared_attn.ffn, generator)
+        _decoder_init_(params.shared_attn, generator)
+    if hasattr(params, "mtp"):
+        _normal(params.mtp.proj.w, 0.02, generator)
+        _decoder_init_(params.mtp.block, generator)
     return params
+
+
+def _decoder_init_(block: DecoderLayer, generator: torch.Generator) -> None:
+    if isinstance(block.attn, MLA):
+        mla_init_(block.attn, generator)
+    else:
+        gqa_init_(block.attn, generator)
+    if isinstance(block.ffn, MoE):
+        moe_init_(block.ffn, generator)
+    else:
+        swiglu_init_(block.ffn, generator)
 
 
 def params_device(params: LM) -> torch.device:
@@ -184,11 +273,26 @@ def params_device(params: LM) -> torch.device:
 
 
 def _empty_kv(cfg: ModelConfig, n: int, batch: int, length: int, device) -> dict:
+    """Zeroed attention caches of ``n`` layers (or uses): GQA's keys and
+    values, or MLA's latent rows and RoPE keys."""
+    dt = cfg.torch_dtype
+    if cfg.block_pattern == "mla_moe":
+        m = cfg.mla
+        return {
+            "c_kv": torch.zeros((n, batch, length, m.kv_lora_rank), dtype=dt, device=device),
+            "k_rope": torch.zeros((n, batch, length, m.qk_rope_head_dim), dtype=dt,
+                                  device=device),
+        }
     shape = (n, batch, cfg.n_kv_heads, length, cfg.head_dim_)
     return {
-        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+def _kv_len(kv: dict) -> int:
+    """S_max of a cache from :func:`_empty_kv`."""
+    return kv["c_kv"].shape[2] if "c_kv" in kv else kv["k"].shape[3]
 
 
 def _empty_ssm(cfg: ModelConfig, batch: int, device) -> dict:
@@ -203,25 +307,40 @@ def _n_super(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid_period
 
 
+def _ffn(block: DecoderLayer, cfg: ModelConfig, x, *, no_drop: bool = False):
+    if isinstance(block.ffn, MoE):
+        return moe_apply(block.ffn, cfg, x, no_drop=no_drop)[0]
+    return swiglu(block.ffn, x)
+
+
 def _attn_ffn_prefill(block: DecoderLayer, cfg: ModelConfig, x, rope, kv: dict, i: int):
-    """One attention + FFN block over the prompt; writes its keys and
-    values into use ``i`` of ``kv``."""
+    """One attention + FFN block over the prompt; writes its cache rows
+    (keys and values, or MLA's latent rows) into use ``i`` of ``kv``."""
     s = x.shape[1]
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    h, k, v = gqa_prefill(block.attn, cfg, h, rope)
-    kv["k"][i, :, :, :s] = k
-    kv["v"][i, :, :, :s] = v
+    if isinstance(block.attn, MLA):
+        h, c_kv, k_rope = mla_prefill(block.attn, cfg, h, rope)
+        kv["c_kv"][i, :, :s] = c_kv
+        kv["k_rope"][i, :, :s] = k_rope
+    else:
+        h, k, v = gqa_prefill(block.attn, cfg, h, rope)
+        kv["k"][i, :, :, :s] = k
+        kv["v"][i, :, :, :s] = v
     x = x + h
     h = rmsnorm(block.norm2, x, cfg.norm_eps)
-    return x + swiglu(block.ffn, h)
+    return x + _ffn(block, cfg, h)
 
 
 def _attn_ffn_decode(block: DecoderLayer, cfg: ModelConfig, x, kv: dict, i: int, pos,
                      rope, slots):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    x = x + gqa_decode(block.attn, cfg, h, kv["k"][i], kv["v"][i], pos, rope, slots)
+    if isinstance(block.attn, MLA):
+        h = mla_decode(block.attn, cfg, h, kv["c_kv"][i], kv["k_rope"][i], pos, rope, slots)
+    else:
+        h = gqa_decode(block.attn, cfg, h, kv["k"][i], kv["v"][i], pos, rope, slots)
+    x = x + h
     h = rmsnorm(block.norm2, x, cfg.norm_eps)
-    return x + swiglu(block.ffn, h)
+    return x + _ffn(block, cfg, h, no_drop=True)
 
 
 def _mamba_prefill(layer: MambaLayer, cfg: ModelConfig, x, state: dict, i: int):
@@ -257,9 +376,9 @@ def prefill(
     """Process the prompts ``batch["tokens"]`` (B, S); returns the
     last-position logits (B, 1, V) fp32 and the decode cache.
 
-    ``max_len`` reserves key/value headroom for the decode steps that
-    follow (default: the prompt length only); the Mamba2 state has none
-    to reserve.
+    ``max_len`` reserves cache headroom for the decode steps that follow
+    (default: the prompt length only); the Mamba2 state has none to
+    reserve.
     """
     check_family(cfg)
     dev = params_device(params)
@@ -307,7 +426,7 @@ def decode_step(
             x = _mamba_decode(layer, cfg, x, layers, i)
     else:
         kv = layers["attn"] if cfg.block_pattern == "zamba2" else layers
-        rope, slots = rope_for(cfg, pos[:, None]), cache_slots(pos, kv["k"].shape[3])
+        rope, slots = rope_for(cfg, pos[:, None]), cache_slots(pos, _kv_len(kv))
         if cfg.block_pattern == "zamba2":
             for i, layer in enumerate(params.layers):
                 if i % cfg.hybrid_period == 0:

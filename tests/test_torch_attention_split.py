@@ -11,10 +11,18 @@ before a launch, and K5's split-KV arithmetic.
   dim;
 - a PyTorch mirror of K5's chunked partials and their log-sum-exp merge
   (empty chunks included), held against the plain version at 1e-6 in
-  float32 (the sums run in another order).
+  float32 (the sums run in another order);
+- K5's cut of a group past 8 query heads into slices (Qwen3-MoE's 16:
+  two slices of 8, each a block's share with its own partials), the
+  split plan over (KV head, slice), the refusal past ``MAX_GROUP``, the
+  ceilings against ``csrc/decode_attention.cu``, and the mirror per
+  slice held against the plain version at 1e-6.
 
 Nothing here launches or builds a kernel.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -101,7 +109,7 @@ def test_tma_strides_refuse_what_tma_cannot_read():
         fak.tma_strides("v", torch.zeros(2, 4, 128, 64, dtype=torch.bfloat16).transpose(2, 3))
 
 
-def _split_kv_mirror(q, k, v, pos):
+def _split_kv_mirror(q, k, v, pos, splits=None):
     """K5's arithmetic in PyTorch: the 64-key chunks of ``split_plan``
     dealt round-robin to the splits; per split the partial (m, l, acc)
     over its keys t <= pos (an empty split gives m = -inf, l = 0,
@@ -109,7 +117,8 @@ def _split_kv_mirror(q, k, v, pos):
     part."""
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    chunk, splits = dak.split_plan(b, hkv, t, SMS)
+    chunk, planned = dak.split_plan(b, hkv, t, SMS)
+    splits = splits or planned
     g = h // hkv
     qg = q.reshape(b, hkv, g, hd) * hd**-0.5
     last = torch.minimum(pos, torch.tensor(t - 1))
@@ -161,3 +170,94 @@ def test_split_kv_mirror_gives_zero_without_keys():
     q, k, v = torch.ones(1, 2, 8), torch.ones(1, 2, 100, 8), torch.ones(1, 2, 100, 8)
     out = _split_kv_mirror(q, k, v, torch.tensor([-1], dtype=torch.int32))
     assert torch.equal(out, torch.zeros(1, 2, 8))
+
+
+@pytest.mark.parametrize(
+    "group,want",
+    [(1, (1, 1)), (4, (1, 4)), (8, (1, 8)), (9, (2, 5)), (12, (2, 6)), (16, (2, 8))],
+)
+def test_group_slices_cut_past_eight_heads(group, want):
+    n_slices, slice_heads = dak.group_slices(group)
+    assert (n_slices, slice_heads) == want
+    assert slice_heads <= dak.MAX_SLICE
+    assert (n_slices - 1) * slice_heads < group <= n_slices * slice_heads
+
+
+@pytest.mark.parametrize("group", [0, dak.MAX_GROUP + 1, 32, 64])
+def test_groups_past_the_ceiling_are_refused(group):
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        dak.group_slices(group)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        dak.split_plan(4, 4, 1024, SMS, group)
+
+
+def test_the_ceilings_equal_the_kernel_source():
+    src = (Path(dak.__file__).parent / "csrc" / "decode_attention.cu").read_text()
+
+    def constexpr(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert constexpr("kMaxGroup") == dak.MAX_GROUP == 16
+    assert constexpr("kMaxSlice") == dak.MAX_SLICE == 8
+    assert constexpr("kMaxSplits") == dak.MAX_SPLITS
+
+
+def test_split_plan_counts_the_slices():
+    """Groups up to 8 keep the plan they had; Qwen3-MoE's 4 slots x 4 KV
+    heads x 2 slices over 1024 positions take 16 splits, 512 blocks."""
+    for group in range(1, 9):
+        assert dak.split_plan(4, 20, 1024, SMS, group) == dak.split_plan(4, 20, 1024, SMS)
+    assert dak.split_plan(4, 4, 1024, SMS, 16) == (64, 16)
+    assert dak.split_plan(4, 4, 1024, SMS, 8) == (64, 16)  # the chunks bound it
+    _, splits = dak.split_plan(4, 4, 8192, SMS, 16)
+    assert 4 * 4 * 2 * splits <= dak.BLOCKS_PER_SM * SMS < 4 * 4 * 2 * (splits + 1)
+
+
+def _sliced_mirror(q, k, v, pos):
+    """The kernel at a group past 8: each slice of ``group_slices`` served
+    by its own blocks (the split plan over (KV head, slice)), with its own
+    partials and merge, written to its heads of the output."""
+    b, h, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    n_slices, width = dak.group_slices(g)
+    _, splits = dak.split_plan(b, hkv, t, SMS, g)
+    qg = q.reshape(b, hkv, g, hd)
+    out = torch.empty_like(qg)
+    for sl in range(n_slices):
+        heads = slice(sl * width, min(g, (sl + 1) * width))
+        part = qg[:, :, heads].reshape(b, -1, hd)
+        got = _split_kv_mirror(part, k, v, pos, splits)
+        out[:, :, heads] = got.reshape(b, hkv, -1, hd)
+    return out.reshape(b, h, hd)
+
+
+@pytest.mark.parametrize(
+    "b,h,hkv,t,hd",
+    [(4, 64, 4, 1024, 32), (2, 12, 1, 300, 16), (1, 16, 1, 4100, 8), (3, 36, 4, 130, 8)],
+)
+def test_sliced_mirror_matches_the_plain_version(b, h, hkv, t, hd):
+    """Qwen3-MoE's layout (64 query / 4 KV heads: group 16, two slices)
+    and groups 12 and 9 (slices of 6 and 5 + 4)."""
+    rng = np.random.default_rng(h + t)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    chunk, splits = dak.split_plan(b, hkv, t, SMS, h // hkv)
+    assert dak.group_slices(h // hkv)[0] == 2
+    for pos in ([0] * b, [chunk] * b, [splits * chunk + 1] * b, [t - 1] * b, [t + 7] * b,
+                rng.integers(0, t, b).tolist()):
+        p = torch.tensor(pos, dtype=torch.int32)
+        np.testing.assert_allclose(_sliced_mirror(q, k, v, p),
+                                   dak.decode_attention_plain(q, k, v, p), atol=1e-6,
+                                   err_msg=str(pos))
+
+
+def test_decode_attention_cpu_tensors_take_the_plain_version_at_any_group():
+    """The plain version has no ceiling: a CPU tensor past ``MAX_GROUP``
+    is computed, never refused."""
+    q, k, v = torch.ones(1, 32, 8), torch.ones(1, 1, 10, 8), torch.ones(1, 1, 10, 8)
+    dak.reset_counts()
+    out = dak.decode_attention(q, k, v, torch.tensor([3], dtype=torch.int32))
+    assert dak.COUNTS == {"decode_attention": 0, "plain": 1}
+    assert torch.equal(out, torch.ones(1, 32, 8))

@@ -1,6 +1,7 @@
 """The model kernels (RMSNorm, decode and flash attention, the SSD scan)
-against their plain versions, and the dense, Mamba2 and Zamba2 models on
-the card against the CPU.  Flash attention runs bf16 on the tensor cores
+against their plain versions, and the dense, MoE, MLA + MoE, Mamba2 and
+Zamba2 models on the card against the CPU.  Decode attention also at
+groups of 12 and 16 query heads per KV head (two slices of a group).  Flash attention runs bf16 on the tensor cores
 and float32 on the CUDA cores; decode attention splits the cache over
 blocks (split-KV) and merges in the same launch.
 
@@ -118,7 +119,9 @@ def test_rmsnorm_vector_and_scalar_routes_match_plain(card, case, dtype):
 @pytest.mark.parametrize(
     "b,h,hkv,t,hd",
     [(2, 4, 2, 1024, 64), (3, 8, 8, 512, 128), (1, 16, 4, 2048, 64),
-     (4, 20, 20, 1000, 128), (1, 64, 8, 300, 128), (2, 4, 2, 37, 16), (2, 10, 2, 77, 96)],
+     (4, 20, 20, 1000, 128), (1, 64, 8, 300, 128), (2, 4, 2, 37, 16), (2, 10, 2, 77, 96),
+     # groups past 8: two slices of a group (12: 6 + 6; 16: 8 + 8, Qwen3-MoE's shape)
+     (2, 24, 2, 700, 128), (3, 12, 1, 130, 64), (4, 64, 4, 1024, 128), (1, 16, 1, 8192, 128)],
 )
 def test_decode_attention_kernel_matches_plain(card, b, h, hkv, t, hd, dtype):
     rng = np.random.default_rng(b * 100 + t)
@@ -178,6 +181,27 @@ def test_decode_attention_split_kv_edges(card, b, h, hkv, t, hd, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("group", [12, 16])
+def test_decode_attention_sliced_group_ignores_keys_past_pos(card, group):
+    """A group cut into two slices: the poisoned rows after pos change
+    neither slice's heads, and every slice's ticket counter is back at 0."""
+    rng = np.random.default_rng(group)
+    b, hkv, t = 4, 4, 1024
+    q = _randn(rng, (b, group * hkv, 128), torch.bfloat16, card)
+    k = _randn(rng, (b, hkv, t, 128), torch.bfloat16, card)
+    v = _randn(rng, (b, hkv, t, 128), torch.bfloat16, card)
+    pos = torch.tensor([0, 63, 300, 1000], dtype=torch.int32, device=card)
+    out1 = dak.decode_attention(q, k, v, pos)
+    for i, at in enumerate(pos.tolist()):
+        k[i, :, at + 1:] = 1e4
+        v[i, :, at + 1:] = -1e4
+    assert torch.equal(out1, dak.decode_attention(q, k, v, pos))
+    _close(out1, dak.decode_attention_plain(q, k, v, pos), torch.bfloat16)
+    n_slices, _ = dak.group_slices(group)
+    assert int(dak._TICKETS[card.index or 0][: b * hkv * n_slices].abs().sum()) == 0
+
+
+@pytest.mark.gpu
 def test_decode_attention_split_kv_ignores_keys_past_pos(card):
     """bf16, pos past a split boundary: the poisoned rows after pos, in its
     own split and in the empty ones, change nothing."""
@@ -201,7 +225,7 @@ def test_decode_attention_split_kv_ignores_keys_past_pos(card):
     "b,h,hkv,s,t,hd",
     [(2, 4, 2, 256, 256, 128), (1, 8, 8, 128, 128, 128), (2, 2, 1, 512, 512, 128),
      (1, 4, 2, 200, 200, 64), (2, 4, 4, 129, 129, 16), (1, 4, 1, 100, 300, 32),
-     (1, 64, 8, 65, 65, 128)],
+     (1, 64, 8, 65, 65, 128), (1, 64, 4, 300, 300, 128)],  # Qwen3-MoE: 64 / 4 heads
 )
 def test_flash_attention_kernel_matches_plain(card, b, h, hkv, s, t, hd, dtype, causal):
     rng = np.random.default_rng(s * 10 + hd)
@@ -417,7 +441,8 @@ def test_attention_kernels_at_head_width_80(card, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-32b", "mamba2-130m", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen3-32b", "mamba2-130m", "zamba2-2.7b",
+                                  "qwen3-moe-235b-a22b", "deepseek-v3-671b"])
 def test_model_on_the_card_matches_the_cpu(card, arch):
     cfg = get_smoke_config(arch)
     with set_backend(device="cpu"):

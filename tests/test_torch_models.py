@@ -9,6 +9,8 @@ cache as (L, B, Hkv, S, hd), so the reference's (L, B, S, Hkv, hd) cache
 is transposed to compare.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -59,7 +61,13 @@ def test_port_configs_equal_the_reference_configs():
             assert port.__dict__.keys() == ref.__dict__.keys()
             for field in fields:
                 assert getattr(port, field) == getattr(ref, field), (arch, field)
+            for field in ("moe", "mla", "mtp_depth"):  # dataclasses of each package
+                got, want = getattr(port, field), getattr(ref, field)
+                if dataclasses.is_dataclass(want):
+                    got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+                assert got == want, (arch, field)
             assert port.param_count() == ref.param_count()
+            assert port.active_param_count() == ref.active_param_count()
     assert get_config("qwen1.5-4b").torch_dtype == torch.bfloat16
     for arch in WAITING:
         with pytest.raises(KeyError, match="waits for"):
@@ -209,6 +217,6 @@ def test_init_params_draws_the_reference_rules():
 
 
 def test_other_families_wait_for_their_slice():
-    cfg = get_smoke_config("qwen1.5-4b").scaled(block_pattern="moe")
+    cfg = get_smoke_config("qwen1.5-4b").scaled(block_pattern="encdec")
     with set_backend(device="cpu"), pytest.raises(NotImplementedError, match="dense"):
         init_params(torch.Generator().manual_seed(0), cfg)
