@@ -89,6 +89,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    two slices, and a group of 12), at every compiled head width, at ragged lengths (T > S and
    T < S), through the model's strided views; decode attention with pos
    on its split boundaries, pos 0, pos >= T and an 8192-position cache;
+7a. attention widths — K5 at a group of 32 (128 query / 4 KV heads, T
+    1024, hd 128) and 64, and at hd 256, 96 and 33 (group 4); K6 causal
+    and not at hd 256, 96 (the tensor cores in bf16) and 72 (the
+    any-width kernel), and at hd 72 through strided views; float32 and
+    bf16, each against its plain version within the model tolerance,
+    one kernel launch a case and no plain call; each case's µs (CUDA
+    events), the bf16 ones against plain, SDPA and the bound;
 8. serve parity — the port's ``ServeEngine`` on the card (kernels)
    against the port on the CPU (plain versions) on both smoke configs in
    float32: identical tokens, and the logits' largest difference;
@@ -141,6 +148,28 @@ Phases, each printing one JSON line (any failure exits non-zero):
     share of routed assignments dropped, and the prefill -> decode handoff
     at capacity factor E / k (nothing drops) within 5 % of the largest
     logit, as 10.;
+14c. vlm serve — LLaVA-NeXT-Mistral-7B at full width and depth (32
+    layers, d 4096, 32 query / 8 KV heads of 128, vocab 32,000, ~7.2 G
+    parameters in bf16, seeded): 4 sequences of 576 seeded patch
+    embeddings (the stubbed vision tower, as in the reference) + 64
+    tokens prefilled, 32 decode steps; the last step's logits against one
+    prefill of the extended sequence within 5 % of the largest logit,
+    clear argmaxes agreeing; exactly 65 K4 launches a pass, 32 K6 (tensor
+    cores) in the prefill, 32 K5 a step, no plain call; ms a step and the
+    peak memory;
+14d. train — Qwen1.5-4B at full width, 4 of its 40 layers, 4 x 1024
+    tokens, and Mamba2-130M whole, 4 x 2048, bf16 with AdamW's moments in
+    bf16, on one batch from ``LocalityAwareLoader`` (its shard reads
+    placed by ``water_filling_torch`` on the card): step 1's gradients
+    through the kernels' autograd Functions against the plain versions'
+    (bf16: the global norms within 1e-2, the whole gradient's relative
+    L2 distance within 5e-2, every leaf's within 1.5e-1; the model
+    upcast to float32: all three within 1e-3),
+    then 20 ``make_train_step`` steps (the loss falls by 0.3 at least;
+    exactly 2L + 1 K4 and L K6 (Qwen) or L K7 (Mamba2) launches a step,
+    no plain call); ms a step, tokens/s, peak memory; the train state
+    saved (async) and restored through ``CheckpointManager`` with every
+    leaf identical, and placed by ``register_checkpoint``;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's single-job calls and chained bursts, beside
@@ -152,7 +181,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
     engine serves 4 requests under ``observe()`` with ``debug=True`` (the
     buffer guard armed): the tokens equal the unobserved, unguarded
     engine's, ``device.serve-decode.calls`` equals the decode steps;
-17. contracts — each of the eight kernel contracts at every geometry the
+17. contracts — each of the eight scheduler kernel contracts at every geometry the
     run launched: its shared memory and threads equal the block the
     wrapper launched with, its static shared memory the compiled
     kernel's, within the card's opt-in shared memory, which equals
@@ -160,7 +189,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     repro_torch.analysis.kernelcheck`` in-process, exit 0.
 
 Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
-walls are on the ``moe_phases`` line), the ``kernels``
+walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
+``slice11_phases`` line), the ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
 launches too), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
@@ -170,6 +200,7 @@ the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -191,14 +222,18 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.analysis import kernelcheck  # noqa: E402
 from repro_torch.analysis.contracts import CONTRACTS  # noqa: E402
 from repro_torch.backend import set_backend  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core import AssignmentProblem, TaskGroup, water_filling  # noqa: E402
 from repro_torch.core import commit_busy, nlip, obta, rd_torch, wf_torch  # noqa: E402
 from repro_torch.core.rd import host_commit_walk, replica_deletion  # noqa: E402
 from repro_torch.core.rd_plus import rebalance_1opt  # noqa: E402
+from repro_torch.core.wf_torch import water_filling_torch  # noqa: E402
+from repro_torch.data import LocalityAwareLoader, ShardStore  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as dak  # noqa: E402
 from repro_torch.kernels import flash_attention as fak  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rd as rdk  # noqa: E402
 from repro_torch.kernels import rmsnorm as rnk  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssk  # noqa: E402
@@ -213,6 +248,7 @@ from repro_torch.runtime import (  # noqa: E402
     make_policy,
 )
 from repro_torch.obs.trace import parse_chrome_trace  # noqa: E402
+from repro_torch.placement import PlacementStore, register_checkpoint  # noqa: E402
 from repro_torch.serve import balance_expert_replicas, replica_placement  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ReplicaRouter,
@@ -221,6 +257,10 @@ from repro_torch.serve.engine import (  # noqa: E402
     ServeEngine,
     make_prefill_step,
 )
+from repro_torch.train import AdamWConfig as TrainAdamWConfig  # noqa: E402
+from repro_torch.train import TrainState, make_train_step, train_state_init  # noqa: E402
+from repro_torch.train.optim import tree_leaves as ckpt_leaves  # noqa: E402
+from repro_torch.train.step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.traces import (  # noqa: E402
     generate,
     load_batch_task_csv,
@@ -367,6 +407,11 @@ MODEL_TOL = {"float32": (5e-5, 0.0), "bfloat16": (2e-2, 2**-7)}
 # 4 slots x 1024 positions, 8 requests of 32-128 prompt tokens, 16 new each
 SSM_ARCHS = ("mamba2-130m", "zamba2-2.7b")
 SSM_REPLICAS = {"mamba2-130m": 1, "zamba2-2.7b": SERVE_REPLICAS}
+# Zamba2-2.7B's serving, decode profile and prefill run 24 of its 54
+# layers (4 of its 9 super-blocks, full width): the depth is cut so that
+# the script, with the training and VLM phases, stays well inside its
+# time limit; K7's and K6's checks and timings keep the published shapes
+SSM_LAYERS = {"mamba2-130m": None, "zamba2-2.7b": 24}
 SSM_REQUESTS = 8
 SSM_PROMPT = (32, 128)
 SSM_NEW = 16
@@ -427,6 +472,44 @@ MOE_HANDOFF = {"qwen3-moe-235b-a22b": (4, 512), "deepseek-v3-671b": (2, 256)}
 MOE_F32_LAYERS = {"qwen3-moe-235b-a22b": 4, "deepseek-v3-671b": 1}
 MOE_HANDOFF_F32_TOL = 1e-3
 MOE_BUDGET_S = 90  # this slice's phases, together
+
+# K5 and K6 past their earlier ceilings (attention_widths): K6's widths,
+# one on the tensor cores in bf16 (96), two on the any-width kernel
+WIDTH_K6 = (256, 96, 72)
+
+# LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, ~7.2 G
+# parameters, ~14.5 GB in bf16, seeded weights; the vision tower stubbed
+# as the reference stubs it: 576 seeded patch embeddings a sequence):
+# 4 sequences of 576 patches + 64 tokens prefilled, then 32 decode steps
+VLM_ARCH = "llava-next-mistral-7b"
+VLM_BATCH = 4
+VLM_PROMPT = 64
+VLM_STEPS = 32
+VLM_PATCH_STD = 0.02  # the patch embeddings' scale: the token embeddings' init std
+
+# training on one card (train): Qwen1.5-4B at full width (d 2560, vocab
+# 151,936), 4 of its 40 layers, batch 4 x 1024; Mamba2-130M whole, 4 x
+# 2048; bf16 weights, AdamW with bf16 moments, 20 steps on one batch from
+# the locality-aware loader (the loss must fall, as the reference's
+# test_train_step_memorizes_fixed_batch); step 1's gradients through the
+# kernels' Functions against the same model with the plain versions in
+# its forward: in bf16 within TRAIN_GRAD_TOL (the global norm's relative
+# difference, and each leaf's and the whole gradient's relative L2
+# distance: bf16 rounds differently on the two paths, e.g. K6 multiplies
+# V by P rounded to bf16), and, to tell rounding from a fault, the same
+# model upcast to float32 within TRAIN_GRAD_TOL_F32 (the kernels' float32
+# routes against fp32 plain math); then the train state through
+# CheckpointManager and register_checkpoint
+TRAIN_MODELS = {"qwen1.5-4b": (4, 4, 1024), "mamba2-130m": (None, 4, 2048)}
+TRAIN_STEPS = 20
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS, moment_dtype="bfloat16")
+TRAIN_LOSS_DROP = 0.3
+# (the bf16 leaf limit: Mamba2's dt_bias leaf, 24 sums over 8,192 tokens
+# with cancellation, lies 7.5e-2 from the plain path's on an H100 while
+# the float32 copy agrees to 3.7e-5: the gap is bf16 rounding)
+TRAIN_GRAD_TOL = {"global_norm": 1e-2, "leaf": 1.5e-1, "whole": 5e-2}
+TRAIN_GRAD_TOL_F32 = {"global_norm": 1e-3, "leaf": 1e-3, "whole": 1e-3}
+SLICE11_BUDGET_S = 150  # attention_widths, vlm_serve and train together
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
 # outside the tensor cores (the table's fp32 entry; the scheduler
@@ -2399,8 +2482,8 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
                                  dtype_name)
             cases.append({"kernel": "flash_attention", "case": label,
                           "shape": [b, nh, nkv, sl, tl, dh], "causal": causal,
-                          "route": fak.route(dt), "dtype": dtype_name, "max_abs_err": err,
-                          "ok": ok})
+                          "route": fak.route(dt, dh), "dtype": dtype_name,
+                          "max_abs_err": err, "ok": ok})
         # the model's layout: q, k and v as transposed (B, S, H, hd) views of
         # one projection's rows
         b, sl = 2, 300
@@ -2413,7 +2496,7 @@ def phase_model_kernels(seed: int) -> dict[str, float]:
                                                        v.contiguous()), dtype_name)
         cases.append({"kernel": "flash_attention", "case": "strided (B, S, H, hd) views",
                       "shape": [b, h, hkv, sl, sl, hd], "causal": True,
-                      "route": fak.route(dt), "dtype": dtype_name, "max_abs_err": err,
+                      "route": fak.route(dt, hd), "dtype": dtype_name, "max_abs_err": err,
                       "ok": ok})
     torch.cuda.synchronize()
     for c in cases:
@@ -2837,6 +2920,396 @@ def phase_model_timings(seed: int) -> dict:
     return rows
 
 
+# ---- K5 and K6 at every group and head width up to 256 -------------------------
+
+
+def _k5_bound(b: int, h: int, hkv: int, hd: int, pos: torch.Tensor) -> tuple[float, str]:
+    keys = int(pos.clamp(min=0).sum()) + b  # the keys t <= pos this run reads
+    return _bound(2 * (2 * b * h * hd + 2 * keys * hkv * hd) + 4 * b, 4 * keys * h * hd,
+                  PEAK_BF16_FLOPS)
+
+
+def _k6_bound(b: int, h: int, hkv: int, s: int, t: int, hd: int,
+              causal: bool) -> tuple[float, str]:
+    pairs = b * h * sum(min(i + 1, t) for i in range(s)) if causal else b * h * s * t
+    return _bound(2 * (2 * b * h * s * hd + 2 * b * hkv * t * hd), 4 * pairs * hd,
+                  PEAK_BF16_FLOPS)
+
+
+def phase_attention_widths(seed: int) -> dict:
+    """K5 and K6 at the groups and head widths past their earlier
+    ceilings, in float32 and bfloat16: K5 at a group of 32 (and 64) and at
+    hd 256, 96 and 33; K6 causal and not at hd 256, 96 and 72 (96 on the
+    tensor cores in bf16, the rest on the any-width kernel), and at hd 72
+    through the model's strided views.  Every kernel call runs first,
+    with the counts zeroed: one launch per case and no plain call; then
+    each output against its plain version, within the model tolerance.
+    Each case's kernel time is CUDA events over back-to-back calls; the
+    bf16 cases at the widths the summary reports are timed against plain
+    and SDPA too."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(seed + 110)
+    k5 = [("group 32", (4, 128, 4, 1024, 128)), ("group 64", (2, 64, 1, 1024, 64)),
+          ("hd 256", (4, 16, 4, 1024, 256)), ("hd 96", (4, 16, 4, 1024, 96)),
+          ("hd 33", (4, 16, 4, 1024, 33))]
+    k6 = [(f"hd {w}{'' if c else ', not causal'}", (2, 16, 4, 1024, 1024, w), c)
+          for w in WIDTH_K6 for c in (True, False)]
+    runs = []
+    _reset_model_counts()
+    for dtype_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype_name)
+        for label, (b, h, hkv, t, hd) in k5:
+            q = _randn(gen, (b, h, hd), dt)
+            k, v = _randn(gen, (b, hkv, t, hd), dt), _randn(gen, (b, hkv, t, hd), dt)
+            pos = torch.randint(0, t, (b,), generator=gen, device="cuda", dtype=torch.int32)
+            pos[0], pos[-1] = 0, t - 1
+            args = (q, k, v, pos)
+            runs.append(("decode_attention", label, dtype_name, [b, h, hkv, t, hd], None, args,
+                         dak.decode_attention(*args)))
+        for label, (b, h, hkv, s, t, hd), causal in k6:
+            q = _randn(gen, (b, h, s, hd), dt)
+            k, v = _randn(gen, (b, hkv, t, hd), dt), _randn(gen, (b, hkv, t, hd), dt)
+            runs.append(("flash_attention", label, dtype_name, [b, h, hkv, s, t, hd], causal,
+                         (q, k, v), fak.flash_attention(q, k, v, causal=causal)))
+        b, sl, h, hkv, hd = 2, 300, 16, 4, 72  # the model's layout: views of one projection
+        qkv = _randn(gen, (b, sl, (h + 2 * hkv) * hd), dt)
+        q = qkv[..., : h * hd].reshape(b, sl, h, hd).transpose(1, 2)
+        k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, sl, hkv, hd).transpose(1, 2)
+        v = qkv[..., (h + hkv) * hd :].reshape(b, sl, hkv, hd).transpose(1, 2)
+        runs.append(("flash_attention", "hd 72, strided (B, S, H, hd) views", dtype_name,
+                      [b, h, hkv, sl, sl, hd], True, (q, k, v),
+                      fak.flash_attention(q, k, v, causal=True)))
+    torch.cuda.synchronize()
+    counts = _model_counts()
+    n5 = sum(r[0] == "decode_attention" for r in runs)
+    n6 = len(runs) - n5
+    if (counts["decode_attention"] != {"decode_attention": n5, "plain": 0}
+            or counts["flash_attention"]["flash_attention"] != n6
+            or counts["flash_attention"]["plain"] != 0):
+        raise AssertionError(f"attention_widths: {n5} K5 and {n6} K6 calls gave counts "
+                             f"{counts['decode_attention']} {counts['flash_attention']}")
+    cases, timed = [], {}
+    for kernel, label, dtype_name, shape, causal, args, got in runs:
+        if kernel == "decode_attention":
+            want = dak.decode_attention_plain(*args)
+            call = lambda a=args: dak.decode_attention(*a)  # noqa: E731
+            extra = {"slices": dak.group_slices(shape[1] // shape[2]),
+                     "lane_plan": dak.lane_plan(shape[4], args[0].element_size())}
+        else:
+            want = fak.flash_attention_plain(*(x.contiguous() for x in args), causal=causal)
+            call = lambda a=args, c=causal: fak.flash_attention(*a, causal=c)  # noqa: E731
+            extra = {"causal": causal, "route": fak.route(args[0].dtype, shape[5])}
+        err, ok = _model_err(got, want, dtype_name)
+        cases.append({"kernel": kernel, "case": label, "dtype": dtype_name, "shape": shape,
+                      **extra, "max_abs_err": err, "ok": ok,
+                      "kernel_us": cuda_ms(call, 10) * 1e3})
+        if dtype_name != "bfloat16" or "strided" in label or "not causal" in label:
+            continue
+        if kernel == "decode_attention":
+            q, k, v, pos = args
+            t_len = k.shape[2]
+            mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None]
+            t = _time_three(call, lambda a=args: dak.decode_attention_plain(*a),
+                            lambda: F.scaled_dot_product_attention(
+                                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 100)
+            bound, by = _k5_bound(*shape[:3], shape[4], pos)
+        else:
+            q, k, v = args
+            t = _time_three(call, lambda a=args: fak.flash_attention_plain(*a, causal=True),
+                            lambda: F.scaled_dot_product_attention(
+                                q, k, v, is_causal=True, enable_gqa=True), 5)
+            bound, by = _k6_bound(*shape, True)
+        timed[f"{kernel} {label}"] = {"shape": shape, **t, "bound_ms": bound, "bound_by": by}
+    bad = [c for c in cases if not c["ok"]]
+    emit({"phase": "attention_widths", "counts": {"decode_attention": n5,
+                                                  "flash_attention": n6, "plain": 0},
+          "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in MODEL_TOL.items()},
+          "cases": cases, "timed_bf16": timed})
+    if bad:
+        raise AssertionError(f"attention_widths: kernels disagree with plain: {bad}")
+    return {"timed": timed,
+            "max_abs_err": {k: max(c["max_abs_err"] for c in cases if c["kernel"] == k)
+                            for k in ("decode_attention", "flash_attention")}}
+
+
+# ---- LLaVA-NeXT-Mistral-7B serving, and training on one card ------------------
+
+
+def phase_vlm_serve(seed: int) -> dict:
+    """LLaVA-NeXT-Mistral-7B at full width and depth: 4 sequences of 576
+    seeded patch embeddings + 64 tokens prefilled (K6 on the tensor cores,
+    K4), then 32 decode steps (K5 at a group of 4, K4); the last step's
+    logits against one prefill of the extended sequence, within the dense
+    serve phases' bf16 tolerance (PREFILL_REL_TOL, clear argmaxes
+    agreeing); exact launch counts, no plain call."""
+    cfg = get_config(VLM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 120)
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, p_len, n = VLM_BATCH, cfg.n_patches, VLM_PROMPT
+    patches = (torch.randn(b, p_len, cfg.d_model, generator=gen, device="cuda")
+               * VLM_PATCH_STD).to(cfg.torch_dtype)
+    toks = torch.randint(1, cfg.vocab, (b, n + VLM_STEPS), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    _reset_model_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": toks[:, :n], "patches": patches},
+                            max_len=p_len + n + VLM_STEPS)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = _model_counts()
+    _reset_model_counts()
+    finite = [torch.isfinite(logits).all()]
+    step_ms = []
+    for i in range(VLM_STEPS):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, toks[:, n + i : n + i + 1], cache)
+        finite.append(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_s = sum(step_ms) / 1e3
+    decode_counts = _model_counts()
+    pos = cache["pos"].tolist()
+    del cache
+    got = logits[:, 0].float()
+    # the last decode step fed token n + 31 at position 576 + 64 + 31: the
+    # prefill over tokens [0, n + 32) predicts the same next token
+    want, _ = prefill(params, cfg, {"tokens": toks, "patches": patches})
+    want = want[:, 0].float()
+    peak = torch.cuda.max_memory_allocated()
+    stats = _handoff_stats(got, want)
+    del params
+    torch.cuda.empty_cache()
+    norms = 2 * cfg.n_layers + 1
+    out = {
+        "phase": "vlm_serve",
+        "arch": VLM_ARCH,
+        "layers": cfg.n_layers,
+        "params": cfg.param_count(),
+        "batch": b,
+        "patches": p_len,
+        "prompt_tokens": n,
+        "decode_steps": VLM_STEPS,
+        "init_s": init_s,
+        "prefill_s": prefill_s,
+        "prefill_tokens_per_s": b * (p_len + n) / prefill_s,
+        "ms_per_decode_step": decode_s / VLM_STEPS * 1e3,
+        "ms_per_decode_step_median": float(np.median(step_ms)),
+        "ms_first_decode_steps": step_ms[:3],
+        "peak_gb": peak / 1e9,
+        "prefill_launches": prefill_counts,
+        "decode_launches": decode_counts,
+        "handoff": stats,
+        "tolerance": PREFILL_REL_TOL,
+    }
+    emit(out)
+    if pos != [p_len + n + VLM_STEPS] * b or not bool(torch.stack(finite).all()):
+        raise AssertionError(f"vlm_serve: positions {pos} or non-finite logits")
+    if stats["max_rel_err"] > PREFILL_REL_TOL or not stats["clear_argmax_agree"]:
+        raise AssertionError(f"vlm_serve: decode disagrees with the extended prefill: {stats}")
+    want_pre = {"rmsnorm": norms, "flash_attention": cfg.n_layers, "tensor_core": cfg.n_layers}
+    want_dec = {"rmsnorm": VLM_STEPS * norms, "decode_attention": VLM_STEPS * cfg.n_layers}
+    got_pre = {"rmsnorm": prefill_counts["rmsnorm"]["rmsnorm"],
+               "flash_attention": prefill_counts["flash_attention"]["flash_attention"],
+               "tensor_core": prefill_counts["flash_attention"]["tensor_core"]}
+    got_dec = {"rmsnorm": decode_counts["rmsnorm"]["rmsnorm"],
+               "decode_attention": decode_counts["decode_attention"]["decode_attention"]}
+    plain = sum(c[k]["plain"] for c in (prefill_counts, decode_counts)
+                for k in ("rmsnorm", "decode_attention", "flash_attention"))
+    if got_pre != want_pre or got_dec != want_dec or plain:
+        raise AssertionError(f"vlm_serve went around the kernels: prefill {got_pre} "
+                             f"(want {want_pre}), decode {got_dec} (want {want_dec}), "
+                             f"plain {plain}")
+    merged = {k: {c: prefill_counts[k][c] + decode_counts[k][c] for c in prefill_counts[k]}
+              for k in prefill_counts}
+    return merged
+
+
+@contextlib.contextmanager
+def _plain_model_ops():
+    """The model's kernel entries (``repro_torch.kernels.ops``) swapped for
+    the plain versions, differentiated by autograd: the reference path of
+    the train phase's gradient check (this script's, never the port's)."""
+    saved = (kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan)
+    kops.rmsnorm_fused = rnk.rmsnorm_plain
+    kops.flash_attention = fak.flash_attention_plain
+    kops.ssd_scan = lambda x, dt, a, bm, cm, *, chunk=ssk.CHUNK: ssk.ssd_scan_plain(
+        x, dt, a, bm, cm, chunk)
+    try:
+        yield
+    finally:
+        kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan = saved
+
+
+def _step_grads(params, cfg, batch) -> tuple[float, dict]:
+    """Loss and gradients (by parameter name) of one step's loss, no update."""
+    names, leaves = zip(*params.named_parameters())
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = train_loss_fn(params, cfg, batch, remat=False)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def _grad_distance(got: dict, want: dict) -> dict:
+    """The global norms' relative difference, and relative L2 distances:
+    of the whole gradient and of the worst leaf."""
+    num = den = norm_got = 0.0
+    worst, worst_name = 0.0, None
+    for name, w in want.items():
+        d = float((got[name].float() - w.float()).square().sum())
+        n2 = float(w.float().square().sum())
+        num, den = num + d, den + n2
+        norm_got += float(got[name].float().square().sum())
+        rel = (d / n2) ** 0.5 if n2 > 0 else (0.0 if d == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, name
+    return {"global_norm": abs(norm_got**0.5 - den**0.5) / den**0.5, "whole": (num / den) ** 0.5,
+            "leaf": worst, "worst_leaf_name": worst_name, "plain_global_norm": den**0.5}
+
+
+def _grad_check(params, cfg, batch) -> tuple[dict, float, float]:
+    """Step 1's gradients through the kernels' Functions against the plain
+    path's: their distance and the two losses."""
+    loss_k, g_k = _step_grads(params, cfg, batch)
+    with _plain_model_ops():
+        loss_p, g_p = _step_grads(params, cfg, batch)
+    return _grad_distance(g_k, g_p), loss_k, loss_p
+
+
+def _within(dist: dict, tol: dict) -> bool:
+    return all(dist[k] <= v for k, v in tol.items())
+
+
+def _loader_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """One (b, s + 1) batch from the locality-aware loader, its epoch's
+    shard reads placed on the data hosts by water-filling on the card."""
+    store = ShardStore(n_shards=64, n_hosts=16, replicas=3, tokens_per_shard=4096,
+                       vocab=cfg.vocab, seed=seed)
+    loader = LocalityAwareLoader(store, batch_tokens=b * (s + 1), seq_len=s + 1,
+                                 assign=water_filling_torch, seed=seed, device="cuda")
+    toks = next(iter(loader.batches(0)))
+    return {"tokens": toks[:, :-1].contiguous(), "targets": toks[:, 1:].contiguous()}
+
+
+def phase_train(seed: int) -> dict:
+    """Training on one card, for each of TRAIN_MODELS: step 1's gradients
+    through the kernels' Functions against the plain path's; 20 AdamW steps
+    on one loader batch with exact launch counts and no plain call, the
+    loss falling; the train state saved and restored through
+    ``CheckpointManager`` (every leaf identical) and placed by
+    ``register_checkpoint``."""
+    out, counts_all = {}, []
+    for arch, (layers, b, s) in TRAIN_MODELS.items():
+        cfg = get_config(arch) if layers is None else get_config(arch).scaled(n_layers=layers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(seed + 130)
+        opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
+        state = train_state_init(gen, cfg, opt_cfg)
+        n_params = sum(p.numel() for p in state.params.parameters())
+        wl.reset_counts()
+        batch = _loader_batch(cfg, b, s, seed)
+        loader_counts = dict(wl.COUNTS)
+        # step 1's gradients, kernel path then plain path: bf16, then float32
+        _reset_model_counts()
+        dist, loss_k, loss_p = _grad_check(state.params, cfg, batch)
+        grad_counts = _model_counts()
+        torch.cuda.empty_cache()
+        params32 = copy.deepcopy(state.params).float()
+        dist32, _, _ = _grad_check(params32, cfg, batch)
+        del params32
+        torch.cuda.empty_cache()
+        # 20 steps
+        step = make_train_step(cfg, opt_cfg, remat=False)
+        st = state.as_dict()
+        losses = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # the 20 steps' peak
+        _reset_model_counts()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            st, metrics = step(st, batch)
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = _model_counts()
+        counts_all.append(counts)
+        peak = torch.cuda.max_memory_allocated()
+        state = TrainState(st["params"], st["opt"])
+        # the train state through the checkpoint store
+        tree = state.tree()
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt_dir = Path(tmp) / arch
+            mgr = CheckpointManager(str(ckpt_dir), keep=2)
+            t0 = time.perf_counter()
+            mgr.save_async(TRAIN_STEPS, tree)
+            mgr.wait()
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored_step, restored = mgr.restore_latest(tree)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            pairs = list(zip(ckpt_leaves(tree), ckpt_leaves(restored)))
+            same = all(a.dtype == r.dtype and a.device == r.device and torch.equal(a, r)
+                       for a, r in pairs)
+            placed = PlacementStore(4)
+            info = register_checkpoint(placed, str(ckpt_dir), servers=(0, 2))
+            n_elems = sum(a.numel() for a, _ in pairs)
+            ckpt = {"leaves": len(pairs), "elements": n_elems,
+                    "bytes": sum(a.numel() * a.element_size() for a, _ in pairs),
+                    "save_s": save_s, "restore_s": restore_s, "identical": same,
+                    "step": restored_step, "block": info.block,
+                    "replicas": list(placed.replicas(info.block)),
+                    "manifest_leaves": info.n_leaves, "manifest_elements": info.n_params}
+        del tree, restored, pairs, state, st
+        torch.cuda.empty_cache()
+        norms = 2 * cfg.n_layers + 1
+        want = {"rmsnorm": norms}
+        if cfg.block_pattern == "mamba2":
+            want["ssd_scan"] = cfg.n_layers
+        else:
+            want["flash_attention"] = cfg.n_layers
+        got = {k: counts[k][k] for k in want}
+        plain = sum(counts[k]["plain"] for k in ("rmsnorm", "flash_attention", "ssd_scan"))
+        got_grad = {k: grad_counts[k][k] for k in want}
+        row = {
+            "layers": f"{cfg.n_layers} of {get_config(arch).n_layers}",
+            "batch": [b, s], "params": n_params,
+            "loader_wf_launches": loader_counts,
+            "loss_step1_kernel": loss_k, "loss_step1_plain": loss_p,
+            "grad_distance": dist, "grad_tolerance": TRAIN_GRAD_TOL,
+            "grad_distance_f32": dist32, "grad_tolerance_f32": TRAIN_GRAD_TOL_F32,
+            "losses": losses, "ms_per_step": train_s / TRAIN_STEPS * 1e3,
+            "tokens_per_s": TRAIN_STEPS * b * s / train_s, "peak_gb": peak / 1e9,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in got.items()},
+            "checkpoint": ckpt,
+        }
+        out[arch] = row
+        emit({"phase": "train", "arch": arch, **row})
+        if not all(np.isfinite(losses)) or losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+            raise AssertionError(f"train {arch}: the loss did not fall by "
+                                 f"{TRAIN_LOSS_DROP}: {losses}")
+        if not (_within(dist, TRAIN_GRAD_TOL) and _within(dist32, TRAIN_GRAD_TOL_F32)):
+            raise AssertionError(f"train {arch}: kernel-path gradients differ from the plain "
+                                 f"path's: bf16 {dist}, float32 {dist32}")
+        if got != {k: v * TRAIN_STEPS for k, v in want.items()} or got_grad != want or plain:
+            raise AssertionError(f"train {arch} went around the kernels: {got} per "
+                                 f"{TRAIN_STEPS} steps (want {want} a step), step 1 "
+                                 f"{got_grad}, plain {plain}")
+        if not (same and restored_step == TRAIN_STEPS and ckpt["replicas"] == [0, 2]
+                and info.n_leaves == ckpt["leaves"] and info.n_params == n_elems):
+            raise AssertionError(f"train {arch}: the checkpoint did not come back: {ckpt}")
+    merged = {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
+              for k in counts_all[0]}
+    return {"rows": out, "counts": merged}
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -3117,15 +3590,16 @@ def phase_ssm_kernels(seed: int) -> dict[str, float]:
     return worst
 
 
-def phase_ssm_prefill(arch: str, params, seed: int) -> dict:
+def phase_ssm_prefill(arch: str, params, seed: int, cfg=None) -> dict:
     """``make_prefill_step`` on 4 x 2048 tokens (K7 once per Mamba2 layer,
     K6 once per use of the shared block, K4); then the first 1792 tokens
     prefilled and the other 256 decoded one step at a time, whose last
     logits are held against the 2048-token prefill's: in float32 (the
     same weights upcast) within ``SSM_CONT_F32_TOL``, and in bf16 with
     every clear argmax agreeing and the gap reported beside the bf16
-    prefill's own distance from float32."""
-    cfg = get_config(arch)
+    prefill's own distance from float32.  ``cfg``: a depth-cut config of
+    ``arch``, the one ``params`` were made for."""
+    cfg = cfg or get_config(arch)
     uses = _attn_per_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(seed + 80)
     toks = torch.randint(1, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN), generator=gen,
@@ -3328,6 +3802,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 parity: full fp32
     torch.backends.cudnn.allow_tf32 = False
     model_worst = phase_model_kernels(args.seed)
+    slice11_s = {}
+    t0 = time.perf_counter()
+    widths = phase_attention_widths(args.seed)
+    slice11_s["attention_widths"] = time.perf_counter() - t0
     phase_serve_parity(args.seed)
     serve_counts, params = phase_serve(SERVE_ARCH, args.seed, SERVE_REPLICAS, SERVE_REQUESTS,
                                        SERVE_PROMPT, SERVE_NEW, "serve_main_path")
@@ -3343,11 +3821,15 @@ def main() -> int:
     phase_serve_parity(args.seed, SSM_ARCHS, "ssm_serve_parity", logit_tol=1e-4)
     ssm_counts = []
     for arch in SSM_ARCHS:
+        cfg, reduced = get_config(arch), None
+        if SSM_LAYERS[arch] is not None:
+            cfg = cfg.scaled(n_layers=SSM_LAYERS[arch])
+            reduced = {"depth": f"{cfg.n_layers} of {get_config(arch).n_layers} layers"}
         counts, params = phase_serve(arch, args.seed, SSM_REPLICAS[arch], SSM_REQUESTS,
-                                     SSM_PROMPT, SSM_NEW,
-                                     f"{get_config(arch).block_pattern}_serve")
-        phase_decode_profile(params, args.seed, arch, f"{arch}_decode_profile")
-        ssm_counts += [counts, phase_ssm_prefill(arch, params, args.seed)]
+                                     SSM_PROMPT, SSM_NEW, f"{cfg.block_pattern}_serve",
+                                     cfg=cfg, reduced=reduced)
+        phase_decode_profile(params, args.seed, arch, f"{arch}_decode_profile", cfg=cfg)
+        ssm_counts += [counts, phase_ssm_prefill(arch, params, args.seed, cfg)]
         del params
         torch.cuda.empty_cache()
     # this slice: the MoE and MLA + MoE families at full width, depth cut
@@ -3372,6 +3854,15 @@ def main() -> int:
         moe_s[arch] = time.perf_counter() - t0
     emit({"phase": "moe_phases", "seconds": moe_s, "total_s": sum(moe_s.values()),
           "budget_s": MOE_BUDGET_S})
+    # this slice: LLaVA-NeXT-Mistral-7B at full width and depth, and training
+    t0 = time.perf_counter()
+    vlm_counts = phase_vlm_serve(args.seed)
+    slice11_s["vlm_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = phase_train(args.seed)
+    slice11_s["train"] = time.perf_counter() - t0
+    emit({"phase": "slice11_phases", "seconds": slice11_s, "total_s": sum(slice11_s.values()),
+          "budget_s": SLICE11_BUDGET_S})
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()
@@ -3446,8 +3937,10 @@ def main() -> int:
     })
     # launches over every main path: the dense serve and prefill paths,
     # then each SSM model's serve and prefill paths
-    paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts]
-    worst_model = {k: max(v, ssm_worst.get(k, 0.0)) for k, v in model_worst.items()}
+    paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
+             vlm_counts, train["counts"]]
+    worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0))
+                   for k, v in model_worst.items()}
     worst_model["ssd_scan"] = ssm_worst["ssd_scan"]
     # beside each row's main timing, the other shapes that rank the
     # kernels: K4 at prefill rows (where it loses to F.rms_norm), K5 at the
@@ -3505,6 +3998,13 @@ def main() -> int:
             entry["group_16"] = {"shape": g16["shape"], "ms": g16["kernel_ms"],
                                  "plain_ms": g16["plain_ms"], "bound_ms": g16["bound_ms"],
                                  "library_ms": g16["library_ms"], "slices": g16["slices"]}
+        if name in ("decode_attention", "flash_attention"):  # past the earlier ceilings
+            entry["widths"] = {
+                label[len(name) + 1:]: {"shape": row["shape"], "ms": row["kernel_ms"],
+                                        "plain_ms": row["plain_ms"],
+                                        "bound_ms": row["bound_ms"],
+                                        "library_ms": row["library_ms"]}
+                for label, row in widths["timed"].items() if label.startswith(name)}
         summary.append(entry)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})

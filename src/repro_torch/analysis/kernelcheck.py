@@ -61,6 +61,8 @@ DEFAULT_MODULES = (
     "repro_torch.kernels.rd",
     "repro_torch.core.wf_torch",
     "repro_torch.core.rd_torch",
+    "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.flash_attention",
 )
 
 # One H100 block's opt-in shared memory (cudaDevAttrMaxSharedMemoryPerBlockOptin:
@@ -285,9 +287,12 @@ def _shapes(args: tuple) -> tuple:
 
 
 def _import_module(spec: str):
-    """Import a contract module by dotted name or filesystem path."""
+    """Import a contract module by dotted name or filesystem path (a file
+    under a module name of its own: the reference's kernelcheck names its
+    fixtures ``kernelcheck_fixture_<stem>``, and one process may load a
+    fixture of each package with the same file name)."""
     if spec.endswith(".py") or os.sep in spec:
-        name = "kernelcheck_fixture_" + os.path.splitext(os.path.basename(spec))[0]
+        name = "repro_torch_kernelcheck_fixture_" + os.path.splitext(os.path.basename(spec))[0]
         if name in sys.modules:
             return sys.modules[name]
         loader_spec = importlib.util.spec_from_file_location(name, spec)

@@ -3,10 +3,10 @@
 The port's counterpart of ``repro/configs``.  One module per
 architecture the port runs; each exports ``CONFIG`` (the exact published
 shape) and ``smoke_config()`` (a reduced same-family config for CPU
-tests).  So far the port runs the dense, moe, mla_moe, mamba2 and
-zamba2 families; the reference's other architectures wait for the slice
-that ports their family, and asking for one raises a ``KeyError`` that
-names that slice.
+tests).  So far the port runs the dense, moe, mla_moe, mamba2, zamba2
+and vlm families; the reference's encoder-decoder architecture waits for
+the slice that ports its family, and asking for it raises a ``KeyError``
+that names that slice.
 """
 
 from __future__ import annotations
@@ -26,11 +26,11 @@ ARCHS = (
     "deepseek-v3-671b",
     "mamba2-130m",
     "zamba2-2.7b",
+    "llava-next-mistral-7b",
 )
 
 # the reference's other architectures, and the slice each waits for
 WAITING = {
-    "llava-next-mistral-7b": "the VLM family slice",
     "whisper-medium": "the encoder-decoder family slice",
 }
 

@@ -42,6 +42,8 @@ __all__ = [
     "from_reference_problem",
     "from_reference_resilience",
     "from_reference_store",
+    "reference_leaf",
+    "reference_names",
 ]
 
 
@@ -146,15 +148,35 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
+def reference_leaf(name: str) -> tuple[tuple[str, ...], int | None]:
+    """Where the port's parameter ``name`` (as ``named_parameters`` gives
+    it) lies in the reference's parameter tree: the key path and, for a
+    layer's parameter, its index on the stacked axis 0 of that leaf
+    (``"layers.3.attn.wq.w"`` -> ``(("layers", "attn", "wq", "w"), 3)``);
+    every other parameter maps by name with no index."""
+    path = tuple(name.split("."))
+    if path[0] == "layers":
+        return ("layers",) + path[2:], int(path[1])
+    return path, None
+
+
+def reference_names(params: LM) -> dict[str, tuple[tuple[str, ...], int | None]]:
+    """:func:`reference_leaf` of every parameter of ``params``: the name
+    map the tests use to compare gradients and updated parameters leaf by
+    leaf with the reference's."""
+    return {name: reference_leaf(name) for name, _ in params.named_parameters()}
+
+
 @torch.no_grad()
 def from_reference_params(tree: Mapping, cfg: ModelConfig) -> LM:
     """The port's model of ``cfg``'s family holding the reference's
     parameters, on :func:`backend.device`.
 
     ``tree`` is the reference's ``init_params`` output with its leaves as
-    numpy arrays.  The reference stacks the layers on axis 0 of every
-    ``layers`` leaf (zamba2's too, flat over all its Mamba2 layers); the
-    port keeps one module per layer.  Other subtrees (zamba2's
+    numpy arrays (the vlm family's are the dense decoder's).  The
+    reference stacks the layers on axis 0 of every ``layers`` leaf
+    (zamba2's too, flat over all its Mamba2 layers); the port keeps one
+    module per layer.  Other subtrees (zamba2's
     ``shared_attn``, DeepSeek's MTP head ``mtp``, whose ``block`` is not
     stacked) map by name, as do the MoE leaves: the router
     ``ffn/router/w``, the routed experts as bare ``(E, ...)`` arrays
@@ -169,11 +191,7 @@ def from_reference_params(tree: Mapping, cfg: ModelConfig) -> LM:
     leaves = _flatten(tree)
     used = set()
     for name, param in params.named_parameters():
-        path = tuple(name.split("."))
-        if path[0] == "layers":
-            key, index = ("layers",) + path[2:], int(path[1])
-        else:
-            key, index = path, None
+        key, index = reference_leaf(name)
         if key not in leaves:
             raise KeyError(f"reference tree has no leaf {'/'.join(key)} for {name}")
         leaf = leaves[key]

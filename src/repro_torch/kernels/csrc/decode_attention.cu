@@ -11,8 +11,8 @@
 // last valid cache index of each sequence.  Query head h reads KV head
 // h / (H / Hkv).  Keys t <= min(pos, T - 1) take part; the rest are never
 // read, which is the reference's mask (their logit is -1e30, so their
-// weight is exactly 0).  Any T; hd <= 128; at most 16 query heads per
-// KV head.  Logits, softmax and the weighted sum of V run in fp32; the result
+// weight is exactly 0).  Any T; any hd from 1 to 256; any number of
+// query heads per KV head.  Logits, softmax and the weighted sum of V run in fp32; the result
 // is cast back to the input dtype, and is 0 for pos < 0 (no key), as the
 // TPU kernel gives.
 //
@@ -51,9 +51,24 @@
 // ceil(G / 8) slices of at most 8 heads, and the grid's y axis runs over
 // (KV head, slice): a block serves one slice and reads its (sequence, KV
 // head)'s cache rows itself, so the cache is read once per slice (twice
-// at a group of 16).  Partials and ticket counters are per (sequence, KV
-// head, slice).  A group of at most 8 is one slice: the grid, the
+// at a group of 16, four times at 32).  Partials and ticket counters are
+// per (sequence, KV head, slice).  The number of slices grows with the
+// group; nothing caps it but the grid's y extent (Hkv * n_slices <=
+// 65535).  A group of at most 8 is one slice: the grid, the
 // instantiation and the scratch layout are those of the kernel before.
+//
+// Head widths: a lane loads EPL contiguous elements at once (16 bytes
+// where hd allows).  Where the row fits one load per lane on at most 32
+// lanes and hd <= 128 (NV = 1), the row lies on the fewest lanes that
+// hold it, as above.  Any other hd up to 256 (odd widths past 32, hd
+// past 128, float32 past 128) spreads the row over all 32 lanes with NV
+// loads each, a lane's loads row_lanes * EPL elements apart, NV * EPL <=
+// 8 elements a lane per head, so the registers a lane holds stay those
+// of the NV = 1 kernel at hd 128 in bf16.  Those instantiations keep a
+// 256-wide row of shared memory for the warps' merge; the NV = 1 ones
+// keep their 128.  They are compiled for slices of 8 heads only (a
+// smaller slice leaves heads unused): no model in the repository has
+// such a width, so they trade a little speed for half the build.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,8 +78,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxHeadDim = 128;
-constexpr int kMaxGroup = 16;  // query heads per KV head
+constexpr int kMaxHeadDim = 256;
+constexpr int kOneLoadHeadDim = 128;  // the widest row the NV = 1 kernels take
+constexpr int kMaxLaneElems = 8;      // NV * EPL: a lane's elements of one head row
 constexpr int kMaxSlice = 8;   // query heads one block serves
 constexpr int kMaxSplits = 64;  // blocks per (sequence, KV head)
 
@@ -118,9 +134,11 @@ __device__ __forceinline__ float rescale(float m, float mt) {
 }
 
 // NG: most query heads per KV head this instantiation serves (G <= NG);
-// EPL: elements of a head row per lane and load (hd % EPL == 0, and the
-// row's hd / EPL lanes, rounded up to a power of two, fit one warp)
-template <typename T, int NG, int EPL>
+// EPL: elements of a head row per lane and load (hd % EPL == 0); NV:
+// loads of a head row per lane.  NV = 1: the row's hd / EPL lanes,
+// rounded up to a power of two, fit one warp and hd <= 128; NV > 1: the
+// row on all 32 lanes, hd <= 32 * EPL * NV <= 256.
+template <typename T, int NG, int EPL, int NV>
 __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int* __restrict__ pos,
@@ -129,10 +147,13 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
                             int t_len, int hd, int group, int slice_heads,
                             int n_slices, int chunk, int splits, int lanes_log2,
                             float scale) {
-  constexpr int U = NG <= 2 ? 8 : 4;  // loads of K and of V a lane has in flight
+  constexpr int U0 = NG <= 2 ? 8 : 4;
+  constexpr int U = NV >= 4 ? U0 / 2 : U0;  // key rows a lane has in flight
+  constexpr int kRow = NV == 1 ? kOneLoadHeadDim : kMaxHeadDim;
+  static_assert(NV * EPL <= kMaxLaneElems, "a lane holds at most 8 elements of a row");
   __shared__ float sm_m[kWarps][NG];
   __shared__ float sm_l[kWarps][NG];
-  __shared__ float sm_acc[kWarps][NG][kMaxHeadDim];
+  __shared__ float sm_acc[kWarps][NG][kRow];
   __shared__ int sm_last;
 
   const int split = blockIdx.x;
@@ -147,8 +168,8 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
   const int row_lanes = 1 << lanes_log2;      // lanes holding one cache row
   const int rows_per_warp = 32 >> lanes_log2;  // key slots of a warp
   const int sub = lane >> lanes_log2;          // this lane's key slot in its warp
-  const int d0 = (lane & (row_lanes - 1)) * EPL;
-  const bool lane_on = d0 < hd;
+  const int d0 = (lane & (row_lanes - 1)) * EPL;  // this lane's first element
+  const int dstep = row_lanes * EPL;                // between its NV loads
   const int last = min(pos[b], t_len - 1);  // last key that takes part
   const size_t bh = (size_t)b * n_kv_heads + kvh;  // its cache rows
   const size_t bs = bh * n_slices + slice;          // its partials and ticket
@@ -159,25 +180,30 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
     const size_t kv_base = bh * (size_t)t_len * hd;
     const T* kb = k + kv_base;
     const T* vb = v + kv_base;
-    float qr[NG][EPL];
+    float qr[NG][NV][EPL];
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      Vec<T, EPL> raw{};
-      if (g < gs && lane_on) {
-        raw = *reinterpret_cast<const Vec<T, EPL>*>(
-            q + ((size_t)b * n_heads + (size_t)h0 + g) * hd + d0);
-      }
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qr[g][e] = elem<T, EPL>(raw, e) * scale;
+      for (int j = 0; j < NV; ++j) {
+        Vec<T, EPL> raw{};
+        if (g < gs && d0 + j * dstep < hd) {
+          raw = *reinterpret_cast<const Vec<T, EPL>*>(
+              q + ((size_t)b * n_heads + (size_t)h0 + g) * hd + d0 + j * dstep);
+        }
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[g][j][e] = elem<T, EPL>(raw, e) * scale;
+      }
     }
 
-    float m[NG], l[NG], acc[NG][EPL];
+    float m[NG], l[NG], acc[NG][NV][EPL];
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       m[g] = -INFINITY;
       l[g] = 0.f;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][j][e] = 0.f;
     }
 
     const int slots = kWarps * rows_per_warp;
@@ -187,14 +213,18 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
     for (int c0 = split * chunk; c0 <= last; c0 += splits * chunk) {
       const int k1 = min(c0 + chunk, last + 1);
       for (int t0 = c0 + warp * rows_per_warp; t0 < k1; t0 += U * slots) {
-        Vec<T, EPL> kr[U], vr[U];  // raw: converted where used
+        Vec<T, EPL> kr[U][NV], vr[U][NV];  // raw: converted where used
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          kr[u] = vr[u] = Vec<T, EPL>{};
           const int t = t0 + sub + u * slots;
-          if (t < k1 && lane_on) {
-            kr[u] = *reinterpret_cast<const Vec<T, EPL>*>(kb + (size_t)t * hd + d0);
-            vr[u] = *reinterpret_cast<const Vec<T, EPL>*>(vb + (size_t)t * hd + d0);
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            kr[u][j] = vr[u][j] = Vec<T, EPL>{};
+            const int d = d0 + j * dstep;
+            if (t < k1 && d < hd) {
+              kr[u][j] = *reinterpret_cast<const Vec<T, EPL>*>(kb + (size_t)t * hd + d);
+              vr[u][j] = *reinterpret_cast<const Vec<T, EPL>*>(vb + (size_t)t * hd + d);
+            }
           }
         }
 #pragma unroll
@@ -206,7 +236,9 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
           for (int u = 0; u < U; ++u) {
             float dot = 0.f;
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) dot += qr[g][e] * elem<T, EPL>(kr[u], e);
+            for (int j = 0; j < NV; ++j)
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) dot += qr[g][j][e] * elem<T, EPL>(kr[u][j], e);
             for (int off = row_lanes >> 1; off > 0; off >>= 1)
               dot += __shfl_xor_sync(0xffffffffu, dot, off);
             s[u] = t0 + sub + u * slots < k1 ? dot : -INFINITY;
@@ -215,13 +247,17 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
           const float corr = rescale(m[g], mx);
           l[g] *= corr;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[g][e] *= corr;
+          for (int j = 0; j < NV; ++j)
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) acc[g][j][e] *= corr;
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const float p = rescale(s[u], mx);  // 0 for a key past k1
             l[g] += p;
 #pragma unroll
-            for (int e = 0; e < EPL; ++e) acc[g][e] += p * elem<T, EPL>(vr[u], e);
+            for (int j = 0; j < NV; ++j)
+#pragma unroll
+              for (int e = 0; e < EPL; ++e) acc[g][j][e] += p * elem<T, EPL>(vr[u][j], e);
           }
           m[g] = mx;
         }
@@ -239,10 +275,12 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
         const float fb = rescale(mo, mt);
         l[g] = l[g] * fa + lo * fb;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) {
-          const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-          acc[g][e] = acc[g][e] * fa + ao * fb;
-        }
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) {
+            const float ao = __shfl_xor_sync(0xffffffffu, acc[g][j][e], off);
+            acc[g][j][e] = acc[g][j][e] * fa + ao * fb;
+          }
         m[g] = mt;
       }
     }
@@ -253,9 +291,12 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
           sm_m[warp][g] = m[g];
           sm_l[warp][g] = l[g];
         }
-        if (lane_on) {
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
+        for (int j = 0; j < NV; ++j) {
+          if (d0 + j * dstep < hd) {
+#pragma unroll
+            for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + j * dstep + e] = acc[g][j][e];
+          }
         }
       }
     }
@@ -328,12 +369,17 @@ struct Args {
   float scale;
 };
 
-template <typename T, int NG, int EPL>
+template <typename T, int NG, int EPL, int NV>
 int launch_one(const Args& a, cudaStream_t s) {
-  int lanes_log2 = 0;
-  while ((1 << lanes_log2) * EPL < a.hd) ++lanes_log2;
-  if (lanes_log2 > 5) return (int)cudaErrorInvalidValue;
-  decode_attention_kernel<T, NG, EPL>
+  int lanes_log2 = 5;  // NV > 1: the row on all 32 lanes
+  if (NV == 1) {
+    lanes_log2 = 0;
+    while ((1 << lanes_log2) * EPL < a.hd) ++lanes_log2;
+    if (lanes_log2 > 5 || a.hd > kOneLoadHeadDim) return (int)cudaErrorInvalidValue;
+  } else if (a.hd > 32 * EPL * NV) {
+    return (int)cudaErrorInvalidValue;
+  }
+  decode_attention_kernel<T, NG, EPL, NV>
       <<<dim3(a.splits, a.n_kv_heads * a.n_slices, a.batch), kThreads, 0, s>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
           a.pos, static_cast<T*>(a.out), a.part, a.tickets, a.n_heads, a.n_kv_heads, a.t_len,
@@ -341,36 +387,63 @@ int launch_one(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// NV loads a lane: NV = 1 at every slice width; NV > 1 (with NV * EPL
+// <= 8) for slices of 8 heads only
+template <typename T, int NG, int EPL>
+int launch_nv(const Args& a, int nv, cudaStream_t s) {
+  if (nv == 1) return launch_one<T, NG, EPL, 1>(a, s);
+  if constexpr (NG == kMaxSlice) {
+    switch (nv) {
+      case 2:
+        if constexpr (EPL * 2 <= kMaxLaneElems) return launch_one<T, NG, EPL, 2>(a, s);
+        break;
+      case 4:
+        if constexpr (EPL * 4 <= kMaxLaneElems) return launch_one<T, NG, EPL, 4>(a, s);
+        break;
+      case 8:
+        if constexpr (EPL * 8 <= kMaxLaneElems) return launch_one<T, NG, EPL, 8>(a, s);
+        break;
+      default:
+        break;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int NG>
-int launch_epl(const Args& a, int epl, cudaStream_t s) {
+int launch_epl(const Args& a, int epl, int nv, cudaStream_t s) {
   switch (epl) {
     case 1:
-      return launch_one<T, NG, 1>(a, s);
+      return launch_nv<T, NG, 1>(a, nv, s);
     case 2:
-      return launch_one<T, NG, 2>(a, s);
+      return launch_nv<T, NG, 2>(a, nv, s);
     case 4:
-      return launch_one<T, NG, 4>(a, s);
+      return launch_nv<T, NG, 4>(a, nv, s);
     case 8:
-      if constexpr (sizeof(T) == 2) return launch_one<T, NG, 8>(a, s);
+      if constexpr (sizeof(T) == 2) return launch_nv<T, NG, 8>(a, nv, s);
       return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// the instantiation serving a slice of slice_heads query heads
+// the instantiation serving a slice of slice_heads query heads (of 8
+// where a lane loads its row more than once)
 template <typename T>
-int launch(const Args& a, int epl, cudaStream_t s) {
-  if (a.slice_heads <= 1) return launch_epl<T, 1>(a, epl, s);
-  if (a.slice_heads <= 2) return launch_epl<T, 2>(a, epl, s);
-  if (a.slice_heads <= 4) return launch_epl<T, 4>(a, epl, s);
-  return launch_epl<T, kMaxSlice>(a, epl, s);
+int launch(const Args& a, int epl, int nv, cudaStream_t s) {
+  if (nv > 1) return launch_epl<T, kMaxSlice>(a, epl, nv, s);
+  if (a.slice_heads <= 1) return launch_epl<T, 1>(a, epl, nv, s);
+  if (a.slice_heads <= 2) return launch_epl<T, 2>(a, epl, nv, s);
+  if (a.slice_heads <= 4) return launch_epl<T, 4>(a, epl, nv, s);
+  return launch_epl<T, kMaxSlice>(a, epl, nv, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  epl: elements of a head row each lane
-// loads at once (the wrapper's choice: 16 bytes where hd allows).  The
+// loads at once (the wrapper's choice: 16 bytes where hd allows); nv:
+// loads of a head row per lane (1, or 2, 4, 8 with the row on 32 lanes;
+// the wrapper's lane_plan).  The
 // caller gives the split plan (chunks of `chunk` keys dealt to `splits`
 // blocks per (sequence, KV head, slice)), a float32 scratch of
 // B * Hkv * n_slices * splits * slice_heads * (hd + 2) elements, and an
@@ -380,22 +453,24 @@ int launch(const Args& a, int epl, cudaStream_t s) {
 // may hold fewer); the caller sizes its buffers by the same rule.
 // Launches on `stream` and returns cudaGetLastError() after the launch (0
 // on success); nothing here synchronises.  Refuses (cudaErrorInvalidValue)
-// what the kernel does not take: hd past 128, not a multiple of epl, or
-// wider than 32 lanes of epl; more than 16 query heads per KV head; H not
-// a multiple of Hkv; more than 64 splits.
+// what the kernel does not take: hd past 256 or not a multiple of epl; a
+// row the (epl, nv) plan does not hold (nv = 1: more than 32 lanes of epl
+// or hd past 128; nv > 1: hd past 32 * epl * nv, or nv * epl past 8); H
+// not a multiple of Hkv; Hkv * n_slices past the grid's 65535; more than
+// 64 splits.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, void* part,
                                        void* tickets, int batch, int n_heads,
                                        int n_kv_heads, int t_len, int hd, int chunk,
-                                       int splits, int epl, float scale, int dtype,
+                                       int splits, int epl, int nv, float scale, int dtype,
                                        void* stream) {
   if (batch < 1 || batch > 65535 || n_kv_heads < 1 || n_kv_heads > 65535 ||
       n_heads % n_kv_heads || t_len < 1 || hd < 1 || hd > kMaxHeadDim || epl < 1 ||
-      hd % epl || splits < 1 || splits > kMaxSplits || chunk < 1) {
+      hd % epl || nv < 1 || splits < 1 || splits > kMaxSplits || chunk < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const int group = n_heads / n_kv_heads;
-  if (group < 1 || group > kMaxGroup) return (int)cudaErrorInvalidValue;
+  if (group < 1) return (int)cudaErrorInvalidValue;
   const int n_slices = (group + kMaxSlice - 1) / kMaxSlice;
   const int slice_heads = (group + n_slices - 1) / n_slices;
   if ((long long)n_kv_heads * n_slices > 65535) return (int)cudaErrorInvalidValue;
@@ -405,9 +480,9 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(a, epl, s);
+      return launch<float>(a, epl, nv, s);
     case 1:
-      return launch<__nv_bfloat16>(a, epl, s);
+      return launch<__nv_bfloat16>(a, epl, nv, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

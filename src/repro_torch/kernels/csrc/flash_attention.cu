@@ -22,8 +22,8 @@
 // elements moved, so at the model's sequence lengths it is bound by
 // arithmetic: the tensor cores' bf16 rate is the card's ceiling.
 //
-// Two kernels, chosen by dtype (the wrapper calls one entry point or the
-// other; neither is a fallback of the other):
+// Three kernels, chosen by dtype and head width before the launch (the
+// wrapper calls one entry point; none is a fallback of another):
 //
 // bfloat16 -> flash_attention_bf16_launch, on the tensor cores.  A block
 //   of three roles owns 128 query rows of one (sequence, head): one
@@ -42,6 +42,9 @@
 //   row is no swizzle width) as 16-column boxes with the 32-byte swizzle,
 //   one box per 16-deep wgmma step.  Tiles above the causal diagonal are
 //   skipped and only tiles that cross it or the end of T are masked.
+//   Compiled at every multiple of 16 up to 128 (16, 32, 48, 64, 80, 96,
+//   112, 128): past 128 a 128-key tile ring of three stages no longer
+//   fits a block's 227 KB of shared memory.
 //
 // float32 -> flash_attention_f32_launch, on the CUDA cores (the model's
 //   float32 paths are held to 5e-5 of the reference; TF32 tensor cores
@@ -49,6 +52,18 @@
 //   and walks 64-row KV tiles staged in shared memory, each thread
 //   computing a 4 x 4 block of scores and a 4 x (hd / 16) block of the
 //   output, with the softmax statistics reduced by warp shuffles.
+//   Compiled at hd 16, 32, 64, 80 and 128.
+//
+// any other head width from 1 to 256, either dtype ->
+//   flash_attention_any_launch, on the CUDA cores: the float32 kernel's
+//   tiling with hd a run-time argument (rows of hd + 1 floats in shared
+//   memory, ~209 KB at hd 256), each thread holding ceil(hd / 16) output
+//   columns of its 4 rows in registers (the instance is chosen by the
+//   bound 4, 8 or 16 on that count), inputs converted to fp32 as they
+//   are staged and the result converted back.  It reads through strides
+//   with no alignment beyond the element's, so odd widths and strided
+//   views need no copy.  Bounded by the CUDA cores' fp32 rate, it is the
+//   slow route: it serves widths no model in the repository uses today.
 //
 // Both issue query tiles from the far end first, so the longest causal
 // tiles start first.
@@ -247,6 +262,209 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int batch,
 
 }  // namespace cc
 
+// ---- any head width up to 256, float32 or bfloat16: CUDA cores ----------------
+
+namespace anyw {
+
+constexpr int kThreads = 256;
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kRowsPerThread = 4;
+constexpr int kColsPerThread = 4;
+constexpr int kMaxHeadDim = 256;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+inline size_t smem_bytes(int hd) {
+  return sizeof(float) * ((size_t)kBlockQ * (hd + 1) + (size_t)kBlockK * (hd + 1) +
+                          (size_t)kBlockK * hd + (size_t)kBlockQ * (kBlockK + 1));
+}
+
+// MAXD: the most output columns a thread holds per row (hd <= 16 * MAXD)
+template <typename T, int MAXD>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_any_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, T* __restrict__ o, int n_heads,
+                               int n_kv_heads, int s_len, int t_len, int hd, Strides qs,
+                               Strides ks, Strides vs, Strides os, int causal, float scale) {
+  extern __shared__ float smem[];
+  const int hp = hd + 1;
+  float* q_s = smem;                    // kBlockQ x (hd + 1)
+  float* k_s = q_s + kBlockQ * hp;      // kBlockK x (hd + 1)
+  float* v_s = k_s + kBlockK * hp;      // kBlockK x hd
+  float* p_s = v_s + kBlockK * hd;      // kBlockQ x (kBlockK + 1)
+
+  const int q_tile = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (n_heads / n_kv_heads);
+  const int q0 = q_tile * kBlockQ;
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int dpt = (hd + 15) / 16;  // output columns a thread holds (<= MAXD)
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + kvh * ks.h;
+  const T* vb = v + b * vs.b + kvh * vs.h;
+  T* ob = o + b * os.b + h * os.h;
+
+  for (int i = threadIdx.x; i < kBlockQ * hd; i += kThreads) {
+    const int r = i / hd;
+    const int d = i - r * hd;
+    const int row = q0 + r;
+    q_s[r * hp + d] = row < s_len ? to_f(qb[row * qs.s + d]) * scale : 0.f;
+  }
+
+  float m[kRowsPerThread], l[kRowsPerThread], acc[kRowsPerThread][MAXD];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < MAXD; ++e) acc[i][e] = 0.f;
+  }
+
+  int n_tiles = (t_len + kBlockK - 1) / kBlockK;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBlockQ - 1) / kBlockK + 1);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int k0 = j * kBlockK;
+    __syncthreads();  // the previous tile's k_s, v_s and p_s are consumed
+    for (int i = threadIdx.x; i < kBlockK * hd; i += kThreads) {
+      const int r = i / hd;
+      const int d = i - r * hd;
+      const int t = k0 + r;
+      const bool ok = t < t_len;
+      k_s[r * hp + d] = ok ? to_f(kb[t * ks.s + d]) : 0.f;
+      v_s[r * hd + d] = ok ? to_f(vb[t * vs.s + d]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[kRowsPerThread][kColsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < hd; ++d) {
+      float qv[kRowsPerThread], kv[kColsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) qv[i] = q_s[(ty * kRowsPerThread + i) * hp + d];
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) kv[c] = k_s[(tx + 16 * c) * hp + d];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+#pragma unroll
+        for (int c = 0; c < kColsPerThread; ++c) s[i][c] += qv[i] * kv[c];
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = ty * kRowsPerThread + i;
+      const int row = q0 + r;
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) {
+        const int col = k0 + tx + 16 * c;
+        if (col >= t_len || (causal && col > row)) s[i][c] = kNegInf;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float corr = expf(m[i] - mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int c = 0; c < kColsPerThread; ++c) {
+        const float p = expf(s[i][c] - mx);
+        p_s[r * (kBlockK + 1) + tx + 16 * c] = p;
+        ps += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[i] = l[i] * corr + ps;
+      m[i] = mx;
+#pragma unroll
+      for (int e = 0; e < MAXD; ++e) acc[i][e] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int t = 0; t < kBlockK; ++t) {
+      float pv[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i)
+        pv[i] = p_s[(ty * kRowsPerThread + i) * (kBlockK + 1) + t];
+#pragma unroll
+      for (int e = 0; e < MAXD; ++e) {
+        const int d = tx + 16 * e;
+        const float vv = e < dpt && d < hd ? v_s[t * hd + d] : 0.f;
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) acc[i][e] += pv[i] * vv;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int row = q0 + ty * kRowsPerThread + i;
+    if (row >= s_len) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int e = 0; e < MAXD; ++e) {
+      const int d = tx + 16 * e;
+      if (e < dpt && d < hd) store(ob + row * os.s + d, acc[i][e] / denom);
+    }
+  }
+}
+
+template <typename T, int MAXD>
+int launch_maxd(const void* q, const void* k, const void* v, void* o, int batch,
+                int n_heads, int n_kv_heads, int s_len, int t_len, int hd, Strides qs,
+                Strides ks, Strides vs, Strides os, int causal, float scale,
+                cudaStream_t st) {
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {  // room for the widest hd this instance takes
+    err = cudaFuncSetAttribute(flash_attention_any_kernel<T, MAXD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes(16 * MAXD));
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  const int q_tiles = (s_len + kBlockQ - 1) / kBlockQ;
+  flash_attention_any_kernel<T, MAXD>
+      <<<dim3(q_tiles, n_heads, batch), kThreads, smem_bytes(hd), st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<T*>(o), n_heads, n_kv_heads, s_len, t_len, hd, qs, ks, vs, os, causal,
+          scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int n_heads,
+           int n_kv_heads, int s_len, int t_len, int hd, Strides qs, Strides ks, Strides vs,
+           Strides os, int causal, float scale, cudaStream_t st) {
+  if (hd < 1 || hd > kMaxHeadDim) return (int)cudaErrorInvalidValue;
+  if (hd <= 64)
+    return launch_maxd<T, 4>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, hd, qs,
+                             ks, vs, os, causal, scale, st);
+  if (hd <= 128)
+    return launch_maxd<T, 8>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, hd, qs,
+                             ks, vs, os, causal, scale, st);
+  return launch_maxd<T, 16>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, hd, qs, ks,
+                            vs, os, causal, scale, st);
+}
+
+}  // namespace anyw
+
 // ---- bfloat16: tensor cores (wgmma + TMA) -----------------------------------
 
 namespace tc {
@@ -438,6 +656,58 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
 }
 
 // d += A * B, A (bf16 pairs) in registers, B MN-major in shared memory (the
+// transpose bit); m64n48k16, fp32 accumulators
+__device__ __forceinline__ void wgmma_rs_n48(float (&d)[24], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, A (bf16 pairs) in registers, B MN-major in shared memory (the
+// transpose bit); m64n96k16, fp32 accumulators
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, A (bf16 pairs) in registers, B MN-major in shared memory (the
+// transpose bit); m64n112k16, fp32 accumulators
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B, A (bf16 pairs) in registers, B MN-major in shared memory (the
 // transpose bit); m64n128k16, fp32 accumulators
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -464,10 +734,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
     wgmma_rs_n16(d, a, db);
   } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
+  } else if constexpr (N == 48) {
+    wgmma_rs_n48(d, a, db);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, db);
   } else if constexpr (N == 80) {
     wgmma_rs_n80(d, a, db);
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96(d, a, db);
+  } else if constexpr (N == 112) {
+    wgmma_rs_n112(d, a, db);
   } else {
     static_assert(N == 128, "unsupported head dim");
     wgmma_rs_n128(d, a, db);
@@ -724,19 +1000,43 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, int batch, i
 
 }  // namespace tc
 
-// the head width's instance of a kernel family's launcher
-#define FA_DISPATCH(NS, hd, ...)                      \
+// the head width's instance of the float32 CUDA-core launcher
+#define FA_DISPATCH_CC(hd, ...)                       \
   switch (hd) {                                       \
     case 16:                                          \
-      return NS::launch_hd<16>(__VA_ARGS__);          \
+      return cc::launch_hd<16>(__VA_ARGS__);          \
     case 32:                                          \
-      return NS::launch_hd<32>(__VA_ARGS__);          \
+      return cc::launch_hd<32>(__VA_ARGS__);          \
     case 64:                                          \
-      return NS::launch_hd<64>(__VA_ARGS__);          \
+      return cc::launch_hd<64>(__VA_ARGS__);          \
     case 80:                                          \
-      return NS::launch_hd<80>(__VA_ARGS__);          \
+      return cc::launch_hd<80>(__VA_ARGS__);          \
     case 128:                                         \
-      return NS::launch_hd<128>(__VA_ARGS__);         \
+      return cc::launch_hd<128>(__VA_ARGS__);         \
+    default:                                          \
+      return (int)cudaErrorInvalidValue;              \
+  }
+
+// the head width's instance of the tensor-core launcher: every multiple
+// of 16 up to 128
+#define FA_DISPATCH_TC(hd, ...)                       \
+  switch (hd) {                                       \
+    case 16:                                          \
+      return tc::launch_hd<16>(__VA_ARGS__);          \
+    case 32:                                          \
+      return tc::launch_hd<32>(__VA_ARGS__);          \
+    case 48:                                          \
+      return tc::launch_hd<48>(__VA_ARGS__);          \
+    case 64:                                          \
+      return tc::launch_hd<64>(__VA_ARGS__);          \
+    case 80:                                          \
+      return tc::launch_hd<80>(__VA_ARGS__);          \
+    case 96:                                          \
+      return tc::launch_hd<96>(__VA_ARGS__);          \
+    case 112:                                         \
+      return tc::launch_hd<112>(__VA_ARGS__);         \
+    case 128:                                         \
+      return tc::launch_hd<128>(__VA_ARGS__);         \
     default:                                          \
       return (int)cudaErrorInvalidValue;              \
   }
@@ -750,9 +1050,10 @@ bool shape_ok(int batch, int n_heads, int n_kv_heads, int s_len, int t_len) {
 
 // Strides are in elements, in the order (batch, head, row).  Each entry
 // point launches on `stream` and returns cudaGetLastError() after the
-// launch (0 on success); nothing here synchronises.  Both refuse
-// (cudaErrorInvalidValue) a head dim other than 16, 32, 64, 80 or 128, or
-// H not a multiple of Hkv.
+// launch (0 on success); nothing here synchronises.  Each refuses
+// (cudaErrorInvalidValue) a head dim it was not compiled for (float32:
+// 16, 32, 64, 80, 128; bfloat16: the multiples of 16 up to 128; the
+// any-width kernel: 1 to 256), or H not a multiple of Hkv.
 
 // float32 inputs, on the CUDA cores
 extern "C" int flash_attention_f32_launch(
@@ -764,8 +1065,8 @@ extern "C" int flash_attention_f32_launch(
   if (!shape_ok(batch, n_heads, n_kv_heads, s_len, t_len)) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
-  FA_DISPATCH(cc, hd, q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, qs, ks, vs, os,
-              causal, scale, static_cast<cudaStream_t>(stream))
+  FA_DISPATCH_CC(hd, q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, qs, ks, vs, os,
+                 causal, scale, static_cast<cudaStream_t>(stream))
 }
 
 // bfloat16 inputs, on the tensor cores.  TMA's preconditions, which the
@@ -781,6 +1082,30 @@ extern "C" int flash_attention_bf16_launch(
   if (!shape_ok(batch, n_heads, n_kv_heads, s_len, t_len)) return (int)cudaErrorInvalidValue;
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
-  FA_DISPATCH(tc, hd, q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, qs, ks, vs, os,
-              causal, scale, static_cast<cudaStream_t>(stream))
+  FA_DISPATCH_TC(hd, q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, qs, ks, vs, os,
+                 causal, scale, static_cast<cudaStream_t>(stream))
+}
+
+// float32 (dtype 0) or bfloat16 (dtype 1) inputs at any head width from 1
+// to 256, on the CUDA cores; the element's own alignment suffices.
+extern "C" int flash_attention_any_launch(
+    const void* q, const void* k, const void* v, void* o, int batch, int n_heads,
+    int n_kv_heads, int s_len, int t_len, int hd, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    int causal, float scale, int dtype, void* stream) {
+  if (!shape_ok(batch, n_heads, n_kv_heads, s_len, t_len)) return (int)cudaErrorInvalidValue;
+  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
+      os{o_sb, o_sh, o_ss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return anyw::launch<float>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len, hd, qs,
+                                 ks, vs, os, causal, scale, st);
+    case 1:
+      return anyw::launch<__nv_bfloat16>(q, k, v, o, batch, n_heads, n_kv_heads, s_len, t_len,
+                                         hd, qs, ks, vs, os, causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -8,8 +8,11 @@ Counterpart of ``repro/kernels/decode_attention.py``.  The TPU kernel
 slices, B)`` blocks (:func:`split_plan`, from the shapes alone), each
 serving a slice of at most 8 of the group's query heads over its 64-key
 chunks (:func:`group_slices`: one slice up to a group of 8, two at
-Qwen3-MoE's 16), and the last block of each (sequence, KV head, slice)
-to finish merges the blocks' partial softmax states in the same launch.
+Qwen3-MoE's 16, ``ceil(G / 8)`` at any group), and the last block of each
+(sequence, KV head, slice) to finish merges the blocks' partial softmax
+states in the same launch.  Every head width from 1 to 256 launches
+(:func:`lane_plan`); past 256 a CUDA tensor is refused, since no decoder
+the repository configures has a wider head.
 
 Both functions take ``q`` ``(B, H, hd)`` (one token per sequence),
 ``k``/``v`` ``(B, Hkv, T, hd)`` — the port's KV-cache layout — and
@@ -42,31 +45,34 @@ import functools
 
 import torch
 
+from ..analysis.contracts import BlockConfig, choice, contract, span
 from . import _build
 from ._tensors import check_device, check_dtype
 
 __all__ = [
     "COUNTS",
-    "MAX_GROUP",
     "MAX_HEAD_DIM",
     "MAX_SLICE",
     "NEG_INF",
     "decode_attention",
     "decode_attention_plain",
     "group_slices",
+    "lane_plan",
     "lane_width",
     "reset_counts",
     "split_plan",
 ]
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # the kernel's per-lane accumulators hold one head row
-MAX_GROUP = 16  # query heads per KV head the kernel takes (csrc kMaxGroup)
+MAX_HEAD_DIM = 256  # the widest head row the kernel takes (csrc kMaxHeadDim)
+ONE_LOAD_HEAD_DIM = 128  # the widest row a lane loads once (csrc kOneLoadHeadDim)
+MAX_LANE_ELEMS = 8  # elements of one head row a lane holds (csrc kMaxLaneElems)
 MAX_SLICE = 8  # query heads per KV head one block serves (csrc kMaxSlice)
 CHUNK = 64  # keys a block takes at a time: one load of K and V per lane
 MAX_SPLITS = 64  # blocks per (sequence, KV head): the length of the merge's loop
 BLOCKS_PER_SM = 4  # the kernel's residency at <= 128 registers a thread
 VEC_BYTES = 16  # the widest load of a head row's slice per lane
+THREADS = 128  # the kernel's block: 4 warps
 
 _TICKETS: dict[int, torch.Tensor] = {}  # device index -> int32 counters, all 0
 
@@ -98,11 +104,10 @@ def group_slices(group: int) -> tuple[int, int]:
     """``(n_slices, slice_heads)``: a group of ``group`` query heads per KV
     head cut into ``ceil(group / 8)`` slices of ``ceil(group / n_slices)``
     heads (the last may hold fewer), one block's share each; the kernel
-    cuts it by the same rule.  Refuses a group past ``MAX_GROUP``."""
-    if not 1 <= group <= MAX_GROUP:
+    cuts it by the same rule, at any group.  Refuses a group below 1."""
+    if group < 1:
         raise ValueError(
-            f"decode_attention: the kernel takes 1 to {MAX_GROUP} query heads per KV "
-            f"head; got {group}"
+            f"decode_attention: a group needs at least 1 query head per KV head; got {group}"
         )
     n_slices = -(-group // MAX_SLICE)
     return n_slices, -(-group // n_slices)
@@ -129,15 +134,36 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def lane_width(hd: int, itemsize: int) -> int | None:
-    """Elements of a head row each lane loads at once: the widest load of
-    at most 16 bytes that divides ``hd`` with the row on at most 32 lanes;
-    None where there is none (``hd`` past 128, or odd past 32)."""
+def lane_plan(hd: int, itemsize: int) -> tuple[int, int] | None:
+    """``(epl, nv)``: a lane loads ``epl`` contiguous elements of a head row
+    at once, ``nv`` times.  The widest load of at most 16 bytes that
+    divides ``hd``; one load a lane (``nv`` 1, the row on the fewest of 32
+    lanes) where the row fits and ``hd`` <= 128; else the row on all 32
+    lanes, ``nv`` the power of two that covers it (at least 2 past 128),
+    with at most 8 elements a lane (``epl * nv``).  So hd 128 in bf16 is
+    (8, 1), hd 33 (1, 2), hd 256 (4, 2) in either dtype.  None past
+    ``MAX_HEAD_DIM`` (256)."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        return None
     for nbytes in (VEC_BYTES, VEC_BYTES // 2, VEC_BYTES // 4, VEC_BYTES // 8):
         epl = nbytes // itemsize
-        if epl >= 1 and hd % epl == 0 and hd <= 32 * epl and hd <= MAX_HEAD_DIM:
-            return epl
+        if epl < 1 or hd % epl:
+            continue
+        if hd <= 32 * epl and hd <= ONE_LOAD_HEAD_DIM:
+            return epl, 1
+        nv = 1 << (-(-hd // (32 * epl)) - 1).bit_length()
+        if hd > ONE_LOAD_HEAD_DIM:
+            nv = max(nv, 2)
+        if epl * nv <= MAX_LANE_ELEMS:
+            return epl, nv
     return None
+
+
+def lane_width(hd: int, itemsize: int) -> int | None:
+    """Elements of a head row each lane loads at once (:func:`lane_plan`'s
+    ``epl``); None past 256."""
+    plan = lane_plan(hd, itemsize)
+    return None if plan is None else plan[0]
 
 
 def _tickets(device: torch.device, n: int) -> torch.Tensor:
@@ -173,11 +199,73 @@ def _launcher():
     fn = _build.library("decode_attention").decode_attention_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32] * 8 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 7 + [i32] * 9 + [ctypes.c_float, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _instance_heads(group: int, nv: int) -> int:
+    """NG: the query heads the compiled instance holds a slice of (8 where
+    a lane loads its row more than once)."""
+    width = group_slices(group)[1] if nv == 1 else MAX_SLICE
+    return next(ng for ng in (1, 2, 4, MAX_SLICE) if width <= ng)
+
+
+def _itemsize(geom: dict) -> int:
+    return 4 if geom["dtype"] == "float32" else 2
+
+
+def _k5_dispatch(geom: dict) -> str:
+    if geom["device"] == "cpu":
+        return "plain"
+    return "refused" if lane_plan(geom["hd"], _itemsize(geom)) is None else "cuda"
+
+
+def _k5_smem(geom: dict) -> BlockConfig:
+    """The instance's static shared memory: the warps' (m, l) and their
+    accumulator rows (128 wide for one load a lane, else 256), and the
+    merge flag."""
+    _, nv = lane_plan(geom["hd"], _itemsize(geom))
+    ng = _instance_heads(geom["group"], nv)
+    row = ONE_LOAD_HEAD_DIM if nv == 1 else MAX_HEAD_DIM
+    warps = THREADS // 32
+    return BlockConfig(static_smem=4 * warps * ng * (2 + row) + 4, dynamic_smem=0,
+                       threads=THREADS)
+
+
+def _k5_abstract(geom: dict):
+    dt = getattr(torch, geom["dtype"])
+    g, hd = geom["group"], geom["hd"]
+    q = torch.zeros(1, g, hd, dtype=dt)
+    kv = torch.zeros(1, 1, 8, hd, dtype=dt)
+    return decode_attention, (q, kv, kv, torch.tensor([3], dtype=torch.int32))
+
+
+@contract(
+    "decode_attention.kernel",
+    axes=(
+        span("hd", 1, MAX_HEAD_DIM, boundaries=(32, 64, ONE_LOAD_HEAD_DIM, MAX_HEAD_DIM),
+             past=(MAX_HEAD_DIM + 1, 2 * MAX_HEAD_DIM)),
+        choice("group", 1, 2, 4, 8, 9, 16, 17, 32, 64),
+        choice("dtype", "float32", "bfloat16"),
+        choice("device", "cuda", "cpu"),
+    ),
+    backends=("cuda", "plain", "refused"),
+    device_backends=("cuda",),
+    dispatch=_k5_dispatch,
+    smem=_k5_smem,
+    # the compiled instance (NG, EPL, NV) and hd, which the launch takes
+    # at run time: at most 2 dtypes x 4 slice widths x 256 widths
+    signature=lambda geom: ("decode_attention", geom["dtype"],
+                            _instance_heads(geom["group"],
+                                            lane_plan(geom["hd"], _itemsize(geom))[1]),
+                            *lane_plan(geom["hd"], _itemsize(geom)), geom["hd"]),
+    max_signatures=2 * 4 * MAX_HEAD_DIM,
+    abstract=_k5_abstract,
+    notes="K5: every group (ceil(G / 8) slices) and every hd from 1 to 256 "
+    "launch; past 256 a CUDA tensor is refused, a CPU tensor takes the plain "
+    "version",
+)
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
 ) -> torch.Tensor:
@@ -189,12 +277,12 @@ def decode_attention(
         return decode_attention_plain(q, k, v, pos)
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    epl = lane_width(hd, q.element_size())
-    if epl is None:
+    plan = lane_plan(hd, q.element_size())
+    if plan is None:
         raise ValueError(
-            f"decode_attention: the kernel takes hd <= {MAX_HEAD_DIM} (odd only up to 32); "
-            f"got hd={hd}"
+            f"decode_attention: the kernel takes hd from 1 to {MAX_HEAD_DIM}; got hd={hd}"
         )
+    epl, nv = plan
     n_slices, slice_heads = group_slices(h // hkv)
     if not all(x.is_contiguous() for x in (q, k, v, pos)):
         raise ValueError("decode_attention: q, k, v and pos must be contiguous")
@@ -221,6 +309,7 @@ def decode_attention(
         chunk,
         splits,
         epl,
+        nv,
         float(hd**-0.5),
         code,
         torch.cuda.current_stream(q.device).cuda_stream,

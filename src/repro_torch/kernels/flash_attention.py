@@ -3,15 +3,23 @@
 Counterpart of ``repro/kernels/flash_attention.py``.  The TPU kernel
 ``_flash_kernel`` (launched by ``flash_attention_pallas`` on a
 ``(batch, q_heads, S / 128)`` grid) is ``csrc/flash_attention.cu`` here,
-built from source at first use (:mod:`._build`), in two kernels chosen by
-dtype before the launch (:func:`route`):
+built from source at first use (:mod:`._build`), in three kernels chosen
+by dtype and head width before the launch (:func:`route`):
 
-- bfloat16 takes the tensor cores: 128-row query blocks, K/V tiles of
-  128 keys copied by TMA into a three-stage ring, both products on
-  ``wgmma`` with fp32 accumulators and the online softmax in fp32;
-- float32 takes the CUDA cores (64-row tiles staged in shared memory, all
-  in fp32), since TF32 tensor cores would not hold the float32 model
-  paths to their tolerance.
+- ``"tensor_core"``: bfloat16 at every multiple of 16 up to 128
+  (:data:`TC_HEAD_DIMS`): 128-row query blocks, K/V tiles of 128 keys
+  copied by TMA into a three-stage ring, both products on ``wgmma`` with
+  fp32 accumulators and the online softmax in fp32;
+- ``"cuda_core"``: float32 at the widths the models use
+  (:data:`HEAD_DIMS`: 64-row tiles staged in shared memory, all in
+  fp32), since TF32 tensor cores would not hold the float32 model paths
+  to their tolerance;
+- ``"any_width"``: every other head width from 1 to 256, in either dtype:
+  the CUDA-core kernel's tiling with the head width an argument, staged
+  in fp32.
+
+Past 256 (:data:`MAX_HEAD_DIM`; no decoder the repository configures
+has a wider head) a CUDA tensor is refused.
 
 Both functions take ``q`` ``(B, H, S, hd)`` and ``k``/``v``
 ``(B, Hkv, T, hd)`` and return ``(B, H, S, hd)``: softmax(q·kᵀ /
@@ -30,8 +38,19 @@ copied.
 - :func:`flash_attention_plain` is the same function in plain PyTorch
   (the port's copy of ``repro/kernels/ref.py::flash_attention_ref``).
 
+Gradients: :func:`flash_attention_fn` is the model's entry point.  Where
+autograd records it applies :class:`FlashAttentionFunction`, whose
+forward is :func:`flash_attention` and whose backward
+(:func:`flash_attention_backward`) is plain PyTorch: the probabilities
+recomputed from q and k in chunks of query rows (no S x T matrix for
+every head at once), ``dS = P * (dP - rowsum(dO * O))`` from the saved
+output, dQ, and dK / dV summed over each KV head's query heads, the
+causal mask as in the forward.  The reference has no backward kernel
+(its model path differentiates plain jnp attention), so none is written
+here.  Elsewhere it calls :func:`flash_attention` itself.
+
 ``COUNTS`` holds plain integers: ``flash_attention`` counts kernel
-launches, ``tensor_core`` the bfloat16 ones among them, ``plain`` calls
+launches, ``tensor_core`` those on the tensor-core route, ``plain`` calls
 of the plain version.  :func:`reset_counts` zeroes them.
 """
 
@@ -42,26 +61,37 @@ import functools
 
 import torch
 
+from ..analysis.contracts import BlockConfig, choice, contract, span
 from . import _build
 from ._tensors import check_device, check_dtype
 
 __all__ = [
     "COUNTS",
+    "FlashAttentionFunction",
     "HEAD_DIMS",
+    "MAX_HEAD_DIM",
     "NEG_INF",
+    "TC_HEAD_DIMS",
     "flash_attention",
+    "flash_attention_backward",
+    "flash_attention_fn",
     "flash_attention_plain",
+    "launch_config",
     "reset_counts",
     "route",
     "tma_strides",
 ]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)  # the kernels' compiled head widths
+HEAD_DIMS = (16, 32, 64, 80, 128)  # compiled in both dtypes (float32's CUDA-core kernel)
+TC_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # bfloat16 on the tensor cores
+MAX_HEAD_DIM = 256  # the any-width kernel's ceiling (csrc anyw::kMaxHeadDim)
 TMA_BYTES = 16  # TMA's alignment of a tensor's base address and strides
+BACKWARD_CHUNK_ELEMS = 1 << 26  # fp32 scores of one chunk of query rows, all heads
 _ENTRY = {  # the C entry point of each route
     "tensor_core": "flash_attention_bf16_launch",
     "cuda_core": "flash_attention_f32_launch",
+    "any_width": "flash_attention_any_launch",
 }
 
 COUNTS = {"flash_attention": 0, "tensor_core": 0, "plain": 0}
@@ -108,14 +138,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: empty sequence")
 
 
-def route(dtype: torch.dtype) -> str:
-    """The kernel a CUDA tensor of ``dtype`` takes: ``"tensor_core"`` for
-    bfloat16, ``"cuda_core"`` for float32."""
-    if dtype == torch.bfloat16:
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a CUDA tensor of ``dtype`` and head width ``hd`` takes:
+    ``"tensor_core"`` for bfloat16 at :data:`TC_HEAD_DIMS`, ``"cuda_core"``
+    for float32 at :data:`HEAD_DIMS`, ``"any_width"`` for any other width
+    up to :data:`MAX_HEAD_DIM`; raises past it and for another dtype."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash_attention: no kernel for {dtype}")
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: the kernels take hd from 1 to {MAX_HEAD_DIM}, "
+                         f"got {hd}")
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
         return "tensor_core"
-    if dtype == torch.float32:
+    if dtype == torch.float32 and hd in HEAD_DIMS:
         return "cuda_core"
-    raise TypeError(f"flash_attention: no kernel for {dtype}")
+    return "any_width"
 
 
 def tma_strides(name: str, x: torch.Tensor) -> tuple[int, int, int]:
@@ -154,28 +191,78 @@ def _launcher(entry: str):
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
     i64 = ctypes.c_longlong
-    fn.argtypes = [ptr] * 4 + [i32] * 6 + [i64] * 12 + [i32, ctypes.c_float, ptr]
+    dtype = [i32] if entry == _ENTRY["any_width"] else []
+    fn.argtypes = [ptr] * 4 + [i32] * 6 + [i64] * 12 + [i32, ctypes.c_float] + dtype + [ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
+def launch_config(kind: str, hd: int) -> BlockConfig:
+    """The block a route's kernel launches at head width ``hd``: the
+    tensor-core kernel's 128-row Q tile and three-stage K/V ring (+ 1 KB
+    of swizzle alignment and the barriers) for 288 threads; the CUDA-core
+    kernels' 64-row fp32 Q, K (rows of hd + 1), V and P tiles for 256."""
+    if kind == "tensor_core":
+        stages = 3
+        return BlockConfig(0, 1024 + 128 * hd * 2 + 2 * stages * 128 * hd * 2
+                           + 8 * (1 + 2 * stages), 9 * 32)
+    return BlockConfig(0, 4 * (2 * 64 * (hd + 1) + 64 * hd + 64 * 65), 256)
+
+
+def _k6_dispatch(geom: dict) -> str:
+    if geom["device"] == "cpu":
+        return "plain"
+    if not 1 <= geom["hd"] <= MAX_HEAD_DIM:
+        return "refused"
+    return route(getattr(torch, geom["dtype"]), geom["hd"])
+
+
+def _k6_signature(geom: dict) -> tuple:
+    """The route's kernel and hd (compiled in for the tensor-core and
+    float32 kernels, a run-time argument of the any-width one)."""
+    return ("flash_attention", _k6_dispatch(geom), geom["dtype"], geom["hd"])
+
+
+def _k6_abstract(geom: dict):
+    dt = getattr(torch, geom["dtype"])
+    x = torch.zeros(1, 2, 8, geom["hd"], dtype=dt)
+    return flash_attention, (x, x[:, :1], x[:, :1])
+
+
+@contract(
+    "flash_attention.kernel",
+    axes=(
+        span("hd", 1, MAX_HEAD_DIM, boundaries=(16, 64, 128, MAX_HEAD_DIM),
+             past=(MAX_HEAD_DIM + 1, 2 * MAX_HEAD_DIM)),
+        choice("dtype", "float32", "bfloat16"),
+        choice("device", "cuda", "cpu"),
+    ),
+    backends=("tensor_core", "cuda_core", "any_width", "plain", "refused"),
+    device_backends=("tensor_core", "cuda_core", "any_width"),
+    dispatch=_k6_dispatch,
+    smem=lambda geom: launch_config(_k6_dispatch(geom), geom["hd"]),
+    signature=_k6_signature,
+    max_signatures=2 * MAX_HEAD_DIM,  # a dtype and a width each
+    abstract=_k6_abstract,
+    notes="K6: bf16 at the multiples of 16 up to 128 on the tensor cores, "
+    "float32 at 16/32/64/80/128 on the CUDA cores, every other hd up to 256 "
+    "on the any-width kernel; past 256 a CUDA tensor is refused",
+)
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
-    """Launch the CUDA kernel of the inputs' dtype (:func:`route`); CPU
-    tensors take :func:`flash_attention_plain`.  Launches on the current
-    stream and does not synchronise."""
+    """Launch the CUDA kernel of the inputs' dtype and head width
+    (:func:`route`); CPU tensors take :func:`flash_attention_plain`.
+    Launches on the current stream and does not synchronise."""
     _check(q, k, v)
-    check_dtype("flash_attention", q, k, v)
+    code = check_dtype("flash_attention", q, k, v)
     if check_device("flash_attention", q, k, v) == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes hd in {HEAD_DIMS}, got {hd}")
+    kind = route(q.dtype, hd)
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the head dim of q, k and v must be contiguous")
-    kind = route(q.dtype)
     if kind == "tensor_core":
         strides = [tma_strides(n, x) for n, x in (("q", q), ("k", k), ("v", v))]
     else:
@@ -198,6 +285,7 @@ def flash_attention(
         *out.stride()[:3],
         int(causal),
         float(hd**-0.5),
+        *((code,) if kind == "any_width" else ()),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -209,3 +297,75 @@ def flash_attention(
     if kind == "tensor_core":
         COUNTS["tensor_core"] += 1
     return out
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_plain`'s function at
+    ``q``, ``k``, ``v`` with output ``out``, for the output gradient
+    ``dout``, in fp32, cast to the inputs' dtypes.  Query rows are taken
+    in chunks whose (B, H, rows, T) fp32 scores hold at most
+    ``BACKWARD_CHUNK_ELEMS`` elements."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = hd**-0.5
+    qf = q.float().reshape(b, hkv, g, s, hd)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, hkv, g, s, hd)
+    delta = (dof * out.float().reshape(b, hkv, g, s, hd)).sum(-1)  # rowsum(dO * O)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    cols = torch.arange(t, device=q.device)
+    rows = max(1, min(s, BACKWARD_CHUNK_ELEMS // max(1, b * h * t)))
+    for i0 in range(0, s, rows):
+        i1 = min(s, i0 + rows)
+        qc, doc = qf[:, :, :, i0:i1], dof[:, :, :, i0:i1]
+        logits = torch.einsum("bngsh,bnth->bngst", qc, kf) * scale
+        if causal:
+            keep = torch.arange(i0, i1, device=q.device)[:, None] >= cols[None, :]
+            logits = torch.where(keep, logits, NEG_INF)
+        p = torch.softmax(logits, dim=-1)
+        del logits
+        dv += torch.einsum("bngst,bngsh->bnth", p, doc)
+        ds = p * (torch.einsum("bngsh,bnth->bngst", doc, vf) - delta[:, :, :, i0:i1, None])
+        del p
+        dq[:, :, :, i0:i1] = torch.einsum("bngst,bnth->bngsh", ds, kf) * scale
+        dk += torch.einsum("bngst,bngsh->bnth", ds, qc) * scale
+    return dq.reshape(b, h, s, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` forward, :func:`flash_attention_backward`
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out = flash_attention(q, k, v, causal=causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_fn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> torch.Tensor:
+    """Attention through K6, differentiable: :class:`FlashAttentionFunction`
+    where autograd records, else :func:`flash_attention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFunction.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)

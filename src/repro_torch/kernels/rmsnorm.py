@@ -23,6 +23,15 @@ math and the result cast back to ``x``'s dtype, over the last axis of
 ``COUNTS`` holds plain integers: ``rmsnorm`` counts kernel launches,
 ``plain`` counts calls of the plain version.  :func:`reset_counts`
 zeroes them.
+
+Gradients: :func:`rmsnorm_fn` is the model's entry point.  Where autograd
+records (grad mode on and ``x`` or ``g`` requiring a gradient) it applies
+:class:`RMSNormFunction`, whose forward is :func:`rmsnorm` (the kernel,
+or the plain version on the CPU) and whose backward is the closed form
+of RMSNorm's gradient in plain PyTorch (:func:`rmsnorm_backward`): the
+reference differentiates its plain jnp norm and has no backward kernel.
+Elsewhere it calls :func:`rmsnorm` itself, so serving launches exactly
+what it did.
 """
 
 from __future__ import annotations
@@ -35,7 +44,16 @@ import torch
 from . import _build
 from ._tensors import check_device, check_dtype
 
-__all__ = ["COUNTS", "reset_counts", "rmsnorm", "rmsnorm_plain", "route"]
+__all__ = [
+    "COUNTS",
+    "RMSNormFunction",
+    "reset_counts",
+    "rmsnorm",
+    "rmsnorm_backward",
+    "rmsnorm_fn",
+    "rmsnorm_plain",
+    "route",
+]
 
 COUNTS = {"rmsnorm": 0, "plain": 0}
 VEC_BYTES = 16  # one vector access
@@ -116,3 +134,42 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
         )
     COUNTS["rmsnorm"] += 1
     return y
+
+
+def rmsnorm_backward(
+    x: torch.Tensor, g: torch.Tensor, dy: torch.Tensor, eps: float = 1e-6
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dg)`` of ``y = x * r * g``, ``r = rsqrt(mean(x**2) + eps)``,
+    in fp32: ``dx = r * u - x * r**3 * mean(u * x)`` with ``u = dy * g``,
+    and ``dg`` the sum over rows of ``dy * x * r``; cast to ``x``'s and
+    ``g``'s dtypes."""
+    xf, gf, dyf = x.float(), g.float(), dy.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    u = dyf * gf
+    dx = r * u - xf * r.pow(3) * (u * xf).mean(-1, keepdim=True)
+    dg = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dg.to(g.dtype)
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """:func:`rmsnorm` forward, :func:`rmsnorm_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:
+        ctx.save_for_backward(x, g)
+        ctx.eps = eps
+        return rmsnorm(x, g, eps)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, g = ctx.saved_tensors
+        dx, dg = rmsnorm_backward(x, g, dy, ctx.eps)
+        return dx, dg, None
+
+
+def rmsnorm_fn(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm through K4, differentiable: :class:`RMSNormFunction` where
+    autograd records, else :func:`rmsnorm`."""
+    if torch.is_grad_enabled() and (x.requires_grad or g.requires_grad):
+        return RMSNormFunction.apply(x, g, eps)
+    return rmsnorm(x, g, eps)

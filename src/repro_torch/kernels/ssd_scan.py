@@ -38,6 +38,14 @@ output without a copy; it is built from source at first use
   input and no decay (``dt = 0``).  At the model's chunk it computes
   what the reference model computes.
 
+Gradients: :func:`ssd_scan_fn` is the model's entry point.  Where
+autograd records it applies :class:`SSDScanFunction`, whose forward is
+:func:`ssd_scan` and whose backward differentiates a recompute of the
+chunked scan in plain PyTorch (:func:`ssd_chunked_plain` at the caller's
+chunk, uncounted) under autograd: the reference differentiates its plain
+jnp scan and has no backward kernel.  Elsewhere it calls
+:func:`ssd_scan` itself.
+
 ``COUNTS`` holds plain integers: ``ssd_scan`` counts kernel calls (one
 per :func:`ssd_scan` call on the card, whatever its route's number of
 launches), ``tensor_core`` those of them on the tensor-core route,
@@ -59,6 +67,7 @@ from ._tensors import check_device, check_dtype
 __all__ = [
     "CHUNK",
     "COUNTS",
+    "SSDScanFunction",
     "HEAD_DIMS",
     "STATE_DIMS",
     "reset_counts",
@@ -66,6 +75,7 @@ __all__ = [
     "scratch_bytes",
     "ssd_chunked_plain",
     "ssd_scan",
+    "ssd_scan_fn",
     "ssd_scan_plain",
 ]
 
@@ -156,6 +166,11 @@ def ssd_scan_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, at ``chunk``."""
     COUNTS["plain"] += 1
+    return _padded_chunked(x, dt, a, bm, cm, chunk)
+
+
+def _padded_chunked(x, dt, a, bm, cm, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunked_plain` over ``S`` padded to whole chunks."""
     s = x.shape[1]
     q = min(chunk, s)
     pad = -s % q
@@ -271,3 +286,43 @@ def ssd_scan(
     if nbytes:
         COUNTS["tensor_core"] += 1
     return y, h_last
+
+
+class SSDScanFunction(torch.autograd.Function):
+    """:func:`ssd_scan` forward; backward through a recompute of the
+    chunked scan in plain PyTorch at ``chunk``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bm, cm, chunk: int):
+        ctx.save_for_backward(x, dt, a, bm, cm)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(5) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            y, h_last = _padded_chunked(*inputs, ctx.chunk)
+            grads = torch.autograd.grad((y, h_last), [inputs[i] for i in wanted], (dy, dh))
+        out = [None] * 6
+        for i, gr in zip(wanted, grads):
+            out[i] = gr
+        return tuple(out)
+
+
+def ssd_scan_fn(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    bm: torch.Tensor,
+    cm: torch.Tensor,
+    *,
+    chunk: int = CHUNK,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan through K7, differentiable: :class:`SSDScanFunction`
+    where autograd records, else :func:`ssd_scan`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, bm, cm)):
+        return SSDScanFunction.apply(x, dt, a, bm, cm, chunk)
+    return ssd_scan(x, dt, a, bm, cm, chunk=chunk)

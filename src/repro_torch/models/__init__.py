@@ -1,5 +1,5 @@
-"""Model zoo of the port: configs + init/prefill/decode of the dense,
-moe, mla_moe, mamba2 and zamba2 families."""
+"""Model zoo of the port: configs + init/train-forward/prefill/decode of
+the dense, vlm, moe, mla_moe, mamba2 and zamba2 families."""
 
 from .config import MLAConfig, ModelConfig, MoEConfig, SSMConfig
 from .model import (
@@ -10,6 +10,7 @@ from .model import (
     MoELM,
     Zamba2LM,
     decode_step,
+    forward_train,
     init_decode_cache,
     init_params,
     prefill,
@@ -27,6 +28,7 @@ __all__ = [
     "SSMConfig",
     "Zamba2LM",
     "decode_step",
+    "forward_train",
     "init_decode_cache",
     "init_params",
     "prefill",

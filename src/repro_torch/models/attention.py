@@ -19,8 +19,11 @@ into a latent ``c_kv`` (B, S, kv_lora_rank) and one decoupled RoPE key
 ``k_rope`` (B, S, qk_rope_head_dim) shared by every head; its cache keeps
 only those two, laid out as the reference's.  The reference computes MLA
 attention in plain jnp and calls no kernel, so the port computes it in
-plain PyTorch (only its norms go through K4).  Cross-attention and the
-training-time ``gqa_attend`` / ``mla_attend`` wait for later slices.
+plain PyTorch (only its norms go through K4).  Training
+(``models.model.forward_train``) runs :func:`gqa_prefill` /
+:func:`mla_prefill` and drops their cache rows, as the reference's
+``gqa_attend`` computes the same attention; cross-attention waits for
+the encoder-decoder slice.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ the reference's parameter tree (``w``/``b``, ``g``, ``table``), so
 :func:`repro_torch.convert.from_reference_params` maps one onto the
 other by name.  Weights keep the reference's ``(fan_in, fan_out)``
 layout: a projection is ``x @ w``.  Parameters are created in the
-config's dtype and need no gradient (the port serves; training waits
-for a later slice); norm math runs in fp32 and casts back.  The port
+config's dtype without ``requires_grad`` (serving needs none; the train
+step, :mod:`repro_torch.train.step`, turns it on); norm math runs in
+fp32 and casts back.  The port
 runs on one device, so the reference's sharding constraints have no
 counterpart here.
 """

@@ -1,21 +1,28 @@
-"""Model assembly: init / prefill / decode for the dense, moe, mla_moe,
-mamba2 and zamba2 families.
+"""Model assembly: init / train-forward / prefill / decode for the dense,
+vlm, moe, mla_moe, mamba2 and zamba2 families.
 
 The port's counterpart of ``repro/models/model.py`` for
 ``block_pattern`` ``"dense"`` (pre-norm transformer, GQA attention,
 SwiGLU FFN), ``"moe"`` (GQA attention + a mixture-of-experts FFN),
-``"mla_moe"`` (DeepSeek-style MLA attention + MoE with a shared expert;
-the multi-token-prediction block is held so weights carry over, and
-serving never runs it), ``"mamba2"`` (an attention-free stack of Mamba2
-blocks) and ``"zamba2"`` (Mamba2 blocks with one *shared* attention +
-FFN block applied before every ``hybrid_period`` of them).  A layer's FFN
-is the MoE wherever the config has experts, as in the reference.  Entry
+``"mla_moe"`` (DeepSeek-style MLA attention + MoE with a shared expert,
+and the multi-token-prediction head, which ``forward_train`` runs and
+serving never does), ``"mamba2"`` (an attention-free stack of Mamba2
+blocks), ``"zamba2"`` (Mamba2 blocks with one *shared* attention + FFN
+block applied before every ``hybrid_period`` of them) and ``"vlm"``
+(LLaVA: the dense decoder, its input prefixed by the batch's
+``patches``, stub vision-tower embeddings (B, P, d)).  A layer's FFN is
+the MoE wherever the config has experts, as in the reference.  Entry
 points::
 
     init_params(generator, cfg)                       -> params
+    forward_train(params, cfg, batch, remat=True)     -> (logits, aux, mtp_logits)
     prefill(params, cfg, batch, max_len=None)         -> (logits, cache)
     decode_step(params, cfg, tokens, cache)           -> (logits, cache)
     init_decode_cache(params, cfg, batch, max_seq)    -> cache
+
+A batch is ``{"tokens": (B, S) int}`` and, for vlm, ``"patches"``; the
+patches come first and positions run over the whole sequence, as in the
+reference's ``_embed_inputs``.
 
 ``params`` is the family's module (:data:`FAMILIES`): the embedding
 table (also the unembedding's weight, as in the reference), the final
@@ -24,7 +31,7 @@ block ``shared_attn``; for mla_moe with ``mtp_depth``, ``mtp``.  Caches,
 every leaf stacked over layers (or over the shared block's uses), with
 ``"pos"`` (B,) int32 beside them:
 
-- dense, moe: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
+- dense, vlm, moe: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
   stacks ``(L, B, S_max, Hkv, hd)``;
 - mla_moe: ``{"c_kv": (L, B, S_max, kv_lora_rank), "k_rope": (L, B,
   S_max, qk_rope_head_dim)}``, as the reference's;
@@ -42,16 +49,26 @@ dispatch (``moe_sharded``, taken only under a mesh with a ``model`` axis)
 waits for the port's ``parallel/``; without a mesh the reference takes
 ``moe_apply``, as the port does.
 
+:func:`forward_train` runs the whole sequence through every layer and
+returns the logits of every position (fp32; for vlm the token suffix
+only), the MoE load-balance loss summed over layers and, for DeepSeek's
+MTP head, the logits predicting token t+2.  It is differentiable: the
+kernels it reaches (K4, K6, K7) are entered through their
+``torch.autograd.Function`` s (:mod:`repro_torch.kernels.ops`), and
+``remat=True`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
+MLA attends in plain PyTorch, as in serving.
+
 Tensors go on :func:`repro_torch.backend.device` (``cuda`` unless a
 ``set_backend(device=...)`` scope says otherwise); parameters that lie
-elsewhere are refused.  The encdec and vlm families, and
-``forward_train`` (with MTP), wait for later slices.
+elsewhere are refused.  The encdec family waits for a later slice.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import backend
 from .attention import (
@@ -93,6 +110,7 @@ __all__ = [
     "Zamba2LM",
     "check_family",
     "decode_step",
+    "forward_train",
     "init_decode_cache",
     "init_params",
     "params_device",
@@ -205,6 +223,7 @@ class Zamba2LM(_LM):
 LM = DenseLM | MoELM | MLAMoELM | Mamba2LM | Zamba2LM
 FAMILIES: dict[str, type[_LM]] = {
     "dense": DenseLM,
+    "vlm": DenseLM,  # the dense decoder; the patch prefix is input, not weights
     "moe": MoELM,
     "mla_moe": MLAMoELM,
     "mamba2": Mamba2LM,
@@ -362,6 +381,80 @@ def _mamba_decode(layer: MambaLayer, cfg: ModelConfig, x, state: dict, i: int):
     return x + h
 
 
+def _embed_inputs(params: LM, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token embeddings, after vlm's ``patches`` prefix where the batch has
+    one, and the positions (B, S) of the whole sequence."""
+    x = embed(params.embed, batch["tokens"])
+    if cfg.block_pattern == "vlm" and "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    b, s, _ = x.shape
+    return x, torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope):
+    """One layer over the whole sequence (no cache): ``(x, aux)``, aux the
+    MoE load-balance loss (0 elsewhere)."""
+    if isinstance(layer, MambaLayer):
+        h, _ = mamba2_apply(layer.mamba, cfg, rmsnorm(layer.norm1, x, cfg.norm_eps))
+        return x + h, _zero_aux(x)
+    h = rmsnorm(layer.norm1, x, cfg.norm_eps)
+    if isinstance(layer.attn, MLA):
+        h = mla_prefill(layer.attn, cfg, h, rope)[0]
+    else:
+        h = gqa_prefill(layer.attn, cfg, h, rope)[0]
+    x = x + h
+    h = rmsnorm(layer.norm2, x, cfg.norm_eps)
+    if isinstance(layer.ffn, MoE):
+        h, aux = moe_apply(layer.ffn, cfg, h)
+    else:
+        h, aux = swiglu(layer.ffn, h), _zero_aux(x)
+    return x + h, aux
+
+
+def _run_layer(layer, cfg: ModelConfig, x: torch.Tensor, rope, remat: bool):
+    if remat and torch.is_grad_enabled():
+        return checkpoint(_layer_train, layer, cfg, x, rope, use_reentrant=False)
+    return _layer_train(layer, cfg, x, rope)
+
+
+def forward_train(
+    params: LM, cfg: ModelConfig, batch: dict, *, remat: bool = True
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Full forward: ``(logits (B, S, V) fp32, aux, mtp_logits | None)``.
+
+    For vlm the patch prefix is consumed and the logits are the token
+    suffix's; aux is the MoE load-balance loss summed over layers (0
+    without experts); with DeepSeek's MTP head, ``mtp_logits`` (B, S - 1,
+    V) predict token t+2 from the final hidden state at t and the
+    embedding of token t+1.  ``remat`` recomputes each layer in the
+    backward pass (the same numbers, less memory)."""
+    check_family(cfg)
+    params_device(params)
+    x, positions = _embed_inputs(params, cfg, batch)
+    aux = _zero_aux(x)
+    rope = None if cfg.block_pattern == "mamba2" else rope_for(cfg, positions)
+    for i, layer in enumerate(params.layers):
+        if cfg.block_pattern == "zamba2" and i % cfg.hybrid_period == 0:
+            x, _ = _run_layer(params.shared_attn, cfg, x, rope, remat)
+        x, a = _run_layer(layer, cfg, x, rope, remat)
+        aux = aux + a
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if cfg.block_pattern == "vlm" and "patches" in batch:
+        x = x[:, batch["patches"].shape[1]:]
+    logits = unembed(params.embed, x)
+    if not (cfg.mtp_depth and hasattr(params, "mtp")):
+        return logits, aux, None
+    # MTP: token t+2 from (hidden_t, embed_{t+1}); its aux is not counted
+    mtp = params.mtp
+    h = torch.cat([x[:, :-1], embed(params.embed, batch["tokens"])[:, 1:]], dim=-1)
+    h, _ = _run_layer(mtp.block, cfg, h @ mtp.proj.w, rope_for(cfg, positions[:, :-1]), remat)
+    return logits, aux, unembed(params.embed, rmsnorm(mtp.norm, h, cfg.norm_eps))
+
+
 def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     # the norm is row-wise: normalising only the last position gives the
     # reference's logits
@@ -373,8 +466,10 @@ def _logits(params: LM, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def prefill(
     params: LM, cfg: ModelConfig, batch: dict, *, max_len: int | None = None
 ) -> tuple[torch.Tensor, Cache]:
-    """Process the prompts ``batch["tokens"]`` (B, S); returns the
-    last-position logits (B, 1, V) fp32 and the decode cache.
+    """Process the prompts ``batch["tokens"]`` (B, S), after vlm's
+    ``batch["patches"]`` (B, P, d) where given; returns the last-position
+    logits (B, 1, V) fp32 and the decode cache, which holds the prefix's
+    rows too.
 
     ``max_len`` reserves cache headroom for the decode steps that follow
     (default: the prompt length only); the Mamba2 state has none to
@@ -382,8 +477,7 @@ def prefill(
     """
     check_family(cfg)
     dev = params_device(params)
-    tokens = batch["tokens"]
-    x = embed(params.embed, tokens)
+    x, positions = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     pos = torch.full((b,), s, dtype=torch.int32, device=dev)
     length = max(s, max_len or 0)
@@ -392,7 +486,6 @@ def prefill(
         for i, layer in enumerate(params.layers):
             x = _mamba_prefill(layer, cfg, x, state, i)
         return _logits(params, cfg, x), {"layers": state, "pos": pos}
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     rope = rope_for(cfg, positions)
     if cfg.block_pattern == "zamba2":
         kv = _empty_kv(cfg, _n_super(cfg), b, length, dev)

@@ -9,21 +9,25 @@ first-class, mutable state instead of trace-time constants:
   (``add_replica`` / ``evict`` / ``server_join`` / ``server_leave`` /
   ``rebalance``) and a ``version`` counter;
 - :mod:`~repro_torch.placement.policies` — pluggable re-replication
-  (``static``, access-driven ``hot-block``);
+  (``static``, access-driven ``hot-block``, manifest-driven
+  ``checkpoint``);
 - :class:`PlacedJob` + :class:`PlacementEvent` — the runtime surface:
   traces build jobs whose groups reference block IDs, the engine
   re-resolves them at arrival and applies placement churn next to fault
   events (a deleted replica strands queued fragments exactly like a
-  server failure).
-
-The reference's ``placement/checkpoint.py`` (serve-layer blocks derived
-from checkpoint manifests, and the ``checkpoint`` replication policy)
-reads manifests through its checkpoint store, so it waits for the
-port's checkpoint slice; :class:`repro_torch.serve.engine.ReplicaRouter`
-already routes by model / adapter ID through :func:`model_block` /
-:func:`lora_block` blocks registered by hand.
+  server failure);
+- :mod:`~repro_torch.placement.checkpoint` — serve-layer blocks derived
+  from :mod:`repro_torch.checkpoint.store` manifests, so
+  :class:`repro_torch.serve.engine.ReplicaRouter` resolves eligible
+  replicas by model / adapter ID.
 """
 
+from .checkpoint import (
+    CheckpointInfo,
+    CheckpointManifestPolicy,
+    register_checkpoint,
+    scan_checkpoints,
+)
 from .events import PlacementEvent, churn_timeline
 from .policies import (
     REPLICATION_POLICIES,
@@ -45,6 +49,8 @@ from .store import (
 )
 
 __all__ = [
+    "CheckpointInfo",
+    "CheckpointManifestPolicy",
     "HotBlockPolicy",
     "PlacedJob",
     "PlacementDelta",
@@ -59,6 +65,8 @@ __all__ = [
     "lora_block",
     "make_replication_policy",
     "model_block",
+    "register_checkpoint",
+    "scan_checkpoints",
     "zipf_servers",
     "zipf_weights",
 ]

@@ -162,7 +162,7 @@ class HotBlockPolicy:
 REPLICATION_POLICIES: dict[str, type] = {
     "static": StaticPolicy,
     "hot-block": HotBlockPolicy,
-    # "checkpoint" waits for the port's checkpoint slice
+    # "checkpoint": registered by placement.checkpoint
 }
 
 

@@ -4,19 +4,24 @@ before a launch, and K5's split-KV arithmetic.
 - the split plan of decode attention (K5) from (B, Hkv, T): every block
   resident at once, at most one per 64-key chunk, a serving batch
   filling the card;
-- the head-row load width K5 takes per lane;
-- the dtype -> kernel rule of flash attention (K6): bf16 on the tensor
-  cores, float32 on the CUDA cores;
+- the head-row load plan K5 takes per lane (its width, and its number
+  of loads past one load a lane), at every hd from 1 to 256, refused
+  past 256;
+- the (dtype, hd) -> kernel rule of flash attention (K6): bf16 at the
+  multiples of 16 up to 128 on the tensor cores, float32 at the models'
+  widths on the CUDA cores, every other width up to 256 on the any-width
+  kernel, refused past 256;
 - TMA's refusals: a base address or stride off 16 bytes, a strided head
   dim;
 - a PyTorch mirror of K5's chunked partials and their log-sum-exp merge
   (empty chunks included), held against the plain version at 1e-6 in
   float32 (the sums run in another order);
 - K5's cut of a group past 8 query heads into slices (Qwen3-MoE's 16:
-  two slices of 8, each a block's share with its own partials), the
-  split plan over (KV head, slice), the refusal past ``MAX_GROUP``, the
-  ceilings against ``csrc/decode_attention.cu``, and the mirror per
-  slice held against the plain version at 1e-6.
+  two slices of 8, each a block's share with its own partials; 32 and
+  64: four and eight), the split plan over (KV head, slice), the
+  refusal of a group below 1 and of hd past 256, the ceilings against
+  ``csrc/decode_attention.cu``, and the mirror per slice held against
+  the plain version at 1e-6.
 
 Nothing here launches or builds a kernel.
 """
@@ -56,18 +61,75 @@ def test_split_plan_fills_the_card_at_the_serving_shape():
 @pytest.mark.parametrize(
     "hd,itemsize,want",
     [(128, 2, 8), (96, 2, 8), (80, 2, 8), (16, 2, 8), (20, 2, 4), (30, 2, 2), (31, 2, 1),
-     (128, 4, 4), (80, 4, 4), (30, 4, 2), (31, 4, 1), (33, 2, None), (66, 2, None),
-     (136, 2, None), (132, 4, None)],
+     (128, 4, 4), (80, 4, 4), (30, 4, 2), (31, 4, 1), (33, 2, 1), (66, 2, 2),
+     (136, 2, 4), (132, 4, 4), (256, 2, 4), (257, 2, None), (512, 4, None)],
 )
 def test_lane_width(hd, itemsize, want):
     assert dak.lane_width(hd, itemsize) == want
 
 
+@pytest.mark.parametrize(
+    "hd,itemsize,want",
+    [(128, 2, (8, 1)), (96, 2, (8, 1)), (96, 4, (4, 1)), (33, 2, (1, 2)), (33, 4, (1, 2)),
+     (256, 2, (4, 2)), (256, 4, (4, 2)), (255, 2, (1, 8)), (200, 2, (4, 2)),
+     (250, 4, (2, 4)), (0, 2, None), (257, 4, None)],
+)
+def test_lane_plan_at_the_new_widths(hd, itemsize, want):
+    assert dak.lane_plan(hd, itemsize) == want
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_lane_plan_covers_every_width_up_to_256(itemsize):
+    """At every hd from 1 to 256 the plan is one the kernel compiles: a
+    load of at most 16 bytes dividing hd, at most 8 elements a lane; one
+    load a lane only up to hd 128 with the row on a power of two of at
+    most 32 lanes, else the row on 32 lanes covered by nv loads."""
+    for hd in range(1, dak.MAX_HEAD_DIM + 1):
+        epl, nv = dak.lane_plan(hd, itemsize)
+        assert hd % epl == 0 and epl * itemsize <= dak.VEC_BYTES, hd
+        assert nv in (1, 2, 4, 8) and epl * nv <= dak.MAX_LANE_ELEMS, hd
+        if nv == 1:
+            assert hd <= dak.ONE_LOAD_HEAD_DIM and -(-hd // epl) <= 32, hd
+        else:
+            assert 32 * epl * (nv // 2) < hd <= 32 * epl * nv or (hd > 128 and nv == 2), hd
+    assert dak.lane_plan(dak.MAX_HEAD_DIM + 1, itemsize) is None
+
+
 def test_flash_attention_route_is_by_dtype():
-    assert fak.route(torch.bfloat16) == "tensor_core"
-    assert fak.route(torch.float32) == "cuda_core"
+    assert fak.route(torch.bfloat16, 128) == "tensor_core"
+    assert fak.route(torch.float32, 128) == "cuda_core"
     with pytest.raises(TypeError):
-        fak.route(torch.float16)
+        fak.route(torch.float16, 128)
+
+
+def test_flash_attention_route_covers_every_width_up_to_256():
+    """bf16 takes the tensor cores at every multiple of 16 up to 128,
+    float32 the CUDA-core kernel at the models' widths, and every other
+    width from 1 to 256 the any-width kernel; 0 and 257 are refused."""
+    for hd in range(1, fak.MAX_HEAD_DIM + 1):
+        want_bf16 = "tensor_core" if hd % 16 == 0 and hd <= 128 else "any_width"
+        want_f32 = "cuda_core" if hd in (16, 32, 64, 80, 128) else "any_width"
+        assert fak.route(torch.bfloat16, hd) == want_bf16, hd
+        assert fak.route(torch.float32, hd) == want_f32, hd
+    assert fak.TC_HEAD_DIMS == tuple(range(16, 129, 16))
+    for hd in (0, fak.MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match="hd from 1 to 256"):
+            fak.route(torch.bfloat16, hd)
+
+
+def test_flash_attention_sources_compile_every_routed_width():
+    """The C dispatch of each route names the widths the wrapper sends it."""
+    src = (Path(fak.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+
+    def cases(macro):
+        body = src[src.index(f"#define {macro}"):]
+        body = body[: body.index("default:")]
+        return tuple(int(w) for w in re.findall(r"case (\d+):", body))
+
+    assert cases("FA_DISPATCH_TC") == fak.TC_HEAD_DIMS
+    assert cases("FA_DISPATCH_CC") == fak.HEAD_DIMS
+    assert int(re.search(r"constexpr int kMaxHeadDim = (\d+);",
+                         src[src.index("namespace anyw"):]).group(1)) == fak.MAX_HEAD_DIM
 
 
 def test_flash_attention_cpu_tensors_take_the_plain_version():
@@ -174,7 +236,8 @@ def test_split_kv_mirror_gives_zero_without_keys():
 
 @pytest.mark.parametrize(
     "group,want",
-    [(1, (1, 1)), (4, (1, 4)), (8, (1, 8)), (9, (2, 5)), (12, (2, 6)), (16, (2, 8))],
+    [(1, (1, 1)), (4, (1, 4)), (8, (1, 8)), (9, (2, 5)), (12, (2, 6)), (16, (2, 8)),
+     (17, (3, 6)), (32, (4, 8)), (64, (8, 8)), (100, (13, 8))],
 )
 def test_group_slices_cut_past_eight_heads(group, want):
     n_slices, slice_heads = dak.group_slices(group)
@@ -183,12 +246,18 @@ def test_group_slices_cut_past_eight_heads(group, want):
     assert (n_slices - 1) * slice_heads < group <= n_slices * slice_heads
 
 
-@pytest.mark.parametrize("group", [0, dak.MAX_GROUP + 1, 32, 64])
-def test_groups_past_the_ceiling_are_refused(group):
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        dak.group_slices(group)
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        dak.split_plan(4, 4, 1024, SMS, group)
+@pytest.mark.parametrize("group,hd", [(0, 128), (-1, 128), (4, 257), (32, 512)])
+def test_groups_past_the_ceiling_are_refused(group, hd):
+    """K5's remaining ceilings: a group below 1 query head per KV head,
+    and a head row past 256."""
+    if group < 1:
+        with pytest.raises(ValueError, match="query head per KV head"):
+            dak.group_slices(group)
+        with pytest.raises(ValueError, match="query head per KV head"):
+            dak.split_plan(4, 4, 1024, SMS, group)
+    else:
+        assert dak.group_slices(group)[1] <= dak.MAX_SLICE
+        assert dak.lane_plan(hd, 2) is None and dak.lane_plan(hd, 4) is None
 
 
 def test_the_ceilings_equal_the_kernel_source():
@@ -197,8 +266,11 @@ def test_the_ceilings_equal_the_kernel_source():
     def constexpr(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
-    assert constexpr("kMaxGroup") == dak.MAX_GROUP == 16
+    assert constexpr("kMaxHeadDim") == dak.MAX_HEAD_DIM == 256
+    assert constexpr("kOneLoadHeadDim") == dak.ONE_LOAD_HEAD_DIM == 128
+    assert constexpr("kMaxLaneElems") == dak.MAX_LANE_ELEMS == 8
     assert constexpr("kMaxSlice") == dak.MAX_SLICE == 8
+    assert "kMaxGroup" not in src  # the number of slices grows with the group
     assert constexpr("kMaxSplits") == dak.MAX_SPLITS
 
 
@@ -211,6 +283,17 @@ def test_split_plan_counts_the_slices():
     assert dak.split_plan(4, 4, 1024, SMS, 8) == (64, 16)  # the chunks bound it
     _, splits = dak.split_plan(4, 4, 8192, SMS, 16)
     assert 4 * 4 * 2 * splits <= dak.BLOCKS_PER_SM * SMS < 4 * 4 * 2 * (splits + 1)
+
+
+def test_split_plan_at_groups_32_and_64():
+    """A group of 32 (128 query / 4 KV heads, 4 slices) at 4 x 1024: 64
+    blocks per split, 8 splits; a group of 64 over one KV head (8
+    slices) at 2 x 1024: 16 blocks per split, one per chunk."""
+    assert dak.group_slices(32) == (4, 8)
+    assert dak.split_plan(4, 4, 1024, SMS, 32) == (64, 8)
+    assert 4 * 4 * 4 * 8 <= dak.BLOCKS_PER_SM * SMS
+    assert dak.group_slices(64) == (8, 8)
+    assert dak.split_plan(2, 1, 1024, SMS, 64) == (64, 16)
 
 
 def _sliced_mirror(q, k, v, pos):
@@ -245,6 +328,23 @@ def test_sliced_mirror_matches_the_plain_version(b, h, hkv, t, hd):
     v = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
     chunk, splits = dak.split_plan(b, hkv, t, SMS, h // hkv)
     assert dak.group_slices(h // hkv)[0] == 2
+    _check_sliced_mirror(q, k, v, chunk, splits, t, rng)
+
+
+@pytest.mark.parametrize("b,h,hkv,t,hd", [(2, 128, 4, 700, 8), (1, 64, 1, 300, 33)])
+def test_sliced_mirror_matches_the_plain_version_at_groups_32_and_64(b, h, hkv, t, hd):
+    """Four and eight slices of 8 heads, each with its own partials."""
+    rng = np.random.default_rng(h + t)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, t, hd)).astype(np.float32))
+    chunk, splits = dak.split_plan(b, hkv, t, SMS, h // hkv)
+    assert dak.group_slices(h // hkv)[0] == h // hkv // 8
+    _check_sliced_mirror(q, k, v, chunk, splits, t, rng)
+
+
+def _check_sliced_mirror(q, k, v, chunk, splits, t, rng):
+    b = q.shape[0]
     for pos in ([0] * b, [chunk] * b, [splits * chunk + 1] * b, [t - 1] * b, [t + 7] * b,
                 rng.integers(0, t, b).tolist()):
         p = torch.tensor(pos, dtype=torch.int32)
@@ -254,10 +354,35 @@ def test_sliced_mirror_matches_the_plain_version(b, h, hkv, t, hd):
 
 
 def test_decode_attention_cpu_tensors_take_the_plain_version_at_any_group():
-    """The plain version has no ceiling: a CPU tensor past ``MAX_GROUP``
-    is computed, never refused."""
+    """The plain version has no ceiling: a CPU tensor at any group is
+    computed, never refused."""
     q, k, v = torch.ones(1, 32, 8), torch.ones(1, 1, 10, 8), torch.ones(1, 1, 10, 8)
     dak.reset_counts()
     out = dak.decode_attention(q, k, v, torch.tensor([3], dtype=torch.int32))
     assert dak.COUNTS == {"decode_attention": 0, "plain": 1}
     assert torch.equal(out, torch.ones(1, 32, 8))
+
+
+def test_contracts_declare_the_256_ceiling():
+    """The kernelcheck contracts of K5 and K6: every width up to 256 goes
+    to a kernel on the card, 257 is refused there, the CPU takes the plain
+    version at any width; the blocks fit the card's opt-in shared memory
+    (K6's tensor-core block at hd 128 is the source's Tile<128>::kSmem,
+    the any-width block at 256 the fp32 tiles of hd + 1)."""
+    from repro_torch.analysis.contracts import CONTRACTS
+
+    k5, k6 = CONTRACTS["decode_attention.kernel"], CONTRACTS["flash_attention.kernel"]
+    for dtype in ("float32", "bfloat16"):
+        for hd, want in ((1, "cuda"), (33, "cuda"), (256, "cuda"), (257, "refused")):
+            geom = {"hd": hd, "group": 32, "dtype": dtype, "device": "cuda"}
+            assert k5.dispatch(geom) == want
+        assert k5.dispatch({"hd": 512, "group": 64, "dtype": dtype, "device": "cpu"}) == "plain"
+        assert k6.dispatch({"hd": 72, "dtype": dtype, "device": "cuda"}) == "any_width"
+        assert k6.dispatch({"hd": 257, "dtype": dtype, "device": "cuda"}) == "refused"
+        for hd in (1, 96, 128, 256):
+            assert k6.smem({"hd": hd, "dtype": dtype, "device": "cuda"}).smem_bytes <= 227 * 1024
+    assert k6.dispatch({"hd": 96, "dtype": "bfloat16", "device": "cuda"}) == "tensor_core"
+    assert fak.launch_config("tensor_core", 128).dynamic_smem == 230_456
+    assert fak.launch_config("any_width", 256).dynamic_smem == 213_760
+    assert k5.smem({"hd": 256, "group": 32, "dtype": "float32",
+                    "device": "cuda"}).static_smem == 4 * 4 * 8 * (2 + 256) + 4

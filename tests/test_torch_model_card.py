@@ -1,9 +1,14 @@
 """The model kernels (RMSNorm, decode and flash attention, the SSD scan)
 against their plain versions, and the dense, MoE, MLA + MoE, Mamba2 and
 Zamba2 models on the card against the CPU.  Decode attention also at
-groups of 12 and 16 query heads per KV head (two slices of a group).  Flash attention runs bf16 on the tensor cores
-and float32 on the CUDA cores; decode attention splits the cache over
-blocks (split-KV) and merges in the same launch.
+groups of 12 and 16 query heads per KV head (two slices of a group),
+and past them (20, 32, 64); both attention kernels at head widths up to
+256 (odd ones included) and refusing 257.  Flash attention runs bf16 on
+the tensor cores (multiples of 16 up to 128), float32 on the CUDA cores,
+and every other width on the any-width kernel; decode attention splits
+the cache over blocks (split-KV) and merges in the same launch.  The
+K4 / K6 / K7 autograd Functions' gradients on the card against autograd
+through the plain versions.
 
 Needs a CUDA device (the kernels have no CPU mode), so it skips
 elsewhere; run it on a GPU machine with
@@ -463,3 +468,97 @@ def test_model_on_the_card_matches_the_cpu(card, arch):
             outs[dev] = [x.cpu() for x in got] + _cache_leaves(cache)
     for a, b in zip(outs["cuda"], outs["cpu"]):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4)
+
+
+# ---- every group and every head width up to 256 (K5, K6), and gradients ------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "b,h,hkv,t,hd",
+    [(2, 128, 4, 700, 128), (1, 64, 1, 300, 64), (2, 40, 2, 129, 128),  # groups 32, 64, 20
+     (3, 8, 2, 500, 33), (2, 8, 2, 300, 96), (2, 8, 2, 300, 200), (2, 4, 1, 1000, 256),
+     (1, 2, 1, 70, 1), (2, 4, 2, 65, 255)],
+)
+def test_decode_attention_at_every_group_and_width(card, b, h, hkv, t, hd, dtype):
+    """Groups past 16 (cut into slices of 8) and head widths the one-load
+    rows do not hold (odd past 32, past 128): one launch each, against
+    the plain version, pos at 0, inside and past the cache."""
+    rng = np.random.default_rng(h * 7 + hd)
+    q = _randn(rng, (b, h, hd), dtype, card)
+    k = _randn(rng, (b, hkv, t, hd), dtype, card)
+    v = _randn(rng, (b, hkv, t, hd), dtype, card)
+    for pos in ([0] * b, [t - 1] * b, [t + 5] * b, rng.integers(0, t, b).tolist()):
+        p = torch.tensor(pos, dtype=torch.int32, device=card)
+        dak.reset_counts()
+        got = dak.decode_attention(q, k, v, p)
+        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [1, 8, 48, 72, 96, 112, 200, 255, 256])
+def test_flash_attention_at_every_width(card, hd, dtype, causal):
+    """Each width on its route (bf16 multiples of 16 up to 128 on the
+    tensor cores, the rest on the any-width kernel), ragged S and T."""
+    rng = np.random.default_rng(hd)
+    b, h, hkv, s, t = 2, 8, 2, 200, 333
+    q = _randn(rng, (b, h, s, hd), dtype, card)
+    k = _randn(rng, (b, hkv, t, hd), dtype, card)
+    v = _randn(rng, (b, hkv, t, hd), dtype, card)
+    fak.reset_counts()
+    got = fak.flash_attention(q, k, v, causal=causal)
+    tc = int(fak.route(dtype, hd) == "tensor_core")
+    assert fak.COUNTS == {"flash_attention": 1, "tensor_core": tc, "plain": 0}
+    _close(got, fak.flash_attention_plain(q, k, v, causal=causal), dtype)
+
+
+@pytest.mark.gpu
+def test_the_attention_kernels_refuse_past_256(card):
+    q = torch.zeros(1, 2, 257, device=card)
+    kv = torch.zeros(1, 1, 8, 257, device=card)
+    with pytest.raises(ValueError, match="1 to 256"):
+        dak.decode_attention(q, kv, kv, torch.tensor([3], dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="1 to 256"):
+        fak.flash_attention(q[:, :, None], kv, kv)
+
+
+@pytest.mark.gpu
+def test_autograd_functions_on_the_card_match_autograd_of_the_plain_versions(card):
+    """K4, K6 and K7's Functions in float32 on the card (forward: the
+    kernels; backward: the same math as on the CPU) against autograd
+    through the plain versions, within 1e-4."""
+    rng = np.random.default_rng(5)
+
+    def grads(fn, inputs):
+        xs = [x.clone().requires_grad_(True) for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        w = [_randn(np.random.default_rng(9), o.shape, torch.float32, card) for o in outs]
+        return torch.autograd.grad(sum((o * wi).sum() for o, wi in zip(outs, w)), xs)
+
+    cases = []
+    x, g = _randn(rng, (4, 33, 256), torch.float32, card), _randn(rng, (256,), torch.float32,
+                                                                   card)
+    cases.append((lambda a, b: rnk.rmsnorm_fn(a, b, 1e-6),
+                  lambda a, b: rnk.rmsnorm_plain(a, b, 1e-6), (x, g)))
+    q = _randn(rng, (2, 8, 130, 64), torch.float32, card)
+    k, v = _randn(rng, (2, 2, 130, 64), torch.float32, card), _randn(
+        rng, (2, 2, 130, 64), torch.float32, card)
+    cases.append((lambda *a: fak.flash_attention_fn(*a), lambda *a: fak.flash_attention_plain(*a),
+                  (q, k, v)))
+    b, s, h, p, n = 2, 200, 4, 16, 16
+    ssd = (_randn(rng, (b, s, h, p), torch.float32, card),
+           torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h)).astype(np.float32)).to(card),
+           -torch.from_numpy(rng.uniform(0.5, 2.0, h).astype(np.float32)).to(card),
+           _randn(rng, (b, s, n), torch.float32, card), _randn(rng, (b, s, n), torch.float32,
+                                                                 card))
+    cases.append((lambda *a: ssk.ssd_scan_fn(*a, chunk=64),
+                  lambda *a: ssk.ssd_scan_plain(*a, 64), ssd))
+    for fn, plain, inputs in cases:
+        for got, want in zip(grads(fn, inputs), grads(plain, inputs)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-4,
+                                       rtol=1e-4)

@@ -270,7 +270,8 @@ def test_init_params_draws_the_reference_rules():
 def test_full_config_counts_as_the_reference():
     """Qwen3-MoE-235B: 235 G parameters, 22 G active (the A22B)."""
     cfg = get_config(ARCH)
-    assert cfg.n_heads // cfg.n_kv_heads == dak.MAX_GROUP
+    assert cfg.n_heads // cfg.n_kv_heads == 16
+    assert dak.group_slices(16) == (2, 8)  # K5: two slices of 8 heads
     assert 234e9 < cfg.param_count() < 236e9
     assert 21e9 < cfg.active_param_count() < 23e9
 

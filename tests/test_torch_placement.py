@@ -10,6 +10,8 @@ adapter ID as the reference's does — also from the control plane's
 ``submit_request``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from repro.serve.engine import ReplicaRouter as RefRouter
 from repro_torch import backend, convert
 from repro_torch.core import TaskGroup
 from repro_torch.placement import (
+    CheckpointManifestPolicy,
     HotBlockPolicy,
     PlacedJob,
     PlacementEvent,
@@ -133,9 +136,10 @@ def test_replication_policies_propose_the_reference_deltas(policy):
 
 
 def test_policy_registry_and_static_noop():
-    assert list_replication_policies() == ["hot-block", "static"]
+    assert list_replication_policies() == ["checkpoint", "hot-block", "static"]
+    assert make_replication_policy("checkpoint") == CheckpointManifestPolicy()
     with pytest.raises(KeyError):
-        make_replication_policy("checkpoint")  # waits for the checkpoint slice
+        make_replication_policy("no-such-policy")
     with pytest.raises(TypeError):
         make_replication_policy(42)
     store = PlacementStore(4)
@@ -302,3 +306,74 @@ def test_plane_routes_requests_through_the_placement_store_like_the_reference():
     assert got.serve_latency == want.serve_latency and got.serve_latency
     assert got.makespan == want.makespan
     assert _store_state(store) == _store_state(ref_store)
+
+
+# ---- checkpoint-derived serve routing (placement.checkpoint) ------------------
+
+
+def _tiny_checkpoint(directory, writer, step=3):
+    """The reference's test tree ({"w": (2, 3), "b": (3,)} float32),
+    written by ``writer`` (either package's ``save_checkpoint``)."""
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "b": np.zeros(3, dtype=np.float32)}
+    return writer(str(directory), step, tree)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_register_checkpoint_places_and_routes_like_the_reference(tmp_path, writer):
+    """A checkpoint written by either package registers in both packages'
+    stores with the same info and replicas; the routers then resolve the
+    same eligible sets and route the same tokens; the ``checkpoint``
+    policy re-replicates the same way."""
+    from repro.checkpoint.store import save_checkpoint as ref_save
+    from repro.placement import register_checkpoint as ref_register
+    from repro.placement import scan_checkpoints as ref_scan
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.placement import register_checkpoint, scan_checkpoints
+
+    save = save_checkpoint if writer == "port" else ref_save
+    for name in ("qwen", "sql-lora", "solo"):
+        _tiny_checkpoint(tmp_path / name, save)
+    stores = (ref_placement.PlacementStore(4, policy="checkpoint"),
+              PlacementStore(4, policy="checkpoint"))
+    for store, register in zip(stores, (ref_register, register_checkpoint)):
+        info = register(store, str(tmp_path / "qwen"), servers=(0, 1, 3))
+        assert (info.block, info.step, info.n_leaves, info.n_params) == ("model/qwen", 3, 2, 9)
+        register(store, str(tmp_path / "sql-lora"), servers=(1, 2, 3), kind="lora")
+        register(store, str(tmp_path / "solo"), servers=(0,))
+        with pytest.raises(FileNotFoundError):
+            register(store, str(tmp_path / "missing"), servers=(0,))
+    assert _store_state(stores[1]) == _store_state(stores[0])
+    assert ([dataclasses.astuple(i) for i in scan_checkpoints(str(tmp_path))]
+            == [dataclasses.astuple(i) for i in ref_scan(str(tmp_path))])
+    ref = RefRouter(4, tokens_per_step=100, placement=stores[0])
+    got = ReplicaRouter(4, tokens_per_step=100, policy="wf_torch", placement=stores[1])
+    for n, model, adapter in ((150, "qwen", "sql-lora"), (90, "qwen", None)):
+        assert got.route(n, model=model, adapter=adapter) == ref.route(
+            n, model=model, adapter=adapter)
+    with pytest.raises(ValueError, match="no server holds all"):
+        got.route(10, model="solo", adapter="sql-lora")
+    for store in stores:
+        store.evict("model/solo", 0) if len(store.replicas("model/solo")) > 1 else None
+        store.evict("model/qwen", 0)
+    deltas = [store.rebalance() for store in stores]
+    assert (deltas[1].added, deltas[1].evicted) == (deltas[0].added, deltas[0].evicted)
+    assert _store_state(stores[1]) == _store_state(stores[0])
+
+
+def test_register_checkpoint_rejects_a_malformed_manifest(tmp_path):
+    import json
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.placement import register_checkpoint
+
+    _tiny_checkpoint(tmp_path / "broken", save_checkpoint)
+    manifest_path = tmp_path / "broken" / "step_00000003" / "manifest.json"
+    manifest = json.loads(manifest_path.read_text())
+    del manifest["leaves"][0]["crc32"]
+    manifest_path.write_text(json.dumps(manifest))
+    store = PlacementStore(4)
+    with pytest.raises(ValueError, match="crc32"):
+        register_checkpoint(store, str(tmp_path / "broken"), servers=(0,))
+    assert not list(store.blocks())
+
