@@ -93,9 +93,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
     1024, hd 128) and 64, and at hd 256, 96 and 33 (group 4); K6 causal
     and not at hd 256, 96 (the tensor cores in bf16) and 72 (the
     any-width kernel), and at hd 72 through strided views; float32 and
-    bf16, each against its plain version within the model tolerance,
-    one kernel launch a case and no plain call; each case's µs (CUDA
-    events), the bf16 ones against plain, SDPA and the bound;
+    bf16, each against its plain version within the model tolerance
+    (bf16 also against the float32 plain, as 14e), one kernel launch a
+    case and no plain call; each case's µs (CUDA events), the bf16 ones
+    against plain, SDPA and the bound on rotating input copies (as 14e);
 8. serve parity — the port's ``ServeEngine`` on the card (kernels)
    against the port on the CPU (plain versions) on both smoke configs in
    float32: identical tokens, and the logits' largest difference;
@@ -170,6 +171,41 @@ Phases, each printing one JSON line (any failure exits non-zero):
     no plain call); ms a step, tokens/s, peak memory; the train state
     saved (async) and restored through ``CheckpointManager`` with every
     leaf identical, and placed by ``register_checkpoint``;
+14e. encdec kernels — K6 not causal at Whisper-medium's shapes (4
+    sequences, 16 query over 16 KV heads of 64): S = T = 1500 (the
+    encoder), S = 64 and S = 1 against T = 1500 (cross-attention at
+    prefill and decode: a ragged 92-key tail, one query row of a 128-row
+    tile), the encoder and S = 1 again on inputs where a key mask off by
+    one key moves every output past the limit (the "ramp" cases), the
+    decoder's causal prefill through strided views, and K5 at a group of 1
+    over 1024 keys; float32 and bf16, each against its plain version, the
+    bf16 ones also against the float32 plain within 2**-6 of the largest
+    output, one launch a case, no plain call; the bf16 random cases timed
+    on rotating input copies (past the L2) against plain, SDPA and the
+    bound;
+14f. encdec serve — Whisper-medium at full width and depth (24 encoder +
+    24 decoder layers, d 1024, vocab 51,865, 0.96 G parameters in bf16,
+    seeded; the conv frontend stubbed as the reference stubs it: 1500
+    seeded N(0, 1) frame embeddings a sequence): 4 sequences encoded and a
+    64-token prompt prefilled, 32 decode steps; the last step's logits
+    against one prefill of the extended sequence within 5 % of the largest
+    logit, clear argmaxes agreeing; exactly 122 K4 and 72 K6 (tensor
+    cores) in the prefill, 73 K4, 24 K5 and 24 K6 (cross-attention) a
+    step, no plain call; a profiled decode step; a float32 copy of 2 + 2
+    layers at full width through the kernels against the plain versions
+    within 1e-4 (prefill and 4 steps);
+14g. encdec train — Whisper-medium at full depth, bf16, bf16 AdamW
+    moments, 4 x (1500 frames + 448 loader tokens), 20 steps: the loss
+    falls by 0.3 at least; step 1's gradients (on 2 of the sequences)
+    through the kernels against the plain path as in 14d; exactly 170 K4
+    and 96 K6 (tensor cores) a step (the encoder's layers recomputed in
+    the backward, as the reference's ``jax.checkpoint``), no plain call;
+14h. launch train — ``repro_torch.launch.train.main`` on the card:
+    Mamba2-130M whole, 60 steps into a temporary ``--ckpt-dir`` (an async
+    save at step 50, the final save at 60), then again with ``--steps
+    70``, which resumes from step 60; 97 K4 and 48 K7 a step (the
+    driver's ``remat``: the forward, then each layer again), no plain
+    call, no WF launch (its loader keeps the host ``water_filling``);
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's single-job calls and chained bursts, beside
@@ -190,11 +226,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
 walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
-``slice11_phases`` line), the ``kernels``
+``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line), the
+``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
 launches too), the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.  The script needs a CUDA device and
-the repository's ``src/`` beside it.
+``{"ok": true, "device": {...}}``.  Each phase's line carries ``t_s``,
+the seconds since the start.  The host-only references of 5 (the host
+``wf`` schedules) and 6c (OBTA, NLIP, the host ``rd``) run in one worker
+process beside the card's phases, which is stopped however the run
+ends.  The script needs a CUDA device and the repository's ``src/``
+beside it.
 """
 
 from __future__ import annotations
@@ -203,7 +244,11 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import functools
+import io
+import itertools
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -401,6 +446,12 @@ PREFILL_REL_TOL = 0.05
 # kernel-vs-plain tolerances: float32 sums in another order; bfloat16 2e-2
 # plus one bfloat16 rounding step of the value
 MODEL_TOL = {"float32": (5e-5, 0.0), "bfloat16": (2e-2, 2**-7)}
+# K5 / K6 cases in bf16 are held a second time, against the plain
+# version in float32 on the same inputs, within this share of its
+# largest output: the kernel rounds its output (2**-9) and, on the
+# tensor cores, P to bf16; the last key masked off moves an output of
+# the ramp inputs (_ramp) past this, though by less than MODEL_TOL's atol
+BF16_F32_REL = 2**-6
 
 # the Mamba2 family at full width: Mamba2-130M through one ServeEngine,
 # Zamba2-2.7B behind the same two-replica pool as the dense path; both
@@ -511,6 +562,31 @@ TRAIN_GRAD_TOL = {"global_norm": 1e-2, "leaf": 1.5e-1, "whole": 5e-2}
 TRAIN_GRAD_TOL_F32 = {"global_norm": 1e-3, "leaf": 1e-3, "whole": 1e-3}
 SLICE11_BUDGET_S = 150  # attention_widths, vlm_serve and train together
 
+# Whisper-medium (encdec) at full width and depth (24 encoder + 24 decoder
+# layers, d 1024, 16 query over 16 KV heads of 64, vocab 51,865, 0.96 G
+# parameters, 1.9 GB in bf16, seeded weights; the conv frontend stubbed
+# as the reference stubs it: 1500 seeded N(0, 1) frame embeddings a
+# sequence).  Serving: 4 sequences, a 64-token prompt prefilled, then 32
+# decode steps; a float32 copy of 2 + 2 layers through the kernels
+# against the plain versions within ENCDEC_F32_TOL.  Training: 4 x (1500
+# frames + 448 tokens; 448 is Whisper's published decoder context),
+# ENCDEC_TRAIN_STEPS steps.  Then the port's train driver on Mamba2-130M:
+# LAUNCH_STEPS[0] steps (an async save at 50, the final one at the end),
+# then again to LAUNCH_STEPS[1], resuming
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_BATCH = 4
+ENCDEC_PROMPT = 64
+ENCDEC_STEPS = 32
+ENCDEC_F32_LAYERS = 2
+ENCDEC_F32_STEPS = 4
+ENCDEC_F32_TOL = 1e-4
+ENCDEC_TRAIN_TOKENS = 448
+ENCDEC_TRAIN_STEPS = 20
+ENCDEC_GRAD_BATCH = 2  # the step-1 gradient check's sequences (of the 4 trained)
+LAUNCH_ARCH = "mamba2-130m"
+LAUNCH_STEPS = (60, 70)
+SLICE12_BUDGET_S = 75  # encdec_kernels, encdec_serve, encdec_train, launch_train
+
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
 # outside the tensor cores (the table's fp32 entry; the scheduler
 # kernels' arithmetic is 32-bit integer, which issues no faster), and the
@@ -518,11 +594,19 @@ SLICE11_BUDGET_S = 150  # attention_widths, vlm_serve and train together
 HBM_BYTES_PER_S = 3.35e12
 PEAK_32BIT_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
+L2_BYTES = 50 * 2**20  # the H100 SXM's L2
 OPS_PER_COMPARE_EXCHANGE = 3  # one 64-bit compare, two selects
 OPS_PER_LANE = 12  # scans, ceiling division, segment test, caps, clamp
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    script started, so the whole run's time splits by phase."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -839,11 +923,21 @@ def _fused_launches(counts: dict) -> int:
     return counts["wf_groups"] + counts["wf_chain"]
 
 
-def phase_main_path(seed: int, jobs: list) -> tuple[list, dict, dict]:
+def host_wf_run(jobs: list, ordering: str) -> tuple:
+    """The host ``wf`` schedule of ``jobs`` under ``ordering`` and its wall
+    seconds: the reference the main path is held to, computed in the
+    host worker (:func:`main`) while the card runs the phases before it."""
+    t0 = time.perf_counter()
+    host = SchedulingEngine(M_SERVERS, make_policy("wf", ordering)).run(jobs)
+    return host, time.perf_counter() - t0
+
+
+def phase_main_path(seed: int, jobs: list, host_wf: dict) -> tuple[list, dict, dict]:
     """The scheduler under fifo and ocwf-acc, then the batch entry point:
     one fused launch per ``wf_torch`` adapter call, no K1/K2 launch and no
-    plain call, schedules identical to the host ``wf``.  Returns the
-    bursts, the launches, and each ordering's (result, wall seconds)."""
+    plain call, schedules identical to the host ``wf`` (``host_wf``: each
+    ordering's pending :func:`host_wf_run`).  Returns the bursts, the
+    launches, and each ordering's (result, wall seconds)."""
     bursts = bursts_of(jobs)
     n_arrivals = sum(len(b) for b in bursts)
     launches = {"waterlevel": 0, "waterlevel_batch": 0, "wf_fused": 0, "wf_group_steps": 0}
@@ -858,9 +952,7 @@ def phase_main_path(seed: int, jobs: list) -> tuple[list, dict, dict]:
         wall = time.perf_counter() - t0
         counts = dict(wl.COUNTS)
         calls = wf_torch.CALLS["adapter"]
-        t0 = time.perf_counter()
-        host = SchedulingEngine(M_SERVERS, make_policy("wf", ordering)).run(jobs)
-        host_wall = time.perf_counter() - t0
+        host, host_wall = host_wf[ordering].get()
         identical = (
             dev.jct == host.jct
             and dev.makespan == host.makespan
@@ -1445,41 +1537,54 @@ def _arrival_problems(calls: list, n: int) -> list[tuple]:
     return out
 
 
-def phase_exact(jobs: list, plane: dict) -> dict:
+def exact_host(problem: AssignmentProblem) -> dict:
+    """OBTA, NLIP (each with its wall seconds) and the host ``rd`` on one
+    problem: the host side of :func:`phase_exact`, run in the host worker."""
+    t0 = time.perf_counter()
+    opt = obta(problem)
+    t1 = time.perf_counter()
+    base = nlip(problem)
+    t2 = time.perf_counter()
+    host_rd = replica_deletion(problem)
+    return {"obta": opt.phi, "obta_s": t1 - t0, "nlip": base.phi, "nlip_s": t2 - t1,
+            "rd": host_rd.phi, "rd_alloc": host_rd.alloc}
+
+
+def phase_exact(jobs: list, plane: dict, pool) -> dict:
     """OBTA and NLIP (host) on the first ``EXACT_PROBLEMS`` arrival problems
     of the ``wf_torch`` fifo plane: Φ_obta = Φ_nlip ≤ Φ(wf_torch) ≤ K_c ·
     Φ_obta on each, and Φ_obta ≤ Φ(rd_plus) ≤ Φ(rd_torch), with
-    ``rd_torch``'s allocation equal to the host ``rd``'s.  Then the plane with ``obta``
-    on the whole trace, and ``rd_plus`` / ``obta`` / ``wf_torch`` on the
-    first ``RD_PLUS_JOBS`` jobs: mean and p99 JCT each."""
+    ``rd_torch``'s allocation equal to the host ``rd``'s.  The host side
+    (:func:`exact_host`, its solver times too) runs in the host worker
+    ``pool`` while ``rd_torch`` runs on the card.  Then the plane with
+    ``obta`` on the whole trace, and ``rd_plus`` / ``obta`` / ``wf_torch``
+    on the first ``RD_PLUS_JOBS`` jobs: mean and p99 JCT each."""
     pairs = _arrival_problems(plane["calls"], EXACT_PROBLEMS)
+    host = pool.map_async(exact_host, [problem for problem, _ in pairs])
     obta_s, nlip_s, rows = [], [], []
     _reset_launches()
-    for i, (problem, wf_a) in enumerate(pairs):
-        t0 = time.perf_counter()
-        opt = obta(problem)
-        obta_s.append(time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        base = nlip(problem)
-        nlip_s.append(time.perf_counter() - t0)
-        k_c = len(problem.groups)
-        row = {"k_c": k_c, "obta": opt.phi, "nlip": base.phi, "wf_torch": wf_a.phi,
-               "wf_torch_realized": wf_a.realized_phi(problem)}
+    device = []
+    for problem, _ in pairs:
         rd_a = rd_torch.replica_deletion_torch(problem)
-        host_rd = replica_deletion(problem)
         # rd_plus is the 1-opt polish of rd_torch's result
         # (replica_deletion_plus): polish the device RD just run rather
         # than run it again; the plane below drives rd_plus itself
-        row["rd_torch"] = rd_a.phi
-        row["rd"] = host_rd.phi
-        row["rd_plus"] = rebalance_1opt(problem, rd_a).phi
+        device.append((rd_a, rebalance_1opt(problem, rd_a).phi))
+    for i, ((problem, wf_a), (rd_a, rd_plus), h) in enumerate(zip(pairs, device, host.get())):
+        obta_s.append(h["obta_s"])
+        nlip_s.append(h["nlip_s"])
+        k_c = len(problem.groups)
+        row = {"k_c": k_c, "obta": h["obta"], "nlip": h["nlip"], "wf_torch": wf_a.phi,
+               "wf_torch_realized": wf_a.realized_phi(problem), "rd_torch": rd_a.phi,
+               "rd": h["rd"], "rd_plus": rd_plus}
         rows.append(row)
-        if not (opt.phi == base.phi and opt.phi <= wf_a.phi <= k_c * opt.phi):
+        opt_phi = h["obta"]
+        if not (opt_phi == h["nlip"] and opt_phi <= wf_a.phi <= k_c * opt_phi):
             raise AssertionError(f"exact: problem {i} breaks Φ_obta = Φ_nlip ≤ Φ_wf ≤ "
                                  f"K_c·Φ_obta: {row}")
-        if rd_a.alloc != host_rd.alloc or rd_a.phi != host_rd.phi:
+        if rd_a.alloc != h["rd_alloc"] or rd_a.phi != h["rd"]:
             raise AssertionError(f"exact: problem {i}: rd_torch differs from host rd: {row}")
-        if not (opt.phi <= row["rd_plus"] <= row["rd_torch"]):
+        if not (opt_phi <= row["rd_plus"] <= row["rd_torch"]):
             raise AssertionError(f"exact: problem {i} breaks Φ_obta ≤ Φ_rd_plus ≤ "
                                  f"Φ_rd_torch: {row}")
     torch.cuda.synchronize()
@@ -2936,24 +3041,52 @@ def _k6_bound(b: int, h: int, hkv: int, s: int, t: int, hd: int,
                   PEAK_BF16_FLOPS)
 
 
-def phase_attention_widths(seed: int) -> dict:
-    """K5 and K6 at the groups and head widths past their earlier
-    ceilings, in float32 and bfloat16: K5 at a group of 32 (and 64) and at
-    hd 256, 96 and 33; K6 causal and not at hd 256, 96 and 72 (96 on the
-    tensor cores in bf16, the rest on the any-width kernel), and at hd 72
-    through the model's strided views.  Every kernel call runs first,
-    with the counts zeroed: one launch per case and no plain call; then
-    each output against its plain version, within the model tolerance.
-    Each case's kernel time is CUDA events over back-to-back calls; the
-    bf16 cases at the widths the summary reports are timed against plain
-    and SDPA too."""
+def _rotating(fn, args: tuple):
+    """``fn`` over copies of ``args`` in turn, so many that the others' bytes
+    pass four times the L2 between two uses of one copy: each timed call
+    reads its inputs from HBM, where back-to-back calls on one set would
+    find them in L2."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    sets = [args] + [tuple(a.clone() for a in args) for _ in range(-(-4 * L2_BYTES // nbytes))]
+    turn = itertools.cycle(sets)
+    return lambda: fn(*next(turn))
+
+
+def _ramp(b: int, h: int, hkv: int, s: int, t: int, hd: int, dt) -> tuple:
+    """K6 inputs that make the key mask's faults large: q all ones, k all
+    minus ones but half that at the last key (every score -sqrt(hd), the
+    last key's half that: -8 and -4 at hd 64), values climbing with the
+    key, v[.., j, :] = j / t.  A key past t let through the mask (score 0
+    on TMA's zero fill) would take most of the weight; the last key
+    masked off would move every output by ~0.018 at t = 1500, a tail of
+    92 keys by more."""
+    q = torch.ones((b, h, s, hd), device="cuda", dtype=dt)
+    k = -torch.ones((b, hkv, t, hd), device="cuda", dtype=dt)
+    k[:, :, -1] = -0.5
+    ramp = torch.arange(t, device="cuda", dtype=torch.float32) / t
+    return q, k, ramp[None, None, :, None].expand(b, hkv, t, hd).to(dt).contiguous()
+
+
+def _attention_cases(phase: str, gen: torch.Generator, k5: list, k6: list, views: list,
+                     timed) -> dict:
+    """K5 cases ``(label, (b, h, hkv, t, hd))`` (random positions, the
+    first 0 and the last t - 1), K6 cases ``(label, (b, h, hkv, s, t, hd),
+    causal)`` (``(..., causal, "ramp")``: :func:`_ramp`'s inputs, the mask's
+    check) and K6 causal cases through the model's strided views
+    ``(label, (b, h, hkv, s, hd))`` (q, k and v as transposed views of one
+    projection's rows), in float32 and bfloat16.  Every kernel call runs
+    first, with the counts zeroed: one launch per case and no plain call;
+    then each output against its plain version, within the model
+    tolerance, and each bf16 output also against the plain version in
+    float32 on the same inputs, within ``BF16_F32_REL`` of that output's
+    largest magnitude (the model tolerance's atol is ~60 % of a typical
+    output over 1500 keys).  Each case's kernel time is CUDA events over
+    back-to-back calls; the bf16 cases whose label ``timed`` accepts
+    (never the views or ramps) are timed against plain and SDPA too, on
+    rotating input copies (:func:`_rotating`), beside their bound.  Emits
+    the ``phase`` line; returns the timed rows and the worst error a
+    kernel."""
     F = torch.nn.functional
-    gen = torch.Generator(device="cuda").manual_seed(seed + 110)
-    k5 = [("group 32", (4, 128, 4, 1024, 128)), ("group 64", (2, 64, 1, 1024, 64)),
-          ("hd 256", (4, 16, 4, 1024, 256)), ("hd 96", (4, 16, 4, 1024, 96)),
-          ("hd 33", (4, 16, 4, 1024, 33))]
-    k6 = [(f"hd {w}{'' if c else ', not causal'}", (2, 16, 4, 1024, 1024, w), c)
-          for w in WIDTH_K6 for c in (True, False)]
     runs = []
     _reset_model_counts()
     for dtype_name in ("float32", "bfloat16"):
@@ -2966,19 +3099,21 @@ def phase_attention_widths(seed: int) -> dict:
             args = (q, k, v, pos)
             runs.append(("decode_attention", label, dtype_name, [b, h, hkv, t, hd], None, args,
                          dak.decode_attention(*args)))
-        for label, (b, h, hkv, s, t, hd), causal in k6:
-            q = _randn(gen, (b, h, s, hd), dt)
-            k, v = _randn(gen, (b, hkv, t, hd), dt), _randn(gen, (b, hkv, t, hd), dt)
+        for label, (b, h, hkv, s, t, hd), causal, *inputs in k6:
+            if inputs == ["ramp"]:
+                q, k, v = _ramp(b, h, hkv, s, t, hd, dt)
+            else:
+                q = _randn(gen, (b, h, s, hd), dt)
+                k, v = _randn(gen, (b, hkv, t, hd), dt), _randn(gen, (b, hkv, t, hd), dt)
             runs.append(("flash_attention", label, dtype_name, [b, h, hkv, s, t, hd], causal,
                          (q, k, v), fak.flash_attention(q, k, v, causal=causal)))
-        b, sl, h, hkv, hd = 2, 300, 16, 4, 72  # the model's layout: views of one projection
-        qkv = _randn(gen, (b, sl, (h + 2 * hkv) * hd), dt)
-        q = qkv[..., : h * hd].reshape(b, sl, h, hd).transpose(1, 2)
-        k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, sl, hkv, hd).transpose(1, 2)
-        v = qkv[..., (h + hkv) * hd :].reshape(b, sl, hkv, hd).transpose(1, 2)
-        runs.append(("flash_attention", "hd 72, strided (B, S, H, hd) views", dtype_name,
-                      [b, h, hkv, sl, sl, hd], True, (q, k, v),
-                      fak.flash_attention(q, k, v, causal=True)))
+        for label, (b, h, hkv, sl, hd) in views:
+            qkv = _randn(gen, (b, sl, (h + 2 * hkv) * hd), dt)
+            q = qkv[..., : h * hd].reshape(b, sl, h, hd).transpose(1, 2)
+            k = qkv[..., h * hd : (h + hkv) * hd].reshape(b, sl, hkv, hd).transpose(1, 2)
+            v = qkv[..., (h + hkv) * hd :].reshape(b, sl, hkv, hd).transpose(1, 2)
+            runs.append(("flash_attention", label, dtype_name, [b, h, hkv, sl, sl, hd], True,
+                         (q, k, v), fak.flash_attention(q, k, v, causal=True)))
     torch.cuda.synchronize()
     counts = _model_counts()
     n5 = sum(r[0] == "decode_attention" for r in runs)
@@ -2986,50 +3121,103 @@ def phase_attention_widths(seed: int) -> dict:
     if (counts["decode_attention"] != {"decode_attention": n5, "plain": 0}
             or counts["flash_attention"]["flash_attention"] != n6
             or counts["flash_attention"]["plain"] != 0):
-        raise AssertionError(f"attention_widths: {n5} K5 and {n6} K6 calls gave counts "
+        raise AssertionError(f"{phase}: {n5} K5 and {n6} K6 calls gave counts "
                              f"{counts['decode_attention']} {counts['flash_attention']}")
-    cases, timed = [], {}
+    untimed = {label for label, _ in views} | {c[0] for c in k6 if c[3:] == ("ramp",)}
+    cases, timed_rows = [], {}
     for kernel, label, dtype_name, shape, causal, args, got in runs:
         if kernel == "decode_attention":
-            want = dak.decode_attention_plain(*args)
+            plain, plain_args = dak.decode_attention_plain, args
             call = lambda a=args: dak.decode_attention(*a)  # noqa: E731
             extra = {"slices": dak.group_slices(shape[1] // shape[2]),
                      "lane_plan": dak.lane_plan(shape[4], args[0].element_size())}
         else:
-            want = fak.flash_attention_plain(*(x.contiguous() for x in args), causal=causal)
+            plain = functools.partial(fak.flash_attention_plain, causal=causal)
+            plain_args = tuple(x.contiguous() for x in args)
             call = lambda a=args, c=causal: fak.flash_attention(*a, causal=c)  # noqa: E731
             extra = {"causal": causal, "route": fak.route(args[0].dtype, shape[5])}
-        err, ok = _model_err(got, want, dtype_name)
+        err, ok = _model_err(got, plain(*plain_args), dtype_name)
+        if dtype_name == "bfloat16":
+            want32 = plain(*(x.float() if x.is_floating_point() else x for x in plain_args))
+            tol32 = BF16_F32_REL * float(want32.abs().max())
+            err32 = float((got.float() - want32).abs().max())
+            extra.update(max_abs_err_f32=err32, tol_f32=tol32)
+            ok = ok and err32 <= tol32
         cases.append({"kernel": kernel, "case": label, "dtype": dtype_name, "shape": shape,
                       **extra, "max_abs_err": err, "ok": ok,
                       "kernel_us": cuda_ms(call, 10) * 1e3})
-        if dtype_name != "bfloat16" or "strided" in label or "not causal" in label:
+        if dtype_name != "bfloat16" or label in untimed or not timed(label):
             continue
         if kernel == "decode_attention":
             q, k, v, pos = args
             t_len = k.shape[2]
             mask = (torch.arange(t_len, device="cuda")[None, :] <= pos[:, None])[:, None, None]
-            t = _time_three(call, lambda a=args: dak.decode_attention_plain(*a),
-                            lambda: F.scaled_dot_product_attention(
-                                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 100)
+            t = _time_three(_rotating(dak.decode_attention, args),
+                            _rotating(dak.decode_attention_plain, args),
+                            _rotating(lambda q, k, v, _: F.scaled_dot_product_attention(
+                                q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), args),
+                            100)
             bound, by = _k5_bound(*shape[:3], shape[4], pos)
         else:
-            q, k, v = args
-            t = _time_three(call, lambda a=args: fak.flash_attention_plain(*a, causal=True),
-                            lambda: F.scaled_dot_product_attention(
-                                q, k, v, is_causal=True, enable_gqa=True), 5)
-            bound, by = _k6_bound(*shape, True)
-        timed[f"{kernel} {label}"] = {"shape": shape, **t, "bound_ms": bound, "bound_by": by}
+            t = _time_three(_rotating(functools.partial(fak.flash_attention, causal=causal),
+                                      args),
+                            _rotating(plain, args),
+                            _rotating(functools.partial(F.scaled_dot_product_attention,
+                                                        is_causal=causal, enable_gqa=True),
+                                      args), 5)
+            bound, by = _k6_bound(*shape, causal)
+        timed_rows[f"{kernel} {label}"] = {"shape": shape, **t, "bound_ms": bound,
+                                           "bound_by": by}
     bad = [c for c in cases if not c["ok"]]
-    emit({"phase": "attention_widths", "counts": {"decode_attention": n5,
-                                                  "flash_attention": n6, "plain": 0},
+    emit({"phase": phase, "counts": {"decode_attention": n5, "flash_attention": n6,
+                                     "plain": 0},
           "tolerance": {k: {"atol": a, "rtol": r} for k, (a, r) in MODEL_TOL.items()},
-          "cases": cases, "timed_bf16": timed})
+          "tolerance_bf16_vs_f32": f"{BF16_F32_REL} x the largest |float32 plain output|",
+          "cases": cases, "timed_bf16": timed_rows})
     if bad:
-        raise AssertionError(f"attention_widths: kernels disagree with plain: {bad}")
-    return {"timed": timed,
+        raise AssertionError(f"{phase}: kernels disagree with plain: {bad}")
+    return {"timed": timed_rows,
             "max_abs_err": {k: max(c["max_abs_err"] for c in cases if c["kernel"] == k)
                             for k in ("decode_attention", "flash_attention")}}
+
+
+def phase_attention_widths(seed: int) -> dict:
+    """K5 and K6 at the groups and head widths past their earlier
+    ceilings (:func:`_attention_cases`): K5 at a group of 32 (and 64) and
+    at hd 256, 96 and 33; K6 causal and not at hd 256, 96 and 72 (96 on
+    the tensor cores in bf16, the rest on the any-width kernel), and at hd
+    72 through the model's strided views; the bf16 causal cases timed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 110)
+    k5 = [("group 32", (4, 128, 4, 1024, 128)), ("group 64", (2, 64, 1, 1024, 64)),
+          ("hd 256", (4, 16, 4, 1024, 256)), ("hd 96", (4, 16, 4, 1024, 96)),
+          ("hd 33", (4, 16, 4, 1024, 33))]
+    k6 = [(f"hd {w}{'' if c else ', not causal'}", (2, 16, 4, 1024, 1024, w), c)
+          for w in WIDTH_K6 for c in (True, False)]
+    views = [("hd 72, strided (B, S, H, hd) views", (2, 16, 4, 300, 72))]
+    return _attention_cases("attention_widths", gen, k5, k6, views,
+                            timed=lambda label: "not causal" not in label)
+
+
+def phase_encdec_kernels(seed: int) -> dict:
+    """K5 and K6 at Whisper-medium's shapes (:func:`_attention_cases`; 16
+    query over 16 KV heads of 64, batch 4, 1500 frames): K6 not causal at
+    S = T = 1500 (the encoder), S = 64 (a cross-attention prefill) and S =
+    1 (cross-attention at decode: one row of a 128-row query tile, a tail
+    of 92 keys), the encoder and S = 1 again on :func:`_ramp`'s inputs
+    (the key mask's check), K6 at the decoder's causal self-attention
+    through the model's strided views, and K5 at a group of 1 over 1024
+    keys; every bf16 case on random inputs timed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 140)
+    cfg = get_config(ENCDEC_ARCH)
+    b, h, hkv, hd, t = ENCDEC_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.encoder_seq
+    k5 = [("whisper decode, group 1", (b, h, hkv, 1024, hd))]
+    k6 = [("whisper encoder", (b, h, hkv, t, t, hd), False),
+          ("whisper cross prefill", (b, h, hkv, ENCDEC_PROMPT, t, hd), False),
+          ("whisper cross decode, S = 1", (b, h, hkv, 1, t, hd), False),
+          ("whisper encoder, ramp", (b, h, hkv, t, t, hd), False, "ramp"),
+          ("whisper cross decode, S = 1, ramp", (b, h, hkv, 1, t, hd), False, "ramp")]
+    views = [("whisper decoder prefill, strided views", (b, h, hkv, ENCDEC_PROMPT, hd))]
+    return _attention_cases("encdec_kernels", gen, k5, k6, views, timed=lambda label: True)
 
 
 # ---- LLaVA-NeXT-Mistral-7B serving, and training on one card ------------------
@@ -3134,16 +3322,18 @@ def phase_vlm_serve(seed: int) -> dict:
 def _plain_model_ops():
     """The model's kernel entries (``repro_torch.kernels.ops``) swapped for
     the plain versions, differentiated by autograd: the reference path of
-    the train phase's gradient check (this script's, never the port's)."""
-    saved = (kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan)
+    the train phases' gradient checks and of encdec_serve's float32 copy
+    (this script's, never the port's)."""
+    saved = (kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan, kops.decode_attention)
     kops.rmsnorm_fused = rnk.rmsnorm_plain
     kops.flash_attention = fak.flash_attention_plain
     kops.ssd_scan = lambda x, dt, a, bm, cm, *, chunk=ssk.CHUNK: ssk.ssd_scan_plain(
         x, dt, a, bm, cm, chunk)
+    kops.decode_attention = dak.decode_attention_plain
     try:
         yield
     finally:
-        kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan = saved
+        kops.rmsnorm_fused, kops.flash_attention, kops.ssd_scan, kops.decode_attention = saved
 
 
 def _step_grads(params, cfg, batch) -> tuple[float, dict]:
@@ -3308,6 +3498,349 @@ def phase_train(seed: int) -> dict:
     merged = {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
               for k in counts_all[0]}
     return {"rows": out, "counts": merged}
+
+
+# ---- Whisper-medium (encoder-decoder): serving, training; the train driver --------
+
+
+def _encdec_inputs(cfg, gen: torch.Generator, b: int, s: int) -> tuple:
+    """Seeded N(0, 1) frame embeddings (b, encoder_seq, d) in the config's
+    dtype (the stubbed conv frontend's output) and tokens (b, s)."""
+    frames = torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=gen,
+                         device="cuda").to(cfg.torch_dtype)
+    toks = torch.randint(1, cfg.vocab, (b, s), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return frames, toks
+
+
+def _encdec_want(cfg, n_steps: int, tc: bool = True) -> tuple[dict, dict]:
+    """K4 / K5 / K6 launches of Whisper's prefill and of ``n_steps`` decode
+    steps: the encoder's 2L + 1 norms and L attentions, the decoder's 3L +
+    1 norms and 2L attentions (self, cross) in the prefill; a decode step's
+    3L + 1 norms, L K5 and L K6 (cross-attention at S = 1); ``tc``: every
+    K6 launch on the tensor cores (bf16)."""
+    enc, dec = cfg.n_encoder_layers, cfg.n_layers
+    pre = {"rmsnorm": (2 * enc + 1) + (3 * dec + 1), "decode_attention": 0,
+           "flash_attention": enc + 2 * dec}
+    step = {"rmsnorm": n_steps * (3 * dec + 1), "decode_attention": n_steps * dec,
+            "flash_attention": n_steps * dec}
+    for want in (pre, step):
+        want["tensor_core"] = want["flash_attention"] if tc else 0
+    return pre, step
+
+
+def _launches(counts: dict) -> dict:
+    return {"rmsnorm": counts["rmsnorm"]["rmsnorm"],
+            "decode_attention": counts["decode_attention"]["decode_attention"],
+            "flash_attention": counts["flash_attention"]["flash_attention"],
+            "tensor_core": counts["flash_attention"]["tensor_core"]}
+
+
+def _plain_calls(counts: dict) -> int:
+    return sum(counts[k]["plain"] for k in ("rmsnorm", "decode_attention", "flash_attention",
+                                            "ssd_scan"))
+
+
+def _encdec_run(params, cfg, frames, toks, n_prompt: int, n_steps: int) -> dict:
+    """Prefill ``toks[:, :n_prompt]`` after encoding ``frames``, then
+    ``n_steps`` decode steps feeding the following tokens: the logits
+    (B, 1 + n_steps, V), the walls, the launches of each part."""
+    _reset_model_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": toks[:, :n_prompt], "frames": frames},
+                            max_len=n_prompt + n_steps)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = _model_counts()
+    _reset_model_counts()
+    out, step_ms = [logits], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        logits, cache = decode_step(params, cfg, toks[:, n_prompt + i : n_prompt + i + 1], cache)
+        out.append(logits)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"logits": torch.cat(out, 1).float(), "prefill_s": prefill_s, "step_ms": step_ms,
+            "prefill_counts": pre, "decode_counts": _model_counts(), "cache": cache}
+
+
+def phase_encdec_serve(seed: int) -> dict:
+    """Whisper-medium at full width and depth, bf16: the encoder over 4 x
+    1500 seeded frame embeddings and a 64-token prompt prefilled (K4, K6
+    on the tensor cores: 24 encoder, 24 self and 24 cross attentions),
+    then 32 decode steps (K4, K5 at a group of 1, K6 at S = 1 for the
+    cross-attention); the last step's logits against one prefill of the
+    extended sequence (PREFILL_REL_TOL, clear argmaxes agreeing); exact
+    launch counts, no plain call; one decode step profiled.  Then a float32
+    copy at full width, 2 + 2 layers: prefill and 4 decode steps through
+    the kernels against the same under the plain versions, within
+    ENCDEC_F32_TOL."""
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 150)
+    params = init_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    b, n, steps, t = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_STEPS, cfg.encoder_seq
+    frames, toks = _encdec_inputs(cfg, gen, b, n + steps)
+    run = _encdec_run(params, cfg, frames, toks, n, steps)
+    cache = run.pop("cache")
+    pos = cache["pos"].tolist()
+    # one decode step profiled at the last position (the step rewrites
+    # the same cache row each time: its input cache keeps pos)
+    fixed = dict(cache, pos=cache["pos"] - 1)
+    tok = toks[:, -1:]
+
+    def one_step():
+        decode_step(params, cfg, tok, fixed)
+        torch.cuda.synchronize()
+
+    one_step()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    wall_ms = (time.perf_counter() - t0) / 5 * 1e3
+    device = profile_device_us(one_step)
+    device_ms = {k: v / 1e3 for k, v in device.items()}
+    step_device_ms = sum(device_ms.values())
+    del cache, fixed
+    got = run["logits"][:, -1]
+    # the last decode step fed token n + 31 at position n + 31: the prefill
+    # over tokens [0, n + 32) predicts the same next token
+    want, _ = prefill(params, cfg, {"tokens": toks, "frames": frames})
+    stats = _handoff_stats(got, want[:, 0].float())
+    peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    # the float32 copy: kernels against plain, 2 + 2 layers at full width
+    cfg32 = cfg.scaled(n_layers=ENCDEC_F32_LAYERS, n_encoder_layers=ENCDEC_F32_LAYERS,
+                       dtype="float32")
+    gen32 = torch.Generator(device="cuda").manual_seed(seed + 151)
+    params32 = init_params(gen32, cfg32)
+    frames32, toks32 = _encdec_inputs(cfg32, gen32, b, n + ENCDEC_F32_STEPS)
+    run32 = _encdec_run(params32, cfg32, frames32, toks32, n, ENCDEC_F32_STEPS)
+    with _plain_model_ops():
+        plain32 = _encdec_run(params32, cfg32, frames32, toks32, n, ENCDEC_F32_STEPS)
+    err32 = float((run32["logits"] - plain32["logits"]).abs().max())
+    del params32, run32["cache"], plain32["cache"]
+    torch.cuda.empty_cache()
+    want_pre, want_dec = _encdec_want(cfg, steps)
+    want_pre32, want_dec32 = _encdec_want(cfg32, ENCDEC_F32_STEPS, tc=False)
+    got_pre, got_dec = _launches(run["prefill_counts"]), _launches(run["decode_counts"])
+    got_pre32 = _launches(run32["prefill_counts"])
+    got_dec32 = _launches(run32["decode_counts"])
+    plain = _plain_calls(run["prefill_counts"]) + _plain_calls(run["decode_counts"])
+    plain += _plain_calls(run32["prefill_counts"]) + _plain_calls(run32["decode_counts"])
+    out = {
+        "phase": "encdec_serve",
+        "arch": ENCDEC_ARCH,
+        "layers": {"encoder": cfg.n_encoder_layers, "decoder": cfg.n_layers},
+        "params": n_params,
+        "batch": b,
+        "frames": t,
+        "prompt_tokens": n,
+        "decode_steps": steps,
+        "init_s": init_s,
+        "prefill_s": run["prefill_s"],
+        "prefill_positions_per_s": b * (t + n) / run["prefill_s"],
+        "prefill_tokens_per_s": b * n / run["prefill_s"],
+        "ms_per_decode_step": sum(run["step_ms"]) / steps,
+        "ms_per_decode_step_median": float(np.median(run["step_ms"])),
+        "ms_first_decode_steps": run["step_ms"][:3],
+        "decode_tokens_per_s": b * steps / (sum(run["step_ms"]) / 1e3),
+        "step_wall_ms": wall_ms,
+        "step_device_ms": step_device_ms,
+        "device_busy_share": step_device_ms / wall_ms if step_device_ms else None,
+        "step_device_ms_by_kernel": dict(sorted(device_ms.items(), key=lambda kv: -kv[1])[:10]),
+        "peak_gb": peak / 1e9,
+        "prefill_launches": got_pre,
+        "decode_launches": got_dec,
+        "plain_calls": plain,
+        "handoff": stats,
+        "tolerance": PREFILL_REL_TOL,
+        "float32_copy": {"layers": f"{ENCDEC_F32_LAYERS} + {ENCDEC_F32_LAYERS}",
+                         "decode_steps": ENCDEC_F32_STEPS, "max_abs_logit_err": err32,
+                         "max_abs_logit": float(plain32["logits"].abs().max()),
+                         "tolerance": ENCDEC_F32_TOL, "prefill_launches": got_pre32,
+                         "decode_launches": got_dec32,
+                         "plain_path_plain_calls": _plain_calls(plain32["prefill_counts"])
+                         + _plain_calls(plain32["decode_counts"])},
+    }
+    emit(out)
+    if pos != [n + steps] * b or not bool(torch.isfinite(run["logits"]).all()):
+        raise AssertionError(f"encdec_serve: positions {pos} or non-finite logits")
+    if stats["max_rel_err"] > PREFILL_REL_TOL or not stats["clear_argmax_agree"]:
+        raise AssertionError(f"encdec_serve: decode disagrees with the extended prefill: "
+                             f"{stats}")
+    if err32 > ENCDEC_F32_TOL:
+        raise AssertionError(f"encdec_serve: float32 kernels differ from plain by {err32}")
+    if (got_pre != want_pre or got_dec != want_dec or got_pre32 != want_pre32
+            or got_dec32 != want_dec32 or plain):
+        raise AssertionError(f"encdec_serve went around the kernels: prefill {got_pre} "
+                             f"(want {want_pre}), decode {got_dec} (want {want_dec}), "
+                             f"float32 {got_pre32} / {got_dec32} (want {want_pre32} / "
+                             f"{want_dec32}), plain {plain}")
+    return {k: {c: run["prefill_counts"][k][c] + run["decode_counts"][k][c]
+                for c in run["prefill_counts"][k]} for k in run["prefill_counts"]}
+
+
+def phase_encdec_train(seed: int) -> dict:
+    """Whisper-medium training at full width and depth, bf16, AdamW with
+    bf16 moments: 4 x (1500 seeded frames + 448 tokens from the
+    locality-aware loader); step 1's gradients through the kernels'
+    Functions against the plain path's on the first ENCDEC_GRAD_BATCH
+    sequences (bf16 within TRAIN_GRAD_TOL, a
+    float32 copy within TRAIN_GRAD_TOL_F32; the memory's gradient sums
+    over the 24 decoder layers' cross-attentions into the encoder);
+    ENCDEC_TRAIN_STEPS steps with the loss falling by TRAIN_LOSS_DROP and
+    exact K4 / K6
+    launches a step (the encoder's layers recomputed in the backward, as
+    the reference's ``jax.checkpoint``), no plain call."""
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 160)
+    opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
+    state = train_state_init(gen, cfg, opt_cfg)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    b, s = ENCDEC_BATCH, ENCDEC_TRAIN_TOKENS
+    batch = _loader_batch(cfg, b, s, seed)
+    batch["frames"], _ = _encdec_inputs(cfg, gen, b, 1)
+    # step 1's gradients on the first ENCDEC_GRAD_BATCH sequences (the
+    # check's four passes are this phase's second cost after the steps)
+    check = {k: v[:ENCDEC_GRAD_BATCH] for k, v in batch.items()}
+    _reset_model_counts()
+    dist, loss_k, loss_p = _grad_check(state.params, cfg, check)
+    grad_counts = _model_counts()
+    torch.cuda.empty_cache()
+    params32 = copy.deepcopy(state.params).float()
+    dist32, _, _ = _grad_check(params32, cfg, check)  # the encoder upcasts the frames
+    del params32, check
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt_cfg, remat=False)
+    st = state.as_dict()
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_model_counts()
+    t0 = time.perf_counter()
+    for _ in range(ENCDEC_TRAIN_STEPS):
+        st, metrics = step(st, batch)
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = _model_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del st, state
+    torch.cuda.empty_cache()
+    enc, dec = cfg.n_encoder_layers, cfg.n_layers
+    # forward: (2 enc + 1) + (3 dec + 1) norms, enc + 2 dec attentions; the
+    # backward recomputes each encoder layer's 2 norms and its attention
+    want = {"rmsnorm": (2 * enc + 1) + (3 * dec + 1) + 2 * enc,
+            "flash_attention": enc + 2 * dec + enc}
+    want["tensor_core"] = want["flash_attention"]
+    got = {k: v for k, v in _launches(counts).items() if k in want}
+    got_grad = {k: v for k, v in _launches(grad_counts).items() if k in want}
+    plain = _plain_calls(counts)  # grad_counts hold the plain path's own calls
+    row = {
+        "phase": "encdec_train", "arch": ENCDEC_ARCH,
+        "layers": {"encoder": enc, "decoder": dec},
+        "batch": {"sequences": b, "frames": cfg.encoder_seq, "tokens": s},
+        "params": n_params,
+        "grad_check_batch": f"{ENCDEC_GRAD_BATCH} of the {b} sequences (the check alone)",
+        "loss_step1_kernel": loss_k, "loss_step1_plain": loss_p,
+        "grad_distance": dist, "grad_tolerance": TRAIN_GRAD_TOL,
+        "grad_distance_f32": dist32, "grad_tolerance_f32": TRAIN_GRAD_TOL_F32,
+        "losses": losses, "ms_per_step": train_s / ENCDEC_TRAIN_STEPS * 1e3,
+        "tokens_per_s": ENCDEC_TRAIN_STEPS * b * s / train_s,
+        "frames_per_s": ENCDEC_TRAIN_STEPS * b * cfg.encoder_seq / train_s,
+        "peak_gb": peak / 1e9,
+        "launches_per_step": {k: v / ENCDEC_TRAIN_STEPS for k, v in got.items()},
+        "plain_calls": plain,
+    }
+    emit(row)
+    if not all(np.isfinite(losses)) or losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"encdec_train: the loss did not fall by {TRAIN_LOSS_DROP}: "
+                             f"{losses}")
+    if not (_within(dist, TRAIN_GRAD_TOL) and _within(dist32, TRAIN_GRAD_TOL_F32)):
+        raise AssertionError(f"encdec_train: kernel-path gradients differ from the plain "
+                             f"path's: bf16 {dist}, float32 {dist32}")
+    per_run = {k: v * ENCDEC_TRAIN_STEPS for k, v in want.items()}
+    if got != per_run or got_grad != want or plain:
+        raise AssertionError(f"encdec_train went around the kernels: {got} per "
+                             f"{ENCDEC_TRAIN_STEPS} steps (want {want} a step), step 1 "
+                             f"{got_grad}, plain {plain}")
+    return counts
+
+
+def phase_launch_train(seed: int) -> dict:
+    """The port's train driver, ``repro_torch.launch.train.main``, on the
+    card: Mamba2-130M whole, LAUNCH_STEPS[0] steps into a temporary
+    ``--ckpt-dir`` (its async save at step 50, the final save at the end),
+    then again to LAUNCH_STEPS[1], which must resume from the first run's
+    last step.  The driver keeps the reference's ``remat=True``: a step
+    launches K4 and K7 for the forward and again for each layer's
+    recomputation; its loader keeps the host ``water_filling`` (no WF
+    kernel); no plain call."""
+    from repro_torch.launch import train as launch_train
+
+    cfg = get_config(LAUNCH_ARCH)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        done = 0
+        for n in LAUNCH_STEPS:
+            _reset_model_counts()
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                launch_train.main(["--arch", LAUNCH_ARCH, "--steps", str(n),
+                                   "--ckpt-dir", tmp])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _model_counts()
+            lines = out.getvalue().splitlines()
+            runs.append({"steps": n, "ran": n - done, "wall_s": wall, "output": lines,
+                         "counts": counts,
+                         "checkpoints": sorted(p.name for p in Path(tmp).iterdir())})
+            done = n
+    # per step: the forward's 2L + 1 norms and L scans, and the backward's
+    # recomputation of every layer (its 2 norms and its scan)
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1 + 2 * cfg.n_layers,
+                "ssd_scan": 2 * cfg.n_layers}
+    emit({"phase": "launch_train", "arch": LAUNCH_ARCH, "layers": cfg.n_layers,
+          "flags": "--steps N --ckpt-dir TMP (seq-len 128, batch 8: the driver's defaults)",
+          "runs": [{k: v for k, v in r.items() if k != "counts"} for r in runs],
+          "launches_per_step": [{k: r["counts"][k][k] / r["ran"] for k in per_step}
+                                for r in runs],
+          "want_per_step": per_step,
+          "steps": f"{LAUNCH_STEPS[0]}, then {LAUNCH_STEPS[1]}: the async save at 50, the "
+                   "final save, resumed steps"})
+    first, second = runs
+    resumed = f"resumed from step {LAUNCH_STEPS[0]}"
+    want_ckpt = [[f"step_{s:08d}" for s in (50, LAUNCH_STEPS[0])],
+                 [f"step_{s:08d}" for s in (50, *LAUNCH_STEPS)]]
+    if (any(resumed in line for line in first["output"])
+            or resumed not in second["output"][0]
+            or [r["checkpoints"] for r in runs] != want_ckpt
+            or first["output"][-1] != f"finished at step {LAUNCH_STEPS[0]}"
+            or second["output"][-1] != f"finished at step {LAUNCH_STEPS[1]}"):
+        raise AssertionError(f"launch_train: the driver did not save and resume as asked: "
+                             f"{[(r['output'], r['checkpoints']) for r in runs]}")
+    for r in runs:
+        got = {k: r["counts"][k][k] for k in per_step}
+        want = {k: v * r["ran"] for k, v in per_step.items()}
+        plain = _plain_calls(r["counts"])
+        wf = r["counts"]["waterlevel"]
+        if got != want or plain or any(wf[k] for k in wf if k != "plain"):
+            raise AssertionError(f"launch_train went around the kernels: {got} in "
+                                 f"{r['ran']} steps (want {want}), plain {plain}, WF {wf}")
+    return {k: {c: sum(r["counts"][k][c] for r in runs) for c in runs[0]["counts"][k]}
+            for k in runs[0]["counts"]}
 
 
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
@@ -3762,15 +4295,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # host-only references run in one worker process beside the card's
+    # phases; it is stopped however the run ends
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return run(args, pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(args: argparse.Namespace, pool) -> int:
+    """Every phase in order (:func:`main` owns the host worker ``pool``)."""
     t_start = time.perf_counter()
     torch.cuda.set_device(0)
     dev = phase_device()
+    jobs = main_path_trace(args.seed)
+    host_wf = {o: pool.apply_async(host_wf_run, (jobs, o)) for o in ("fifo", "ocwf-acc")}
     phase_build()
     worst = phase_kernels(args.seed)
     worst["wf_fused"] = phase_fused_kernel(args.seed)
-    jobs = main_path_trace(args.seed)
     rd_worst = phase_rd_kernel(args.seed, jobs)
-    bursts, launches, slot_runs = phase_main_path(args.seed, jobs)
+    bursts, launches, slot_runs = phase_main_path(args.seed, jobs, host_wf)
     rd_launches, rd_admitted = phase_rd_main_path(args.seed, jobs)
     seconds = {}
     t0 = time.perf_counter()
@@ -3778,7 +4324,7 @@ def main() -> int:
     seconds["control_plane"] = time.perf_counter() - t0
     online = phase_faults_online(args.seed, jobs)
     seconds["faults_online"] = time.perf_counter() - t0 - sum(seconds.values())
-    exact = phase_exact(jobs, plane)
+    exact = phase_exact(jobs, plane, pool)
     seconds["exact"] = time.perf_counter() - t0 - sum(seconds.values())
     plane_serve = phase_plane_serve(args.seed, jobs)
     seconds["plane_serve"] = time.perf_counter() - t0 - sum(seconds.values())
@@ -3863,6 +4409,23 @@ def main() -> int:
     slice11_s["train"] = time.perf_counter() - t0
     emit({"phase": "slice11_phases", "seconds": slice11_s, "total_s": sum(slice11_s.values()),
           "budget_s": SLICE11_BUDGET_S})
+    # this slice: Whisper-medium (encdec) at full width and depth, served
+    # and trained, and the port's train driver
+    slice12_s = {}
+    t0 = time.perf_counter()
+    encdec_widths = phase_encdec_kernels(args.seed)
+    slice12_s["encdec_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encdec_counts = phase_encdec_serve(args.seed)
+    slice12_s["encdec_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encdec_train_counts = phase_encdec_train(args.seed)
+    slice12_s["encdec_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launch_counts = phase_launch_train(args.seed)
+    slice12_s["launch_train"] = time.perf_counter() - t0
+    emit({"phase": "slice12_phases", "seconds": slice12_s, "total_s": sum(slice12_s.values()),
+          "budget_s": SLICE12_BUDGET_S})
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()
@@ -3938,8 +4501,9 @@ def main() -> int:
     # launches over every main path: the dense serve and prefill paths,
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
-             vlm_counts, train["counts"]]
-    worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0))
+             vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts]
+    worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
+                          encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}
     worst_model["ssd_scan"] = ssm_worst["ssd_scan"]
     # beside each row's main timing, the other shapes that rank the
@@ -3998,13 +4562,15 @@ def main() -> int:
             entry["group_16"] = {"shape": g16["shape"], "ms": g16["kernel_ms"],
                                  "plain_ms": g16["plain_ms"], "bound_ms": g16["bound_ms"],
                                  "library_ms": g16["library_ms"], "slices": g16["slices"]}
-        if name in ("decode_attention", "flash_attention"):  # past the earlier ceilings
-            entry["widths"] = {
-                label[len(name) + 1:]: {"shape": row["shape"], "ms": row["kernel_ms"],
-                                        "plain_ms": row["plain_ms"],
-                                        "bound_ms": row["bound_ms"],
-                                        "library_ms": row["library_ms"]}
-                for label, row in widths["timed"].items() if label.startswith(name)}
+        if name in ("decode_attention", "flash_attention"):
+            # past the earlier ceilings, and at Whisper-medium's shapes
+            for key, source in (("widths", widths), ("whisper", encdec_widths)):
+                entry[key] = {
+                    label[len(name) + 1:]: {"shape": row["shape"], "ms": row["kernel_ms"],
+                                            "plain_ms": row["plain_ms"],
+                                            "bound_ms": row["bound_ms"],
+                                            "library_ms": row["library_ms"]}
+                    for label, row in source["timed"].items() if label.startswith(name)}
         summary.append(entry)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})

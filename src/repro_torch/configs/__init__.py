@@ -3,10 +3,10 @@
 The port's counterpart of ``repro/configs``.  One module per
 architecture the port runs; each exports ``CONFIG`` (the exact published
 shape) and ``smoke_config()`` (a reduced same-family config for CPU
-tests).  So far the port runs the dense, moe, mla_moe, mamba2, zamba2
-and vlm families; the reference's encoder-decoder architecture waits for
-the slice that ports its family, and asking for it raises a ``KeyError``
-that names that slice.
+tests).  The port runs every family of the reference (dense, moe,
+mla_moe, mamba2, zamba2, vlm and encdec), so :data:`WAITING`, the
+reference's architectures still waiting for a slice, is empty; an arch
+listed there would raise a ``KeyError`` that names its slice.
 """
 
 from __future__ import annotations
@@ -27,12 +27,11 @@ ARCHS = (
     "mamba2-130m",
     "zamba2-2.7b",
     "llava-next-mistral-7b",
+    "whisper-medium",
 )
 
-# the reference's other architectures, and the slice each waits for
-WAITING = {
-    "whisper-medium": "the encoder-decoder family slice",
-}
+# the reference's other architectures, and the slice each waits for: none
+WAITING: dict[str, str] = {}
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

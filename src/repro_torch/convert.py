@@ -152,11 +152,15 @@ def reference_leaf(name: str) -> tuple[tuple[str, ...], int | None]:
     """Where the port's parameter ``name`` (as ``named_parameters`` gives
     it) lies in the reference's parameter tree: the key path and, for a
     layer's parameter, its index on the stacked axis 0 of that leaf
-    (``"layers.3.attn.wq.w"`` -> ``(("layers", "attn", "wq", "w"), 3)``);
-    every other parameter maps by name with no index."""
+    (``"layers.3.attn.wq.w"`` -> ``(("layers", "attn", "wq", "w"), 3)``;
+    Whisper's ``"encoder.layers.3.attn.wq.w"`` -> ``(("encoder", "layers",
+    "attn", "wq", "w"), 3)``); every other parameter maps by name with no
+    index."""
     path = tuple(name.split("."))
     if path[0] == "layers":
         return ("layers",) + path[2:], int(path[1])
+    if path[:2] == ("encoder", "layers"):
+        return path[:2] + path[3:], int(path[2])
     return path, None
 
 
@@ -175,8 +179,10 @@ def from_reference_params(tree: Mapping, cfg: ModelConfig) -> LM:
     ``tree`` is the reference's ``init_params`` output with its leaves as
     numpy arrays (the vlm family's are the dense decoder's).  The
     reference stacks the layers on axis 0 of every ``layers`` leaf
-    (zamba2's too, flat over all its Mamba2 layers); the port keeps one
-    module per layer.  Other subtrees (zamba2's
+    (zamba2's too, flat over all its Mamba2 layers, and Whisper's
+    ``encoder/layers``); the port keeps one module per layer.  The
+    decoder's cross-attention leaves (``layers/cross/...``,
+    ``layers/norm_x``) ride the ``layers`` rule.  Other subtrees (zamba2's
     ``shared_attn``, DeepSeek's MTP head ``mtp``, whose ``block`` is not
     stacked) map by name, as do the MoE leaves: the router
     ``ffn/router/w``, the routed experts as bare ``(E, ...)`` arrays

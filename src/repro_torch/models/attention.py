@@ -1,12 +1,16 @@
 """Attention: grouped-query attention with the qk-norm / qkv-bias options,
 and DeepSeek-style MLA.
 
-The port's counterpart of ``repro/models/attention.py``.  Two GQA
+The port's counterpart of ``repro/models/attention.py``.  Three GQA
 execution paths share the same parameters:
 
 - :func:`gqa_prefill` — causal self-attention over whole prompts through
   the flash-attention kernel (K6), returning the prompt's keys and
   values for the decode cache;
+- :func:`gqa_attend` — attention over whole sequences with no cache:
+  the Whisper encoder's self-attention (not causal) and the decoder's
+  cross-attention (``memory=``: queries from ``x``, keys and values from
+  the encoder's output, never causal), through K6;
 - :func:`gqa_decode` — single-token decode against the KV cache: the new
   row is written into the cache in place, then attention runs through
   the decode-attention kernel (K5).
@@ -22,8 +26,7 @@ attention in plain jnp and calls no kernel, so the port computes it in
 plain PyTorch (only its norms go through K4).  Training
 (``models.model.forward_train``) runs :func:`gqa_prefill` /
 :func:`mla_prefill` and drops their cache rows, as the reference's
-``gqa_attend`` computes the same attention; cross-attention waits for
-the encoder-decoder slice.
+``gqa_attend`` computes the same attention.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ __all__ = [
     "Rope",
     "Slots",
     "cache_slots",
+    "gqa_attend",
     "gqa_decode",
     "gqa_init_",
     "gqa_prefill",
@@ -103,16 +107,49 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor) -> Rope:
     return rope_tables(positions, width, cfg.rope_theta)
 
 
-def _project_qkv(p: GQA, cfg: ModelConfig, x: torch.Tensor, rope: Rope):
+def _project_qkv(p: GQA, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
+                 memory: torch.Tensor | None = None, memory_rope: Rope | None = None):
+    """Queries from ``x`` roped by ``rope``; keys and values from ``x`` too,
+    or from ``memory`` (B, T, d) with the keys roped by ``memory_rope``."""
     b, s, _ = x.shape
     h = cfg.head_dim_
+    src, src_rope = (x, rope) if memory is None else (memory, memory_rope)
+    t = src.shape[1]
     q = dense(p.wq, x).reshape(b, s, cfg.n_heads, h)
-    k = dense(p.wk, x).reshape(b, s, cfg.n_kv_heads, h)
-    v = dense(p.wv, x).reshape(b, s, cfg.n_kv_heads, h)
+    k = dense(p.wk, src).reshape(b, t, cfg.n_kv_heads, h)
+    v = dense(p.wv, src).reshape(b, t, cfg.n_kv_heads, h)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
-    return rotate(q, *rope), rotate(k, *rope), v
+    return rotate(q, *rope), rotate(k, *src_rope), v
+
+
+def _attend(p: GQA, cfg: ModelConfig, x: torch.Tensor, rope: Rope, causal: bool,
+            memory: torch.Tensor | None = None, memory_rope: Rope | None = None):
+    """Project, attend through K6 (never causal over a memory) and apply
+    ``wo``: ``(out, k, v)``, with k and v as ``(B, T, Hkv, hd)``."""
+    q, k, v = _project_qkv(p, cfg, x, rope, memory, memory_rope)
+    out = sdpa(q, k, v, causal=causal and memory is None)
+    b, s = x.shape[:2]
+    return dense(p.wo, out.reshape(b, s, cfg.n_heads * cfg.head_dim_)), k, v
+
+
+def gqa_attend(
+    p: GQA,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    rope: Rope,
+    *,
+    causal: bool,
+    memory: torch.Tensor | None = None,
+    memory_rope: Rope | None = None,
+) -> torch.Tensor:
+    """Attention over the whole sequence ``x`` (B, S, d), ``rope`` from
+    :func:`rope_for` of its positions: self-attention, or with ``memory``
+    (B, T, d) cross-attention, its keys roped by ``memory_rope`` (the
+    memory positions' tables) and never causal, as the reference's
+    ``gqa_attend(..., memory=)``."""
+    return _attend(p, cfg, x, rope, causal, memory, memory_rope)[0]
 
 
 def gqa_prefill(
@@ -121,11 +158,8 @@ def gqa_prefill(
     """Prefill: full causal attention, ``rope`` from :func:`rope_for` of the
     prompt positions.  Returns the output and the prompt's keys and
     values as ``(B, Hkv, S, hd)`` views."""
-    q, k, v = _project_qkv(p, cfg, x, rope)
-    out = sdpa(q, k, v, causal=True)
-    b, s = x.shape[:2]
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim_)
-    return dense(p.wo, out), k.transpose(1, 2), v.transpose(1, 2)
+    out, k, v = _attend(p, cfg, x, rope, True)
+    return out, k.transpose(1, 2), v.transpose(1, 2)
 
 
 def cache_slots(pos: torch.Tensor, s_max: int) -> Slots:

@@ -1,5 +1,5 @@
 """Model assembly: init / train-forward / prefill / decode for the dense,
-vlm, moe, mla_moe, mamba2 and zamba2 families.
+vlm, moe, mla_moe, mamba2, zamba2 and encdec families.
 
 The port's counterpart of ``repro/models/model.py`` for
 ``block_pattern`` ``"dense"`` (pre-norm transformer, GQA attention,
@@ -10,8 +10,11 @@ serving never does), ``"mamba2"`` (an attention-free stack of Mamba2
 blocks), ``"zamba2"`` (Mamba2 blocks with one *shared* attention + FFN
 block applied before every ``hybrid_period`` of them) and ``"vlm"``
 (LLaVA: the dense decoder, its input prefixed by the batch's
-``patches``, stub vision-tower embeddings (B, P, d)).  A layer's FFN is
-the MoE wherever the config has experts, as in the reference.  Entry
+``patches``, stub vision-tower embeddings (B, P, d)) and ``"encdec"``
+(Whisper: a non-causal encoder over the batch's ``frames``, stub conv
+frontend embeddings (B, T, d), and a decoder whose layers add
+cross-attention to the encoder's output, the *memory*).  A layer's FFN
+is the MoE wherever the config has experts, as in the reference.  Entry
 points::
 
     init_params(generator, cfg)                       -> params
@@ -22,17 +25,20 @@ points::
 
 A batch is ``{"tokens": (B, S) int}`` and, for vlm, ``"patches"``; the
 patches come first and positions run over the whole sequence, as in the
-reference's ``_embed_inputs``.
+reference's ``_embed_inputs``.  For encdec it also holds ``"frames"``;
+without them the entry points raise ``KeyError``, as the reference's.
 
 ``params`` is the family's module (:data:`FAMILIES`): the embedding
 table (also the unembedding's weight, as in the reference), the final
 norm, the layers as an ``nn.ModuleList`` and, for zamba2, the shared
-block ``shared_attn``; for mla_moe with ``mtp_depth``, ``mtp``.  Caches,
+block ``shared_attn``; for mla_moe with ``mtp_depth``, ``mtp``; for
+encdec, the ``encoder`` (its own ``layers`` and ``final_norm``).  Caches,
 every leaf stacked over layers (or over the shared block's uses), with
 ``"pos"`` (B,) int32 beside them:
 
-- dense, vlm, moe: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the reference
-  stacks ``(L, B, S_max, Hkv, hd)``;
+- dense, vlm, moe, encdec: ``{"k", "v"}`` ``(L, B, Hkv, S_max, hd)`` — the
+  reference stacks ``(L, B, S_max, Hkv, hd)``; encdec's cache also holds
+  ``"memory"`` (B, T, d), the encoder's output, beside ``"layers"``;
 - mla_moe: ``{"c_kv": (L, B, S_max, kv_lora_rank), "k_rope": (L, B,
   S_max, qk_rope_head_dim)}``, as the reference's;
 - mamba2: ``{"conv": (L, B, W-1, C), "ssm": (L, B, H, P, N) fp32}``, as
@@ -42,7 +48,9 @@ every leaf stacked over layers (or over the shared block's uses), with
   ``(n_super, period, ...)``.
 
 :func:`decode_step` writes the step into that cache in place and returns
-it with ``pos + 1``; the reference returns a new cache.  The decode
+it with ``pos + 1``; the reference returns a new cache.  Each decode
+step projects the memory's keys and values again in every layer, as the
+reference's ``_layer_decode`` does.  The decode
 path's MoE drops nothing (``no_drop``), the prefill's drops past the
 experts' capacity, as the reference's.  The reference's expert-parallel
 dispatch (``moe_sharded``, taken only under a mesh with a ``model`` axis)
@@ -56,12 +64,14 @@ MTP head, the logits predicting token t+2.  It is differentiable: the
 kernels it reaches (K4, K6, K7) are entered through their
 ``torch.autograd.Function`` s (:mod:`repro_torch.kernels.ops`), and
 ``remat=True`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
-MLA attends in plain PyTorch, as in serving.
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``;
+Whisper's encoder layers are recomputed whatever ``remat`` says, as the
+reference's ``_encode`` always checkpoints them.  MLA attends in plain
+PyTorch, as in serving.
 
 Tensors go on :func:`repro_torch.backend.device` (``cuda`` unless a
 ``set_backend(device=...)`` scope says otherwise); parameters that lie
-elsewhere are refused.  The encdec family waits for a later slice.
+elsewhere are refused.
 """
 
 from __future__ import annotations
@@ -75,6 +85,7 @@ from .attention import (
     GQA,
     MLA,
     cache_slots,
+    gqa_attend,
     gqa_decode,
     gqa_init_,
     gqa_prefill,
@@ -100,6 +111,8 @@ from .ssm import Mamba2, mamba2_apply, mamba2_decode, mamba2_init_, mamba2_init_
 __all__ = [
     "DecoderLayer",
     "DenseLM",
+    "EncDecLM",
+    "Encoder",
     "FAMILIES",
     "LM",
     "MLAMoELM",
@@ -122,8 +135,9 @@ Cache = dict
 
 class DecoderLayer(nn.Module):
     """``norm1``, ``attn`` (GQA; MLA for mla_moe), ``norm2``, ``ffn``
-    (SwiGLU; the MoE where the config has experts); also zamba2's shared
-    block."""
+    (SwiGLU; the MoE where the config has experts) and, for encdec,
+    ``norm_x`` and ``cross`` (GQA cross-attention to the memory); also
+    zamba2's shared block and Whisper's encoder layers (dense)."""
 
     def __init__(self, cfg: ModelConfig, *, device):
         super().__init__()
@@ -138,6 +152,22 @@ class DecoderLayer(nn.Module):
             self.ffn = MoE(cfg, device=device)
         else:
             self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype=dt, device=device)
+        if cfg.block_pattern == "encdec":
+            self.norm_x = RMSNorm(cfg.d_model, dtype=dt, device=device)
+            self.cross = GQA(cfg, device=device)
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder: ``layers`` (``n_encoder_layers`` dense
+    :class:`DecoderLayer` s, attending without a causal mask) and
+    ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        enc_cfg = cfg.scaled(block_pattern="dense")
+        self.layers = nn.ModuleList(
+            DecoderLayer(enc_cfg, device=device) for _ in range(cfg.n_encoder_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dtype=cfg.torch_dtype, device=device)
 
 
 class MTP(nn.Module):
@@ -220,7 +250,18 @@ class Zamba2LM(_LM):
         self.shared_attn = DecoderLayer(cfg, device=device)
 
 
-LM = DenseLM | MoELM | MLAMoELM | Mamba2LM | Zamba2LM
+class EncDecLM(_LM):
+    """Whisper: the ``encoder`` and a decoder of :class:`DecoderLayer` s
+    with cross-attention."""
+
+    layer = DecoderLayer
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__(cfg, device=device)
+        self.encoder = Encoder(cfg, device=device)
+
+
+LM = DenseLM | MoELM | MLAMoELM | Mamba2LM | Zamba2LM | EncDecLM
 FAMILIES: dict[str, type[_LM]] = {
     "dense": DenseLM,
     "vlm": DenseLM,  # the dense decoder; the patch prefix is input, not weights
@@ -228,6 +269,7 @@ FAMILIES: dict[str, type[_LM]] = {
     "mla_moe": MLAMoELM,
     "mamba2": Mamba2LM,
     "zamba2": Zamba2LM,
+    "encdec": EncDecLM,
 }
 
 
@@ -235,9 +277,9 @@ def check_family(cfg: ModelConfig) -> None:
     ssm = cfg.block_pattern in ("mamba2", "zamba2")
     if cfg.block_pattern not in FAMILIES or (cfg.moe.n_experts and ssm):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families so far; "
-            f"block_pattern={cfg.block_pattern!r} (n_experts={cfg.moe.n_experts}) "
-            f"waits for a later slice"
+            f"{cfg.name}: the port runs the {', '.join(FAMILIES)} families, as the "
+            f"reference; block_pattern={cfg.block_pattern!r} "
+            f"(n_experts={cfg.moe.n_experts}) is not one of them"
         )
     if cfg.block_pattern == "mla_moe" and cfg.mla is None:
         raise ValueError(f"{cfg.name}: block_pattern 'mla_moe' needs an MLAConfig")
@@ -261,6 +303,9 @@ def init_params(generator: torch.Generator, cfg: ModelConfig) -> LM:
             _decoder_init_(layer, generator)
     if isinstance(params, Zamba2LM):
         _decoder_init_(params.shared_attn, generator)
+    if isinstance(params, EncDecLM):
+        for layer in params.encoder.layers:
+            _decoder_init_(layer, generator)
     if hasattr(params, "mtp"):
         _normal(params.mtp.proj.w, 0.02, generator)
         _decoder_init_(params.mtp.block, generator)
@@ -276,6 +321,8 @@ def _decoder_init_(block: DecoderLayer, generator: torch.Generator) -> None:
         moe_init_(block.ffn, generator)
     else:
         swiglu_init_(block.ffn, generator)
+    if hasattr(block, "cross"):
+        gqa_init_(block.cross, generator)
 
 
 def params_device(params: LM) -> torch.device:
@@ -332,9 +379,22 @@ def _ffn(block: DecoderLayer, cfg: ModelConfig, x, *, no_drop: bool = False):
     return swiglu(block.ffn, x)
 
 
-def _attn_ffn_prefill(block: DecoderLayer, cfg: ModelConfig, x, rope, kv: dict, i: int):
-    """One attention + FFN block over the prompt; writes its cache rows
-    (keys and values, or MLA's latent rows) into use ``i`` of ``kv``."""
+def _cross(block: DecoderLayer, cfg: ModelConfig, x, rope, cross):
+    """encdec's ``norm_x`` -> cross-attention residual; ``cross`` is the
+    memory and its rope tables, or None (no cross-attention)."""
+    if cross is None:
+        return x
+    memory, memory_rope = cross
+    h = rmsnorm(block.norm_x, x, cfg.norm_eps)
+    return x + gqa_attend(block.cross, cfg, h, rope, causal=False, memory=memory,
+                          memory_rope=memory_rope)
+
+
+def _attn_ffn_prefill(block: DecoderLayer, cfg: ModelConfig, x, rope, kv: dict, i: int,
+                      cross=None):
+    """One attention + FFN block over the prompt (with encdec's
+    cross-attention between them); writes its cache rows (keys and
+    values, or MLA's latent rows) into use ``i`` of ``kv``."""
     s = x.shape[1]
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
     if isinstance(block.attn, MLA):
@@ -345,19 +405,19 @@ def _attn_ffn_prefill(block: DecoderLayer, cfg: ModelConfig, x, rope, kv: dict, 
         h, k, v = gqa_prefill(block.attn, cfg, h, rope)
         kv["k"][i, :, :, :s] = k
         kv["v"][i, :, :, :s] = v
-    x = x + h
+    x = _cross(block, cfg, x + h, rope, cross)
     h = rmsnorm(block.norm2, x, cfg.norm_eps)
     return x + _ffn(block, cfg, h)
 
 
 def _attn_ffn_decode(block: DecoderLayer, cfg: ModelConfig, x, kv: dict, i: int, pos,
-                     rope, slots):
+                     rope, slots, cross=None):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
     if isinstance(block.attn, MLA):
         h = mla_decode(block.attn, cfg, h, kv["c_kv"][i], kv["k_rope"][i], pos, rope, slots)
     else:
         h = gqa_decode(block.attn, cfg, h, kv["k"][i], kv["v"][i], pos, rope, slots)
-    x = x + h
+    x = _cross(block, cfg, x + h, rope, cross)
     h = rmsnorm(block.norm2, x, cfg.norm_eps)
     return x + _ffn(block, cfg, h, no_drop=True)
 
@@ -395,9 +455,36 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope):
+def _memory_rope(cfg: ModelConfig, memory: torch.Tensor):
+    """The rope tables of the memory positions ``arange(T)``, shared by the
+    encoder's queries and keys and by every cross-attention's keys."""
+    return rope_for(cfg, torch.arange(memory.shape[1], device=memory.device)[None, :])
+
+
+def _encoder_layer(layer: DecoderLayer, cfg: ModelConfig, x: torch.Tensor, rope):
+    h = rmsnorm(layer.norm1, x, cfg.norm_eps)
+    x = x + gqa_attend(layer.attn, cfg, h, rope, causal=False)
+    return x + swiglu(layer.ffn, rmsnorm(layer.norm2, x, cfg.norm_eps))
+
+
+def _encode(params: EncDecLM, cfg: ModelConfig, frames: torch.Tensor):
+    """Whisper's encoder over the stub frame embeddings (B, T, d): the
+    memory (B, T, d) and its rope tables.  Each layer is recomputed in the
+    backward pass where autograd records, as the reference's
+    ``jax.checkpoint(body)``."""
+    x = frames.to(params.embed.table.dtype)
+    rope = _memory_rope(cfg, x)
+    for layer in params.encoder.layers:
+        if torch.is_grad_enabled():
+            x = checkpoint(_encoder_layer, layer, cfg, x, rope, use_reentrant=False)
+        else:
+            x = _encoder_layer(layer, cfg, x, rope)
+    return rmsnorm(params.encoder.final_norm, x, cfg.norm_eps), rope
+
+
+def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope, cross=None):
     """One layer over the whole sequence (no cache): ``(x, aux)``, aux the
-    MoE load-balance loss (0 elsewhere)."""
+    MoE load-balance loss (0 elsewhere); ``cross`` as in :func:`_cross`."""
     if isinstance(layer, MambaLayer):
         h, _ = mamba2_apply(layer.mamba, cfg, rmsnorm(layer.norm1, x, cfg.norm_eps))
         return x + h, _zero_aux(x)
@@ -406,7 +493,7 @@ def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope):
         h = mla_prefill(layer.attn, cfg, h, rope)[0]
     else:
         h = gqa_prefill(layer.attn, cfg, h, rope)[0]
-    x = x + h
+    x = _cross(layer, cfg, x + h, rope, cross)
     h = rmsnorm(layer.norm2, x, cfg.norm_eps)
     if isinstance(layer.ffn, MoE):
         h, aux = moe_apply(layer.ffn, cfg, h)
@@ -415,10 +502,10 @@ def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope):
     return x + h, aux
 
 
-def _run_layer(layer, cfg: ModelConfig, x: torch.Tensor, rope, remat: bool):
+def _run_layer(layer, cfg: ModelConfig, x: torch.Tensor, rope, remat: bool, cross=None):
     if remat and torch.is_grad_enabled():
-        return checkpoint(_layer_train, layer, cfg, x, rope, use_reentrant=False)
-    return _layer_train(layer, cfg, x, rope)
+        return checkpoint(_layer_train, layer, cfg, x, rope, cross, use_reentrant=False)
+    return _layer_train(layer, cfg, x, rope, cross)
 
 
 def forward_train(
@@ -427,20 +514,23 @@ def forward_train(
     """Full forward: ``(logits (B, S, V) fp32, aux, mtp_logits | None)``.
 
     For vlm the patch prefix is consumed and the logits are the token
-    suffix's; aux is the MoE load-balance loss summed over layers (0
-    without experts); with DeepSeek's MTP head, ``mtp_logits`` (B, S - 1,
+    suffix's; for encdec the encoder runs on ``batch["frames"]`` and every
+    decoder layer attends to its output; aux is the MoE load-balance loss
+    summed over layers (0 without experts); with DeepSeek's MTP head,
+    ``mtp_logits`` (B, S - 1,
     V) predict token t+2 from the final hidden state at t and the
     embedding of token t+1.  ``remat`` recomputes each layer in the
     backward pass (the same numbers, less memory)."""
     check_family(cfg)
     params_device(params)
+    cross = _encode(params, cfg, batch["frames"]) if cfg.block_pattern == "encdec" else None
     x, positions = _embed_inputs(params, cfg, batch)
     aux = _zero_aux(x)
     rope = None if cfg.block_pattern == "mamba2" else rope_for(cfg, positions)
     for i, layer in enumerate(params.layers):
         if cfg.block_pattern == "zamba2" and i % cfg.hybrid_period == 0:
             x, _ = _run_layer(params.shared_attn, cfg, x, rope, remat)
-        x, a = _run_layer(layer, cfg, x, rope, remat)
+        x, a = _run_layer(layer, cfg, x, rope, remat, cross)
         aux = aux + a
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
     if cfg.block_pattern == "vlm" and "patches" in batch:
@@ -469,7 +559,8 @@ def prefill(
     """Process the prompts ``batch["tokens"]`` (B, S), after vlm's
     ``batch["patches"]`` (B, P, d) where given; returns the last-position
     logits (B, 1, V) fp32 and the decode cache, which holds the prefix's
-    rows too.
+    rows too.  For encdec the encoder runs on ``batch["frames"]`` first,
+    and the cache keeps its output as ``"memory"``.
 
     ``max_len`` reserves cache headroom for the decode steps that follow
     (default: the prompt length only); the Mamba2 state has none to
@@ -497,9 +588,14 @@ def prefill(
             x = _mamba_prefill(layer, cfg, x, state, i)
         return _logits(params, cfg, x), {"layers": {"attn": kv, "mamba": state}, "pos": pos}
     kv = _empty_kv(cfg, cfg.n_layers, b, length, dev)
+    cache = {"layers": kv, "pos": pos}
+    cross = None
+    if cfg.block_pattern == "encdec":
+        cross = _encode(params, cfg, batch["frames"])
+        cache["memory"] = cross[0]
     for i, layer in enumerate(params.layers):
-        x = _attn_ffn_prefill(layer, cfg, x, rope, kv, i)
-    return _logits(params, cfg, x), {"layers": kv, "pos": pos}
+        x = _attn_ffn_prefill(layer, cfg, x, rope, kv, i, cross)
+    return _logits(params, cfg, x), cache
 
 
 @torch.no_grad()
@@ -527,8 +623,10 @@ def decode_step(
                                          i // cfg.hybrid_period, pos, rope, slots)
                 x = _mamba_decode(layer, cfg, x, layers["mamba"], i)
         else:
+            memory = cache.get("memory")
+            cross = None if memory is None else (memory, _memory_rope(cfg, memory))
             for i, layer in enumerate(params.layers):
-                x = _attn_ffn_decode(layer, cfg, x, kv, i, pos, rope, slots)
+                x = _attn_ffn_decode(layer, cfg, x, kv, i, pos, rope, slots, cross)
     logits = _logits(params, cfg, x)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
@@ -537,7 +635,8 @@ def decode_step(
 
 def init_decode_cache(params: LM, cfg: ModelConfig, batch: int, max_seq: int) -> Cache:
     """Empty cache; ``pos`` starts at ``max_seq - 1`` to model a
-    fully-populated context, as the reference's does."""
+    fully-populated context, as the reference's does; encdec's holds a
+    zero memory (B, encoder_seq, d)."""
     check_family(cfg)
     dev = params_device(params)
     pos = torch.full((batch,), max_seq - 1, dtype=torch.int32, device=dev)
@@ -550,4 +649,8 @@ def init_decode_cache(params: LM, cfg: ModelConfig, batch: int, max_seq: int) ->
         }
     else:
         layers = _empty_kv(cfg, cfg.n_layers, batch, max_seq, dev)
-    return {"layers": layers, "pos": pos}
+    cache = {"layers": layers, "pos": pos}
+    if cfg.block_pattern == "encdec":
+        cache["memory"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                      dtype=cfg.torch_dtype, device=dev)
+    return cache

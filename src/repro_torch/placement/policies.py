@@ -19,9 +19,9 @@ Registered policies:
   ``max_replicas``), the coldest shed replicas from their most-loaded
   holders (never below ``min_replicas``) — task replication as a
   scheduling lever (Wang–Joshi–Wornell, arXiv:1404.1328).
-- ``checkpoint`` — manifest-derived: the reference registers it from
-  ``repro/placement/checkpoint.py``, which reads checkpoint manifests;
-  the port's copy waits for the checkpoint slice.
+- ``checkpoint`` — manifest-derived: registered by
+  :mod:`repro_torch.placement.checkpoint`, which reads checkpoint
+  manifests, as the reference's ``repro/placement/checkpoint.py``.
 """
 
 from __future__ import annotations

@@ -50,11 +50,13 @@ def _ref_cache_as_port(kv) -> np.ndarray:
 
 
 def test_port_configs_equal_the_reference_configs():
+    from repro.configs import ARCHS as REF_ARCHS
     from repro.configs import get_config as ref_get_config
 
     fields = ("name", "block_pattern", "n_layers", "d_model", "n_heads", "n_kv_heads",
               "head_dim_", "d_ff", "vocab", "qkv_bias", "qk_norm", "rope_theta",
-              "norm_eps", "tie_embeddings", "dtype")
+              "norm_eps", "tie_embeddings", "dtype", "n_encoder_layers", "encoder_seq",
+              "n_patches")
     for arch in ARCHS:
         for port, ref in ((get_config(arch), ref_get_config(arch)),
                           (get_smoke_config(arch), ref_smoke_config(arch))):
@@ -69,11 +71,10 @@ def test_port_configs_equal_the_reference_configs():
             assert port.param_count() == ref.param_count()
             assert port.active_param_count() == ref.active_param_count()
     assert get_config("qwen1.5-4b").torch_dtype == torch.bfloat16
-    for arch in WAITING:
-        with pytest.raises(KeyError, match="waits for"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="waits for"):
-            get_smoke_config(arch)
+    # every architecture of the reference is ported: none waits for a slice
+    assert sorted(ARCHS) == sorted(REF_ARCHS) and not WAITING
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("whisper-large")
 
 
 @pytest.mark.parametrize("arch", SMOKE_ARCHS)
@@ -217,6 +218,14 @@ def test_init_params_draws_the_reference_rules():
 
 
 def test_other_families_wait_for_their_slice():
-    cfg = get_smoke_config("qwen1.5-4b").scaled(block_pattern="encdec")
-    with set_backend(device="cpu"), pytest.raises(NotImplementedError, match="dense"):
-        init_params(torch.Generator().manual_seed(0), cfg)
+    """No family waits any more: encdec, the last, builds its encoder and
+    cross-attention; a block pattern the reference lacks is still
+    refused, naming the families the port runs."""
+    cfg = get_smoke_config("whisper-medium")
+    with set_backend(device="cpu"):
+        params = init_params(torch.Generator().manual_seed(0), cfg)
+        assert len(params.encoder.layers) == cfg.n_encoder_layers
+        assert hasattr(params.layers[0], "cross")
+        with pytest.raises(NotImplementedError, match="encdec"):
+            init_params(torch.Generator().manual_seed(0),
+                        cfg.scaled(block_pattern="retnet"))

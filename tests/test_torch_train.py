@@ -5,8 +5,9 @@
   ``global_norm`` against the reference's;
 - ``forward_train`` of every ported family's smoke config (dense, vlm
   with its patch prefix, moe, mla_moe with the MTP head, mamba2,
-  zamba2): logits, the MoE aux loss and the MTP logits within 1e-4, with
-  the weights carried over by ``convert.from_reference_params``;
+  zamba2, encdec with its frames): logits, the MoE aux loss and the MTP
+  logits within 1e-4, with the weights carried over by
+  ``convert.from_reference_params``;
 - three ``make_train_step`` steps against the reference's: loss, grad
   norm and every updated parameter (through ``convert.reference_names``)
   within 1e-4; two microbatches against the full batch; the MTP loss for
@@ -53,6 +54,7 @@ FAMILIES = {  # one smoke config per ported family
     "mla_moe": "deepseek-v3-671b",
     "mamba2": "mamba2-130m",
     "zamba2": "zamba2-2.7b",
+    "encdec": "whisper-medium",
 }
 
 
@@ -75,7 +77,7 @@ def _setup(arch: str, seed: int):
 
 def _batches(cfg, seed: int, b: int = 2, s: int = 16):
     """The same (reference, port) batch: tokens, targets and, for vlm, the
-    patch prefix, drawn with numpy."""
+    patch prefix (for encdec, the frames), drawn with numpy."""
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
     ref = {"tokens": jnp.asarray(toks[:, :-1]), "targets": jnp.asarray(toks[:, 1:])}
@@ -83,6 +85,9 @@ def _batches(cfg, seed: int, b: int = 2, s: int = 16):
     if cfg.block_pattern == "vlm":
         patches = rng.standard_normal((b, cfg.n_patches, cfg.d_model)).astype(np.float32)
         ref["patches"], port["patches"] = jnp.asarray(patches), _t(patches)
+    if cfg.block_pattern == "encdec":
+        frames = rng.standard_normal((b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        ref["frames"], port["frames"] = jnp.asarray(frames), _t(frames)
     return ref, port
 
 
@@ -203,7 +208,7 @@ def test_forward_train_matches_the_reference(family):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-4b", "llava-next-mistral-7b", "zamba2-2.7b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "whisper-medium"])
 def test_train_steps_match_the_reference(arch):
     """Three steps on one batch: loss, grad norm and every parameter after
     each update, leaf by leaf through the name map."""
@@ -243,6 +248,23 @@ def test_microbatched_grads_match_full_batch():
     np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]), rtol=1e-5)
 
 
+def test_microbatches_split_the_frames_too():
+    """Whisper's batch split in two microbatches (tokens, targets and
+    frames alike) gives the full batch's update."""
+    cfg_opt = AdamWConfig(moment_dtype="float32")
+    _, tree, cfg, params = _setup("whisper-medium", seed=1)
+    _, batch = _batches(cfg, seed=1, b=4)
+    twin = from_reference_params(jax.tree.map(np.asarray, tree), cfg)
+    s1, m1 = make_train_step(cfg, cfg_opt)({"params": params, "opt": adamw_init(cfg_opt, params)},
+                                           batch)
+    s2, m2 = make_train_step(cfg, cfg_opt, microbatches=2)(
+        {"params": twin, "opt": adamw_init(cfg_opt, twin)}, batch)
+    err = max(float((a - b).detach().abs().max()) for a, b in zip(s1["params"].parameters(),
+                                                          s2["params"].parameters()))
+    assert err < 5e-5, err
+    np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]), rtol=1e-5)
+
+
 def test_mtp_loss_present_for_deepseek():
     cfg_opt = AdamWConfig(moment_dtype="float32")
     _, _, cfg, params = _setup("deepseek-v3-671b", seed=2)
@@ -268,6 +290,24 @@ def test_remat_on_and_off_give_equal_results(arch):
         grads[remat] = [p.grad.clone() for p in params.parameters()]
     for a, b in zip(grads[False], grads[True]):
         assert torch.equal(a, b)
+
+
+def test_encdec_remat_on_and_off_give_equal_results():
+    """Whisper's decoder layers recomputed or not (its encoder layers are
+    recomputed either way, as the reference's): the same gradients."""
+    _, _, cfg, params = _setup("whisper-medium", seed=4)
+    _, batch = _batches(cfg, seed=4)
+    grads = {}
+    for remat in (False, True):
+        for p in params.parameters():
+            p.requires_grad_(True)
+            p.grad = None
+        logits, _, _ = forward_train(params, cfg, batch, remat=remat)
+        softmax_xent(logits, batch["targets"]).backward()
+        grads[remat] = [p.grad.clone() for p in params.parameters()]
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+    assert all(float(g.abs().sum()) > 0 for g in grads[True])  # every leaf, encoder too
 
 
 def test_train_step_memorizes_fixed_batch():
@@ -322,6 +362,8 @@ def test_rmsnorm_function_gradient_equals_autograd_of_the_plain_version(shape):
     (1, 6, 3, 20, 45, 8, False, None),
     (2, 4, 1, 40, 17, 12, True, 2 * 4 * 17 * 7),  # query rows in chunks of 7
     (1, 2, 2, 64, 64, 32, True, 1),  # one row a chunk
+    (2, 4, 4, 1, 37, 16, False, None),  # cross-attention at decode: dK / dV of T != S
+    (1, 4, 4, 5, 300, 16, False, 4 * 300 * 2),  # a cross prefill, rows in chunks of 2
 ])
 def test_flash_attention_function_gradient_equals_autograd_of_the_plain_version(
         b, h, hkv, s, t, hd, causal, chunk_elems, monkeypatch):

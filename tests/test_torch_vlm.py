@@ -70,11 +70,13 @@ def _kv(cache) -> np.ndarray:
 
 
 def test_vlm_is_a_ported_family_and_encdec_still_waits():
-    assert ARCH in ARCHS and ARCH not in WAITING and "whisper-medium" in WAITING
+    """VLM is the dense decoder; encdec, which waited for a later slice,
+    is ported now (tests/test_torch_encdec.py), so nothing waits."""
+    assert ARCH in ARCHS and ARCH not in WAITING and "whisper-medium" in ARCHS
+    assert not WAITING
     assert FAMILIES["vlm"] is DenseLM
     check_family(get_config(ARCH))
-    with pytest.raises(NotImplementedError):
-        check_family(get_config("qwen1.5-4b").scaled(block_pattern="encdec"))
+    check_family(get_config("whisper-medium"))
 
 
 @pytest.mark.parametrize("steps", [1, 4])
