@@ -25,8 +25,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the server and slot ceilings);
 5. main path — the online scheduler (``SchedulingEngine`` with
    ``wf_torch``) on a bursty trace at 4096 servers under ``fifo`` (the
-   burst chain) and ``ocwf-acc``, each schedule identical to the host
-   ``wf`` on the same trace; then the independent-problems batch entry
+   burst chain) and ``ocwf-acc`` (the first 300 of its 1000 jobs), each
+   schedule identical to the host ``wf`` on the same jobs; then the
+   independent-problems batch entry
    point ``water_filling_torch_batch`` over the trace's bursts; one fused
    launch per ``wf_torch`` adapter call, whatever its K or B, no K1/K2
    launch and no plain call.  Launch counts are zeroed just before each
@@ -51,11 +52,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    stealing and speculation (and the plain plane, for the mean JCT they
    buy), and the jobs re-timed past saturation with admission control;
    every JCT, failed and shed set and counter identical;
-6c. exact — OBTA and NLIP on the first 100 arrival problems of 6a's
+6c. exact — OBTA and NLIP on the first 40 arrival problems of 6a's
    ``wf_torch`` run: Φ_obta = Φ_nlip ≤ Φ(wf_torch) ≤ K_c · Φ_obta, and
    Φ_obta ≤ Φ(rd_plus) ≤ Φ(rd_torch) = Φ(rd); their host times; then
    the plane with ``obta`` on the whole trace, and ``rd_plus``, ``obta``
-   and ``wf_torch`` on the first 60 jobs (mean and p99 JCT);
+   and ``wf_torch`` on the first 30 jobs (mean and p99 JCT);
 6d. plane serve — two Mamba2-130M replicas at full width behind a
    ``wf_torch`` router serve 8 requests through ``ControlPlane.
    submit_request`` while the plane schedules the first 50 jobs; the
@@ -206,11 +207,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
     70``, which resumes from step 60; 97 K4 and 48 K7 a step (the
     driver's ``remat``: the forward, then each layer again), no plain
     call, no WF launch (its loader keeps the host ``water_filling``);
+14i-14k. (in a world of one NCCL rank on ``cuda:0``, a ``FileStore``
+    rendezvous in a temporary directory, a (1, 1) (data, model) mesh;
+    the group destroyed however the slice ends) parallel train — the
+    sharded train step (``make_train_step(..., mesh=)``) and the
+    single-device step, 3 steps each from one seeded state on Qwen1.5-4B
+    (4 of 40 layers, 4 x 1024, bf16, bf16 moments): the losses within
+    1e-4 and every parameter within 5e-4 (the reference test's limits),
+    a float32 copy's first step too; 9 K4 and 4 K6 launches a step on
+    both sides, no plain call; moe sharded — ``moe_apply_sharded`` on
+    one Qwen3-MoE-235B-A22B FFN (128 experts, top 8, width 1536) over
+    4 x 1024 bf16 tokens at capacity factor 1.25: the kept set identical
+    to ``moe_apply``'s, y and aux within MODEL_TOL; compress — int8
+    gradients with error feedback on the reference test's regression:
+    one step within 2 % of the exact gradient, 300 steps within 0.05 of
+    the target;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
-    step on the main path's single-job calls and chained bursts, beside
-    its plain loop's and its bound; the chained burst admissions' wall
-    times and device busy shares; the RD step kernel's device time per launch on a profiled
+    step on the main path's first 50 single-job calls and first 10
+    chained bursts, beside its plain loop's and its bound; the first 10
+    chained burst admissions' wall times and device busy shares; the RD step kernel's device time per launch on a profiled
     chain of the main path's jobs, the chain's busy share, and kernel
     against plain iteration over the same 200 iterations.
 16. observed serve (run after 10., on its weights) — one Qwen1.5-4B
@@ -226,7 +242,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
 walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
-``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line), the
+``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
+14i-14k's on the ``slice13_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
 launches too), the ``nvidia-smi`` line, and last
@@ -244,12 +261,16 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import datetime
+import faulthandler
 import functools
+import gc
 import io
 import itertools
 import json
 import multiprocessing
 import re
+import os
 import subprocess
 import sys
 import tempfile
@@ -262,6 +283,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.analysis import kernelcheck  # noqa: E402
@@ -306,6 +328,12 @@ from repro_torch.train import AdamWConfig as TrainAdamWConfig  # noqa: E402
 from repro_torch.train import TrainState, make_train_step, train_state_init  # noqa: E402
 from repro_torch.train.optim import tree_leaves as ckpt_leaves  # noqa: E402
 from repro_torch.train.step import loss_fn as train_loss_fn  # noqa: E402
+from repro_torch.train.step import shard_train_state  # noqa: E402
+from repro_torch.train.compress import init_error_state, make_compressed_grad_fn  # noqa: E402
+from repro_torch.train.optim import adamw_init  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded  # noqa: E402
+from repro_torch.parallel import gather_state, set_mesh  # noqa: E402
 from repro_torch.traces import (  # noqa: E402
     generate,
     load_batch_task_csv,
@@ -321,6 +349,10 @@ from repro_torch.traces import (  # noqa: E402
 M_SERVERS = 4096
 N_JOBS = 1000
 TOTAL_TASKS = 4_655_227
+# the main path under ocwf-acc runs the trace's first OCWF_JOBS jobs (it
+# re-plans every pending job at each arrival: the whole trace took 84 s
+# on the card's host, beside 80 s for its host reference)
+OCWF_JOBS = 300
 
 # the RD main path: the trace's first RD_JOBS jobs (three same-slot bursts)
 # through the chain, then its first burst one arrival at a time
@@ -345,7 +377,13 @@ FUSED_CASES = (*FUSED_LIVE, "ties", "demand0", "one-available", "boundary", "at-
 FUSED_WIDTHS = (2, 4096, 32768)
 FUSED_KS = (1, 8)
 FUSED_BS = (1, 8)
-FUSED_TIMED_CALLS = 200  # single-job calls and chained bursts timed
+# the main path's first FUSED_TIMED_SINGLES single-job calls and first
+# FUSED_TIMED_CHAINS chained bursts timed, kernel against plain loop, and
+# the chained admission's first FUSED_TIMED_CHAINS bursts: the profiler's
+# per-event cost made the plain loop over 200 bursts (~500k kernel
+# events a pass) take most of the phase's 221-303 s
+FUSED_TIMED_SINGLES = 50
+FUSED_TIMED_CHAINS = 10
 # the RD step kernel against its plain iteration, in lockstep, besides the
 # main path's first job
 RD_CASES = ("random", "ties", "no-candidates", "quota-past-total", "int32-extremes",
@@ -376,9 +414,10 @@ STRAGGLERS, STRAGGLER_EVERY, STRAGGLER_FACTOR = 64, 10, 6.0
 # plane against OBTA and NLIP, and through the host rd, rd_torch and
 # rd_plus; rd_plus through the plane on the first RD_PLUS_JOBS jobs (one
 # device RD per arrival, ~10,500 K3 launches and ~0.43 s each on the card:
-# 60 jobs took 25.85 s, so the whole trace would take ~7 minutes)
-EXACT_PROBLEMS = 100
-RD_PLUS_JOBS = 60
+# 60 jobs took 25.85 s, so the whole trace would take ~7 minutes); 100
+# problems and 60 jobs took 82 s of the script's 1,200 s limit
+EXACT_PROBLEMS = 40
+RD_PLUS_JOBS = 30
 # plane_serve: two Mamba2-130M replicas behind a wf_torch router serve the
 # SSM traffic (8 requests, 32-128 prompt tokens, 16 new), one request a
 # slot from the arrival of job PLANE_SERVE_FIRST of the first
@@ -419,10 +458,11 @@ MOE_TOKENS = 4 * 2048
 MOE_STEPS = 50
 MOE_ZIPF = 1.1
 # observed_serve: one Qwen1.5-4B engine (the serve main path's weights)
-# serving 4 requests of 32-128 prompt tokens and 16 new, under a session
+# serving 4 requests of 16-64 prompt tokens and 16 new, under a session
 # with the buffer guard armed, against the same requests without either
+# (prompts of 32-128 took 34-47 s: fed token by token, they set its time)
 OBSERVED_SERVE_REQUESTS = 4
-OBSERVED_SERVE_PROMPT = (32, 128)
+OBSERVED_SERVE_PROMPT = (16, 64)
 OBSERVED_SERVE_NEW = 16
 
 # the serving main path: Qwen1.5-4B (the launcher's default arch) at full
@@ -586,6 +626,23 @@ ENCDEC_GRAD_BATCH = 2  # the step-1 gradient check's sequences (of the 4 trained
 LAUNCH_ARCH = "mamba2-130m"
 LAUNCH_STEPS = (60, 70)
 SLICE12_BUDGET_S = 75  # encdec_kernels, encdec_serve, encdec_train, launch_train
+# the parallel/ slice, in a world of one NCCL rank on a (1, 1) (data, model)
+# mesh: the sharded train step (phase_train's Qwen1.5-4B cut: 4 of 40
+# layers, 4 x 1024), the expert-parallel MoE (one Qwen3-MoE-235B-A22B
+# layer's FFN at full width) and int8 gradient compression
+PARALLEL_ARCH = "qwen1.5-4b"
+PARALLEL_MODEL = (4, 4, 1024)  # layers, batch, sequence
+PARALLEL_STEPS = 3
+PARALLEL_TOL = {"loss": 1e-4, "params": 5e-4}  # tests/test_distributed.py's limits
+MOE_SHARDED_ARCH = "qwen3-moe-235b-a22b"
+MOE_SHARDED_TOKENS = (4, 1024)
+MOE_SHARDED_CF = 1.25
+COMPRESS_STEPS = 300
+SLICE13_BUDGET_S = 60  # parallel_train, moe_sharded, compress
+NCCL_TIMEOUT_S = 120  # a collective of the one-rank world that hangs fails instead
+# past this wall, every thread's stack goes to stderr (the run itself is
+# stopped at 1,200 s from outside): where a slow or hung run was
+WATCHDOG_S = 1100
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the 32-bit rate
 # outside the tensor cores (the table's fp32 entry; the scheduler
@@ -909,6 +966,14 @@ def phase_fused_kernel(seed: int) -> int:
     return worst
 
 
+def main_path_jobs(jobs: list, ordering: str) -> list:
+    """The jobs the main path schedules under ``ordering``: the whole
+    trace under fifo, its first OCWF_JOBS jobs under ocwf-acc."""
+    if ordering == "fifo":
+        return jobs
+    return sorted(jobs, key=lambda j: (j.arrival, j.job_id))[:OCWF_JOBS]
+
+
 def main_path_trace(seed: int) -> list:
     return generate(
         "bursty",
@@ -939,15 +1004,16 @@ def phase_main_path(seed: int, jobs: list, host_wf: dict) -> tuple[list, dict, d
     ordering's pending :func:`host_wf_run`).  Returns the bursts, the
     launches, and each ordering's (result, wall seconds)."""
     bursts = bursts_of(jobs)
-    n_arrivals = sum(len(b) for b in bursts)
     launches = {"waterlevel": 0, "waterlevel_batch": 0, "wf_fused": 0, "wf_group_steps": 0}
     runs = {}
     for ordering in ("fifo", "ocwf-acc"):
+        run_jobs = main_path_jobs(jobs, ordering)
+        n_arrivals = sum(len(b) for b in bursts_of(run_jobs))
         torch.cuda.synchronize()
         wl.reset_counts()
         wf_torch.CALLS["adapter"] = 0
         t0 = time.perf_counter()
-        dev = SchedulingEngine(M_SERVERS, make_policy("wf_torch", ordering)).run(jobs)
+        dev = SchedulingEngine(M_SERVERS, make_policy("wf_torch", ordering)).run(run_jobs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(wl.COUNTS)
@@ -963,9 +1029,9 @@ def phase_main_path(seed: int, jobs: list, host_wf: dict) -> tuple[list, dict, d
             "phase": "main_path",
             "ordering": ordering,
             "servers": M_SERVERS,
-            "jobs": len(jobs),
-            "tasks": sum(j.n_tasks for j in jobs),
-            "bursts": len(bursts),
+            "jobs": len(run_jobs),
+            "tasks": sum(j.n_tasks for j in run_jobs),
+            "bursts": len(bursts_of(run_jobs)),
             "mean_jct": dev.mean_jct,
             "p99_jct": dev.jct_percentile(99),
             "makespan": dev.makespan,
@@ -978,6 +1044,8 @@ def phase_main_path(seed: int, jobs: list, host_wf: dict) -> tuple[list, dict, d
             "group_steps_per_launch": counts["wf_group_steps"] / max(n_fused, 1),
             "host_wf_wall_s": host_wall,
             "identical_to_host_wf": identical,
+            **({} if run_jobs is jobs else {"reduced": {
+                "jobs": f"the first {len(run_jobs)} of {len(jobs)} jobs"}}),
         })
         if not identical:
             raise AssertionError(f"{ordering}: wf_torch schedule differs from host wf")
@@ -1114,13 +1182,14 @@ def phase_rd_kernel(seed: int, jobs: list) -> int:
     rows = []
     rdk.reset_counts()
     for label, problem, capacity in cases:
+        t_case = time.perf_counter()
         st = rd_torch.initial_rd_state(problem, capacity=capacity)
         if st.route != "kernel":
             raise AssertionError(f"rd kernel case {label} does not take the kernel")
         n = rd_lockstep(st)
         rows.append({"case": label, "slots": st.c_slots, "row_ids": st.row_ids,
                      "servers": st.m_servers, "iterations": n,
-                     "headroom": int(st.headroom)})
+                     "headroom": int(st.headroom), "seconds": time.perf_counter() - t_case})
     if rdk.COUNTS["rd_step"] != rdk.COUNTS["plain"] or rdk.COUNTS["wide"]:
         raise AssertionError(f"rd kernel lockstep counts {rdk.COUNTS}")
     if rows[RD_CASES.index("free-slot-shortage") + 1]["headroom"] >= 0:
@@ -2291,11 +2360,11 @@ def _fused_calls(bursts: list) -> tuple[list, list]:
         k = max(len(p.groups) for p in problems)
         return [torch.from_numpy(x).to(dev) for x in wf_torch._dense_inputs(problems, k)]
 
-    jobs = [j for burst in bursts for j in burst][:FUSED_TIMED_CALLS]
+    jobs = [j for burst in bursts for j in burst][:FUSED_TIMED_SINGLES]
     singles = [tuple(staged([AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups)]))
                for j in jobs]
     chains = []
-    for burst in [b for b in bursts if len(b) > 1][:FUSED_TIMED_CALLS]:
+    for burst in [b for b in bursts if len(b) > 1][:FUSED_TIMED_CHAINS]:
         b0, mu, masks, demands = staged(
             [AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups) for j in burst])
         chains.append((b0[0].contiguous(), mu, masks, demands))
@@ -2311,10 +2380,13 @@ def _time_fused(calls: list, kernel, plain) -> dict:
         return lambda: [fn(*a) for a in calls]
 
     def device_us(fn, name=None):
-        d = profile_device_us(run(fn), cpu_ops=False)
-        if name is not None:
-            d = {k: v for k, v in d.items() if name in k}
-        if not d:
+        for _ in range(2):  # one more try where the profiler recorded nothing
+            d = profile_device_us(run(fn), cpu_ops=False)
+            if name is not None:
+                d = {k: v for k, v in d.items() if name in k}
+            if d:
+                break
+        else:
             ms = cuda_ms(run(fn), 2)
             emit({"phase": "timing_fallback", "reason": "torch.profiler recorded no "
                   "fused-kernel time", "event_ms": ms})
@@ -2351,6 +2423,7 @@ def phase_timings(seed: int, bursts: list) -> dict:
     rng = np.random.default_rng(seed + 2)
     rows = []
     out = {}
+    t_phase = time.perf_counter()
     for n, bsz in TIMED:
         b, w, d = main_path_rows(rng, n, bsz)
         iters = 200 if n <= 4096 else 50
@@ -2386,9 +2459,12 @@ def phase_timings(seed: int, bursts: list) -> dict:
         rows.append(row)
         out[(n, bsz)] = row
 
+    seconds = {"k1_k2": time.perf_counter() - t_phase}
     singles, chains = _fused_calls(bursts)
     out["fused single"] = _time_fused(singles, wl.wf_groups, wl.wf_groups_plain)
+    seconds["fused_single"] = time.perf_counter() - t_phase - sum(seconds.values())
     out["fused chain"] = _time_fused(chains, wl.wf_chain, wl.wf_chain_plain)
+    seconds["fused_chain"] = time.perf_counter() - t_phase - sum(seconds.values())
 
     # chained burst admission through the adapter: host wall per call (each
     # ends in one .cpu()), then the same calls under the profiler for
@@ -2398,7 +2474,7 @@ def phase_timings(seed: int, bursts: list) -> dict:
         [AssignmentProblem(busy=busy, mu=j.mu, groups=j.groups) for j in burst]
         for burst in bursts
         if len(burst) > 1
-    ][:100]
+    ][:FUSED_TIMED_CHAINS]
     wl.reset_counts()
     t0 = time.perf_counter()
     for problems in calls:
@@ -2410,8 +2486,10 @@ def phase_timings(seed: int, bursts: list) -> dict:
     )
     device_ms = {k: v / len(calls) / 1e3 for k, v in device.items()}
     total = sum(device_ms.values())
+    seconds["chain_admission"] = time.perf_counter() - t_phase - sum(seconds.values())
     emit({
         "phase": "timings",
+        "seconds": seconds,
         "kernels": rows,
         "fused_single_job": out["fused single"],
         "fused_chain": out["fused chain"],
@@ -3843,6 +3921,233 @@ def phase_launch_train(seed: int) -> dict:
             for k in runs[0]["counts"]}
 
 
+# ---- the parallel/ slice: a world of one NCCL rank -----------------------------
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """An NCCL process group of one rank on ``cuda:0`` (rendezvous through a
+    ``FileStore`` in a temporary directory) and its (1, 1) (data, model)
+    mesh; the group is destroyed however the block ends."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=NCCL_TIMEOUT_S))
+        try:
+            dist.all_reduce(torch.ones(1, device="cuda"))  # NCCL's start, outside the timings
+            yield make_mesh((1, 1), ("data", "model"), "cuda")
+        finally:
+            dist.destroy_process_group()
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    """The largest |a - b| over two dicts of tensors with the same keys."""
+    return max(float((a[k].float() - v.float()).abs().max()) for k, v in b.items())
+
+
+def _tree_paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_paths(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _parallel_run(cfg, opt_cfg, state: TrainState, batch: dict, mesh, steps: int) -> dict:
+    """``steps`` sharded steps and ``steps`` single-device steps from the
+    same state: each side's losses, final parameters, per-step K4/K6
+    launches, plain calls, wall and the sharded side's peak memory."""
+    out = {"sharded": shard_train_state(mesh, state)}
+    for side in ("sharded", "single"):
+        step = make_train_step(cfg, opt_cfg, remat=False, mesh=mesh if side == "sharded" else None)
+        st = out.pop(side) if side == "sharded" else state.as_dict()
+        losses, walls = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _reset_model_counts()
+        with set_mesh(mesh) if side == "sharded" else contextlib.nullcontext():
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                st, metrics = step(st, batch)
+                losses.append(float(metrics["loss"]))  # a host sync
+                walls.append(time.perf_counter() - t0)
+        counts = _model_counts()
+        if side == "sharded":
+            params = dict(_tree_paths(gather_state(st)["params"]))
+        else:  # keyed like the sharded tree; copies: the caller reuses the model
+            params = {tuple(n.split(".")): p.detach().clone()
+                      for n, p in st["params"].named_parameters()}
+        out[side] = {"losses": losses, "params": params, "walls_s": walls,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "step_gb": (torch.cuda.max_memory_allocated() - held) / 1e9,
+                     "k4": counts["rmsnorm"]["rmsnorm"], "k6": counts["flash_attention"][
+                         "flash_attention"], "plain": _plain_calls(counts), "counts": counts}
+        del st
+    return out
+
+
+def phase_parallel_train(seed: int, mesh, card: str) -> dict:
+    """The sharded train step (``make_train_step(..., mesh=)``) on the card
+    in a world of one rank: Qwen1.5-4B at full width, PARALLEL_MODEL's
+    depth and batch (phase_train's cut), bf16 with bf16 moments, 3 sharded
+    and 3 single-device steps from one seeded state on one loader batch;
+    the losses and every parameter within the reference test's limits,
+    then a float32 copy's first step held the same way; K4 and K6 launched
+    as often a step as by the single-device step, no plain call."""
+    layers, b, s = PARALLEL_MODEL
+    cfg = get_config(PARALLEL_ARCH).scaled(n_layers=layers)
+    opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 170)
+    state = train_state_init(gen, cfg, opt_cfg)
+    batch = _loader_batch(cfg, b, s, seed)
+    snapshot = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+    runs = {"bfloat16": _parallel_run(cfg, opt_cfg, state, batch, mesh, PARALLEL_STEPS)}
+    torch.cuda.empty_cache()
+    with torch.no_grad():  # the float32 copy starts from the same weights
+        for n, p in state.params.named_parameters():
+            p.copy_(snapshot[n])
+    del snapshot
+    params32 = state.params.float()
+    state32 = TrainState(params32, adamw_init(opt_cfg, params32))
+    runs["float32"] = _parallel_run(cfg, opt_cfg, state32, batch, mesh, 1)
+    del state, state32, params32
+    torch.cuda.empty_cache()
+    rows, ok = {}, True
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "flash_attention": cfg.n_layers}
+    for dtype, r in runs.items():
+        sh, si = r["sharded"], r["single"]
+        n = len(sh["losses"])
+        loss_d = max(abs(a - c) for a, c in zip(sh["losses"], si["losses"]))
+        param_d = _max_diff(sh["params"], si["params"])
+        launches = {"sharded": {"rmsnorm": sh["k4"] / n, "flash_attention": sh["k6"] / n},
+                    "single": {"rmsnorm": si["k4"] / n, "flash_attention": si["k6"] / n}}
+        rows[dtype] = {"steps": n, "losses_sharded": sh["losses"], "losses_single": si["losses"],
+                       "loss_distance": loss_d, "param_distance": param_d,
+                       "step_ms_sharded": [w * 1e3 for w in sh["walls_s"]],
+                       "step_ms_single": [w * 1e3 for w in si["walls_s"]],
+                       "peak_gb_sharded": sh["peak_gb"], "peak_gb_single": si["peak_gb"],
+                       "step_gb_sharded": sh["step_gb"], "step_gb_single": si["step_gb"],
+                       "launches_per_step": launches, "plain_calls": sh["plain"] + si["plain"]}
+        ok &= (loss_d <= PARALLEL_TOL["loss"] and param_d <= PARALLEL_TOL["params"]
+               and launches["sharded"] == launches["single"] == per_step
+               and sh["plain"] == si["plain"] == 0)
+    emit({"phase": "parallel_train", "arch": PARALLEL_ARCH, "card": card,
+          "mesh": {"data": 1, "model": 1}, "world": "one NCCL rank on cuda:0",
+          "reduced": {"depth": f"{cfg.n_layers} of {get_config(PARALLEL_ARCH).n_layers} "
+                      "layers", "batch": [b, s], "steps": PARALLEL_STEPS},
+          "tolerance": PARALLEL_TOL, "want_launches_per_step": per_step, "runs": rows})
+    if not ok:
+        raise AssertionError(f"parallel_train: the sharded step differs from the single-device "
+                             f"step or went around the kernels: {rows}")
+    counts = runs["bfloat16"]["sharded"]["counts"]
+    return {k: {c: sum(r[side]["counts"][k][c] for r in runs.values()
+                       for side in ("sharded", "single")) for c in counts[k]} for k in counts}
+
+
+def phase_moe_sharded(seed: int, mesh, card: str) -> dict:
+    """The expert-parallel MoE (``moe_apply_sharded``) of one
+    Qwen3-MoE-235B-A22B layer at full width (128 experts, top 8, experts
+    of width 1536) on 4 x 1024 bf16 tokens at capacity factor 1.25,
+    under ``dispatch="shard_map"`` on the (1, 1) mesh: the kept set
+    identical to ``moe_apply``'s (local capacity = global capacity on
+    one data shard), y and aux within MODEL_TOL; both timed."""
+    base = get_config(MOE_SHARDED_ARCH)
+    cfg = dataclasses.replace(base, n_layers=1, moe=dataclasses.replace(
+        base.moe, dispatch="shard_map", capacity_factor=MOE_SHARDED_CF))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 180)
+    p = moe_ffn.MoE(cfg, device="cuda")
+    moe_ffn.moe_init_(p, gen)
+    b, s = MOE_SHARDED_TOKENS
+    # tokens sharing a common direction, as a layer's activations do: the
+    # router favours some experts, and some assignments overflow
+    x = (_randn(gen, (b, s, cfg.d_model), torch.float32)
+         + _randn(gen, (1, 1, cfg.d_model), torch.float32)).to(cfg.torch_dtype)
+    with torch.no_grad(), set_mesh(mesh):
+        y_s, aux_s = moe_apply_sharded(p, cfg, x, mesh)
+        keep_s = moe_route_sharded(p, cfg, x, mesh)["keep"]
+        y_r, aux_r = moe_ffn.moe_apply(p, cfg, x)
+        keep_r = moe_ffn.moe_route(p, cfg, x)["keep"]
+        ms_s = cuda_ms(lambda: moe_apply_sharded(p, cfg, x, mesh), 5)
+        ms_r = cuda_ms(lambda: moe_ffn.moe_apply(p, cfg, x), 5)
+    same_keep = bool(torch.equal(keep_s, keep_r))
+    y_err, y_ok = _model_err(y_s, y_r, "bfloat16")
+    aux_err, aux_ok = _model_err(aux_s, aux_r, "bfloat16")
+    row = {"arch": MOE_SHARDED_ARCH, "card": card,
+           "reduced": {"depth": f"one layer's FFN of {base.n_layers}"},
+           "experts": cfg.moe.n_experts,
+           "top_k": cfg.moe.top_k, "d_ff_expert": cfg.moe.d_ff_expert, "tokens": [b, s],
+           "capacity_factor": MOE_SHARDED_CF, "kept": int(keep_s.sum()),
+           "assignments": keep_s.numel(), "kept_set_identical": same_keep,
+           "dropped_share": 1 - int(keep_s.sum()) / keep_s.numel(),
+           "y_max_abs_err": y_err, "aux": [float(aux_s), float(aux_r)], "aux_abs_err": aux_err,
+           "tolerance": MODEL_TOL["bfloat16"], "finite": bool(torch.isfinite(y_s).all()),
+           "ms_sharded": ms_s, "ms_moe_apply": ms_r}
+    del p, x, y_s, y_r
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_sharded", **row})
+    if not (same_keep and y_ok and aux_ok and row["finite"]):
+        raise AssertionError(f"moe_sharded differs from moe_apply: {row}")
+    return row
+
+
+def phase_compress(seed: int, mesh, card: str) -> dict:
+    """int8 gradient compression with error feedback on the card: the
+    reference test's regression (64 x 16, one data shard): one step's
+    relative error below 0.02, and after 300 steps of descent within 0.05
+    of the target."""
+    rng = np.random.default_rng(seed + 190)
+    xs_np = rng.normal(size=(64, 16)).astype(np.float32)
+    xs = torch.from_numpy(xs_np).cuda()
+    ys = torch.from_numpy(xs_np @ np.arange(16, dtype=np.float32)).cuda()
+
+    def grad_fn(w, batch):
+        x, y = batch
+        w = w.detach().requires_grad_(True)
+        return torch.autograd.grad(((x @ w - y) ** 2).mean(), w)[0]
+
+    w = torch.zeros(16, device="cuda")
+    exact = grad_fn(w, (xs, ys))
+    fn = make_compressed_grad_fn(grad_fn, mesh)
+    err = init_error_state(w)
+    g, err = fn(w, (xs, ys), err)
+    rel = float((g - exact).abs().max() / exact.abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COMPRESS_STEPS):
+        g, err = fn(w, (xs, ys), err)
+        w = w - 0.1 * g
+    final = float((w - torch.arange(16.0, device="cuda")).abs().max())
+    wall = time.perf_counter() - t0
+    row = {"card": card, "one_step_rel_err": rel, "steps": COMPRESS_STEPS,
+           "final_max_abs_err": final, "limits": {"one_step": 0.02, "final": 0.05},
+           "ms_per_step": wall / COMPRESS_STEPS * 1e3, "residual_shape": list(err.shape)}
+    emit({"phase": "compress", **row})
+    if not (rel < 0.02 and final < 0.05):
+        raise AssertionError(f"compress: {row}")
+    return row
+
+
+def slice13_phases(seed: int, card: str) -> dict:
+    """The parallel/ slice's three phases in one world of one NCCL rank;
+    their walls on the ``slice13_phases`` line; returns the sharded
+    train phase's launch counts."""
+    seconds = {}
+    with one_rank_world() as mesh:
+        t0 = time.perf_counter()
+        counts = phase_parallel_train(seed, mesh, card)
+        seconds["parallel_train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_moe_sharded(seed, mesh, card)
+        seconds["moe_sharded"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_compress(seed, mesh, card)
+        seconds["compress"] = time.perf_counter() - t0
+    emit({"phase": "slice13_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE13_BUDGET_S, "card": card})
+    return counts
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -4288,6 +4593,15 @@ def phase_ssm_timings(seed: int) -> dict:
     return rows
 
 
+def _free() -> None:
+    """Release a served model's memory: phase_serve's engines hold their
+    model in a reference cycle (the counting ``_decode`` wrapper), which
+    only a full collection frees, and large imports (``torch.distributed.
+    tensor``) make the interpreter's own full collections rarer."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4295,12 +4609,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    faulthandler.dump_traceback_later(WATCHDOG_S)
     # host-only references run in one worker process beside the card's
     # phases; it is stopped however the run ends
     pool = multiprocessing.get_context("spawn").Pool(1)
     try:
         return run(args, pool)
     finally:
+        faulthandler.cancel_dump_traceback_later()
         pool.terminate()
         pool.join()
 
@@ -4311,7 +4627,8 @@ def run(args: argparse.Namespace, pool) -> int:
     torch.cuda.set_device(0)
     dev = phase_device()
     jobs = main_path_trace(args.seed)
-    host_wf = {o: pool.apply_async(host_wf_run, (jobs, o)) for o in ("fifo", "ocwf-acc")}
+    host_wf = {o: pool.apply_async(host_wf_run, (main_path_jobs(jobs, o), o))
+               for o in ("fifo", "ocwf-acc")}
     phase_build()
     worst = phase_kernels(args.seed)
     worst["wf_fused"] = phase_fused_kernel(args.seed)
@@ -4361,6 +4678,7 @@ def run(args: argparse.Namespace, pool) -> int:
     phase_observed_serve(params, args.seed)
     new_s["observed_serve"] = time.perf_counter() - t0
     del params
+    _free()
     model_timed = phase_model_timings(args.seed)
     ssm_worst = phase_ssm_kernels(args.seed)
     ssm_timed = phase_ssm_timings(args.seed)
@@ -4377,7 +4695,7 @@ def run(args: argparse.Namespace, pool) -> int:
         phase_decode_profile(params, args.seed, arch, f"{arch}_decode_profile", cfg=cfg)
         ssm_counts += [counts, phase_ssm_prefill(arch, params, args.seed, cfg)]
         del params
-        torch.cuda.empty_cache()
+        _free()
     # this slice: the MoE and MLA + MoE families at full width, depth cut
     moe_s: dict[str, float] = {}
     t0 = time.perf_counter()
@@ -4396,7 +4714,7 @@ def run(args: argparse.Namespace, pool) -> int:
         phase_decode_profile(params, args.seed, arch, f"{arch}_decode_profile", cfg=cfg)
         moe_counts += [counts, phase_moe_prefill(arch, params, cfg, args.seed)]
         del params
-        torch.cuda.empty_cache()
+        _free()
         moe_s[arch] = time.perf_counter() - t0
     emit({"phase": "moe_phases", "seconds": moe_s, "total_s": sum(moe_s.values()),
           "budget_s": MOE_BUDGET_S})
@@ -4426,6 +4744,9 @@ def run(args: argparse.Namespace, pool) -> int:
     slice12_s["launch_train"] = time.perf_counter() - t0
     emit({"phase": "slice12_phases", "seconds": slice12_s, "total_s": sum(slice12_s.values()),
           "budget_s": SLICE12_BUDGET_S})
+    # this slice: parallel/ (the sharded train step, the expert-parallel
+    # MoE, int8 gradient compression) in a world of one NCCL rank
+    parallel_counts = slice13_phases(args.seed, dev["nvidia_smi"])
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()
@@ -4501,7 +4822,8 @@ def run(args: argparse.Namespace, pool) -> int:
     # launches over every main path: the dense serve and prefill paths,
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
-             vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts]
+             vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
+             parallel_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}

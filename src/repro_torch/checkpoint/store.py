@@ -23,7 +23,13 @@ layout on disk, so each package reads the other's checkpoints::
   to the device asked for (by default where the ``like`` tree's leaf
   lies);
 - **async save** — :meth:`CheckpointManager.save_async` copies the tree
-  to the host now and writes it on a background thread.
+  to the host now and writes it on a background thread;
+- **sharded state** — under an initialised process group every rank
+  calls the save: a ``DTensor`` leaf is gathered and written as its full
+  tensor, by rank 0 only (the same layout), and the others wait for the
+  write; :func:`restore_checkpoint` with ``shardings=(mesh, specs)``
+  places each leaf onto that mesh's blocks, which may be another mesh's
+  than the one it was saved from (the reference's elastic restart).
 """
 
 from __future__ import annotations
@@ -37,6 +43,10 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import shard_state
 
 __all__ = [
     "CheckpointManager",
@@ -87,9 +97,36 @@ def _host(leaf: Any) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _writer() -> bool:
+    """Whether this process writes: always, but under an initialised
+    process group only rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _full(tree: Any) -> Any:
+    """``tree`` with each ``DTensor`` leaf gathered into its full tensor (a
+    collective: every rank calls it)."""
+    return _unflatten(tree, [leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+                             for _, leaf in _flatten(tree)])
+
+
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
-    """Synchronous atomic save; returns the final path."""
-    final = os.path.join(directory, f"step_{step:08d}")
+    """Synchronous atomic save; returns the final path.  Under an
+    initialised process group every rank calls it: ``DTensor`` leaves are
+    gathered, rank 0 writes, and every rank returns once it has."""
+    tree = _full(tree)
+    final = _write(directory, step, tree) if _writer() else _final(directory, step)
+    if dist.is_initialized():
+        dist.barrier()
+    return final
+
+
+def _final(directory: str, step: int) -> str:
+    return os.path.join(directory, f"step_{step:08d}")
+
+
+def _write(directory: str, step: int, tree: Any) -> str:
+    final = _final(directory, step)
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     manifest: dict = {"step": step, "leaves": []}
@@ -174,13 +211,18 @@ def _shape(leaf: Any) -> tuple:
 
 
 def restore_checkpoint(
-    directory: str, step: int, like: Any, device: str | torch.device | None = None
+    directory: str, step: int, like: Any, device: str | torch.device | None = None,
+    *, shardings: tuple | None = None,
 ) -> Any:
     """Restore into the structure of ``like``: a tree of tensors in the
     checkpoint's dtypes, each on ``device`` (by default the device of
-    ``like``'s leaf where that is a tensor, else the CPU).  Raises
-    :class:`IOError` on a checksum mismatch and :class:`ValueError` on a
-    leaf count or shape that differs from ``like``'s."""
+    ``like``'s leaf where that is a tensor, else the CPU).  With
+    ``shardings=(mesh, specs)`` (a nested-dict tree, every rank calling)
+    each leaf becomes this rank's ``DTensor`` block of it on ``mesh``, as
+    the spec at its path of ``specs`` places it
+    (:func:`repro_torch.parallel.shard_state`).  Raises :class:`IOError`
+    on a checksum mismatch and :class:`ValueError` on a leaf count or
+    shape that differs from ``like``'s."""
     path = os.path.join(directory, f"step_{step:08d}")
     manifest = read_manifest(directory, step)
     flat_like = [leaf for _, leaf in _flatten(like)]
@@ -196,7 +238,11 @@ def restore_checkpoint(
         where = device if device is not None else (
             ref.device if isinstance(ref, torch.Tensor) else "cpu")
         tensors.append(t.to(where))
-    return _unflatten(like, tensors)
+    tree = _unflatten(like, tensors)
+    if shardings is not None:
+        mesh, specs = shardings
+        tree = shard_state(mesh, tree, specs)
+    return tree
 
 
 class CheckpointManager:
@@ -208,7 +254,7 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
 
     def _gc(self) -> None:
-        if not os.path.isdir(self.directory):
+        if not _writer() or not os.path.isdir(self.directory):
             return
         for s in sorted(_steps(self.directory))[: -self.keep]:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"))
@@ -218,16 +264,19 @@ class CheckpointManager:
         self._gc()
 
     def save_async(self, step: int, tree: Any) -> None:
-        """Copy the tree to the host now; write it in the background."""
+        """Copy the tree to the host now (gathering ``DTensor`` leaves: every
+        rank calls it); write it in the background (rank 0 only under a
+        process group)."""
         self.wait()
         host = _unflatten(tree, [
             leaf.detach().to("cpu", copy=True) if isinstance(leaf, torch.Tensor)
-            else np.array(leaf) for _, leaf in _flatten(tree)])
-        self._thread = threading.Thread(target=self._write, args=(step, host))
-        self._thread.start()
+            else np.array(leaf) for _, leaf in _flatten(_full(tree))])
+        if _writer():
+            self._thread = threading.Thread(target=self._write, args=(step, host))
+            self._thread.start()
 
     def _write(self, step: int, host: Any) -> None:
-        save_checkpoint(self.directory, step, host)
+        _write(self.directory, step, host)
         self._gc()
 
     def wait(self) -> None:
@@ -235,8 +284,10 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore_latest(self, like: Any, device: str | torch.device | None = None):
+    def restore_latest(self, like: Any, device: str | torch.device | None = None,
+                       *, shardings: tuple | None = None):
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.directory, step, like, device)
+        return step, restore_checkpoint(self.directory, step, like, device,
+                                        shardings=shardings)

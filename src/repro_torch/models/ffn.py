@@ -10,8 +10,8 @@ combine weights.  Which assignments are kept equals the reference's bit
 for bit: the top-k puts the lower expert first on ties (as
 ``jax.lax.top_k``), and each assignment's arrival rank within its expert
 comes from a stable sort.  The reference runs no kernel here (plain
-einsums), so neither does the port.  The reference's expert-parallel
-dispatch (``moe_sharded``) waits for the port's ``parallel/``.
+einsums), so neither does the port.  The expert-parallel dispatch under
+a mesh is :mod:`repro_torch.models.moe_sharded`.
 """
 
 from __future__ import annotations

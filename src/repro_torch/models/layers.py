@@ -8,9 +8,9 @@ other by name.  Weights keep the reference's ``(fan_in, fan_out)``
 layout: a projection is ``x @ w``.  Parameters are created in the
 config's dtype without ``requires_grad`` (serving needs none; the train
 step, :mod:`repro_torch.train.step`, turns it on); norm math runs in
-fp32 and casts back.  The port
-runs on one device, so the reference's sharding constraints have no
-counterpart here.
+fp32 and casts back.  A rank holds plain tensors (its own blocks:
+:mod:`repro_torch.parallel`), so the reference's sharding constraints
+have no counterpart here.
 """
 
 from __future__ import annotations

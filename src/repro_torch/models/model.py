@@ -52,10 +52,16 @@ it with ``pos + 1``; the reference returns a new cache.  Each decode
 step projects the memory's keys and values again in every layer, as the
 reference's ``_layer_decode`` does.  The decode
 path's MoE drops nothing (``no_drop``), the prefill's drops past the
-experts' capacity, as the reference's.  The reference's expert-parallel
-dispatch (``moe_sharded``, taken only under a mesh with a ``model`` axis)
-waits for the port's ``parallel/``; without a mesh the reference takes
-``moe_apply``, as the port does.
+experts' capacity, as the reference's.  Where the reference's
+``_ffn_apply`` takes the expert-parallel dispatch, so does the port's
+(:func:`_moe_apply`): ``cfg.moe.dispatch == "shard_map"``, not
+``no_drop``, an ambient mesh (:func:`repro_torch.parallel.set_mesh`) with
+a ``model`` axis whose extent divides the expert count
+(:func:`repro_torch.models.moe_sharded.moe_apply_sharded`).  Otherwise it
+takes ``moe_apply``, over the whole batch: where the sharded train step
+has split the batch over the data axes, the shards' tokens are gathered
+first (:func:`~repro_torch.models.moe_sharded.moe_apply_global`), so the
+capacity is the global batch's, as under the reference's global arrays.
 
 :func:`forward_train` runs the whole sequence through every layer and
 returns the logits of every position (fp32; for vlm the token suffix
@@ -81,6 +87,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .. import backend
+from ..parallel.constrain import ambient_mesh, batch_axes
 from .attention import (
     GQA,
     MLA,
@@ -106,6 +113,7 @@ from .layers import (
     rmsnorm,
     unembed,
 )
+from .moe_sharded import expert_parallel, moe_apply_global, moe_apply_sharded
 from .ssm import Mamba2, mamba2_apply, mamba2_decode, mamba2_init_, mamba2_init_state
 
 __all__ = [
@@ -373,9 +381,20 @@ def _n_super(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid_period
 
 
+def _moe_apply(p: MoE, cfg: ModelConfig, x, *, no_drop: bool = False):
+    """The MoE FFN, ``(y, aux)``, by the dispatch the reference's
+    ``_ffn_apply`` picks under the ambient mesh."""
+    mesh = ambient_mesh()
+    if expert_parallel(cfg, mesh, no_drop=no_drop):
+        return moe_apply_sharded(p, cfg, x, mesh)
+    if batch_axes():
+        return moe_apply_global(p, cfg, x, mesh, batch_axes(), no_drop=no_drop)
+    return moe_apply(p, cfg, x, no_drop=no_drop)
+
+
 def _ffn(block: DecoderLayer, cfg: ModelConfig, x, *, no_drop: bool = False):
     if isinstance(block.ffn, MoE):
-        return moe_apply(block.ffn, cfg, x, no_drop=no_drop)[0]
+        return _moe_apply(block.ffn, cfg, x, no_drop=no_drop)[0]
     return swiglu(block.ffn, x)
 
 
@@ -496,7 +515,7 @@ def _layer_train(layer: nn.Module, cfg: ModelConfig, x: torch.Tensor, rope, cros
     x = _cross(layer, cfg, x + h, rope, cross)
     h = rmsnorm(layer.norm2, x, cfg.norm_eps)
     if isinstance(layer.ffn, MoE):
-        h, aux = moe_apply(layer.ffn, cfg, h)
+        h, aux = _moe_apply(layer.ffn, cfg, h)
     else:
         h, aux = swiglu(layer.ffn, h), _zero_aux(x)
     return x + h, aux

@@ -6,8 +6,11 @@ the states are cast on read and write.  Parameters, gradients and the
 moments are *trees*: nested dicts of tensors whose keys mirror the
 parameter names (:func:`param_tree` of a model gives ``{"embed":
 {"table": ...}, "layers": {"0": {"attn": {"wq": {"w": ...}}}}, ...}``),
-so a moment sits at its parameter's path.  One device holds everything;
-the reference's ZeRO sharding of the states has no counterpart here.
+so a moment sits at its parameter's path.  The update is elementwise
+but for the global norm, so the sharded train step
+(:func:`repro_torch.train.step.make_train_step` with ``mesh=``) runs it
+on each rank's blocks of the parameters and moments (the reference's
+ZeRO sharding), with the norm summed over the shards.
 """
 
 from __future__ import annotations
@@ -109,14 +112,18 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(
-    cfg: AdamWConfig, grads: Any, state: dict, params: Any
+    cfg: AdamWConfig, grads: Any, state: dict, params: Any,
+    *, gnorm: torch.Tensor | None = None,
 ) -> tuple[Any, dict, dict]:
     """Returns ``(new_params, new_state, metrics)``: new tensors, the inputs
     untouched.  The gradient is clipped to ``clip_norm`` by its global
-    norm (``metrics["grad_norm"]`` is the norm before clipping)."""
+    norm (``metrics["grad_norm"]`` is the norm before clipping):
+    :func:`global_norm` of ``grads`` unless ``gnorm`` gives it (the
+    sharded step, whose ``grads`` are one rank's blocks)."""
     params = param_tree(params)
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     stepf = step.float()

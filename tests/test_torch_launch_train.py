@@ -9,15 +9,20 @@ locality-aware loader; their final checkpoints agree leaf by leaf within
 ``convert.reference_names``; the step exactly), each read by the other
 package's reader.  A second port run resumes from step 3; both drivers
 end in ``KeyError: 'frames'`` for Whisper (they feed tokens only); the
-port refuses ``--production-mesh``, which waits for ``parallel/``; without
+port refuses ``--production-mesh`` outside a world of 256 ranks; without
 ``--ckpt-dir`` each arch checkpoints into its own folder under the
-temporary directory.
+temporary directory.  The ``--production-mesh`` loop (:func:`repro_torch.
+launch.train.train` on a mesh) runs on 4 ``gloo`` ranks
+(``tests/torch_parallel_ranks.py``): 3 steps sharded on (2, 2), then
+resumed onto (4, 1) to step 5, its losses those of the single-device
+driver run the same way.
 """
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch_parallel_ranks as ranks
 
 from repro.checkpoint import restore_checkpoint as ref_restore
 from repro.configs import get_smoke_config as ref_smoke_config
@@ -122,7 +127,10 @@ def test_both_drivers_need_frames_for_whisper(tmp_path):
 
 
 def test_production_mesh_waits_for_parallel(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """Without a launcher's rendezvous ``--production-mesh`` refuses to run,
+    naming the world of 256 ranks it needs, and writes nothing (it never
+    falls back to one device)."""
+    with pytest.raises(RuntimeError, match="world size 256"):
         launch.main(["--smoke", "--production-mesh", "--ckpt-dir", str(tmp_path),
                      "--device", "cpu"])
     assert latest_step(str(tmp_path)) is None
@@ -140,3 +148,31 @@ def test_default_checkpoint_folder_is_per_arch_under_the_temp_dir(tmp_path, monk
         folder = tmp_path / "repro_torch_train" / f"{arch}-smoke"
         assert launch.default_ckpt_dir(arch, True) == str(folder)
         assert latest_step(str(folder)) == 1
+
+
+@pytest.fixture(scope="module")
+def mesh_driver(tmp_path_factory):
+    """The driver's sharded loop on 4 gloo ranks (``torch_parallel_ranks``'s
+    ``launch`` task): rank 0's losses and each rank's refusal of
+    ``--production-mesh`` in a world of 4."""
+    out = tmp_path_factory.mktemp("launch_mesh")
+    ranks.wait_all(ranks.start_ranks("launch", 4, out))
+    return [torch.load(out / f"launch_rank{r}.pt") for r in range(4)]
+
+
+def test_production_mesh_loop_trains_and_resumes_as_the_single_device_driver(
+        mesh_driver, tmp_path, capsys):
+    flags = ["--smoke", "--arch", ARCH, "--seq-len", "16", "--batch", "4", "--device", "cpu",
+             "--ckpt-dir", str(tmp_path)]
+    want = launch.train(launch.parse_args([*flags, "--steps", "3"]))
+    want += launch.train(launch.parse_args([*flags, "--steps", "5"]))
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert len(want) == 5
+    for r in mesh_driver:
+        assert len(r["losses"]) == 5
+        np.testing.assert_allclose(r["losses"], want, rtol=0, atol=ATOL)
+
+
+def test_production_mesh_refuses_a_world_that_is_not_256(mesh_driver):
+    for r in mesh_driver:
+        assert "world size 256" in r["refused"] and "has 4" in r["refused"]
