@@ -222,6 +222,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
     gradients with error feedback on the reference test's regression:
     one step within 2 % of the exact gradient, 300 steps within 0.05 of
     the target;
+14l. dryrun check — the dry run's counts (``repro_torch.launch.dryrun``)
+    against real steps: Qwen1.5-4B and Mamba2-130M at full width and 2
+    layers, a train step, a prefill and a decode step at 2 x 1024 through
+    ``launch.specs.step_fn_for`` on a (1, 1) mesh, counted on ``meta``
+    in a fake world of one rank and run for real (counted the same way)
+    in a world of one NCCL rank: the FLOP counts equal exactly, each
+    step's kernels launched as many times as the meta count's calls,
+    meta ``peak_bytes`` within 10 % of ``torch.cuda.max_memory_allocated``
+    over the step, each step's time beside its bound under the H100's
+    data-sheet peaks (printed), ``dryrun.HBM_BYTES`` equal to the card's
+    ``total_memory``;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -243,7 +254,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
 Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
 walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 ``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
-14i-14k's on the ``slice13_phases`` line), the
+14i-14k's on the ``slice13_phases`` line; 14l's on the
+``slice14_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
 launches too), the ``nvidia-smi`` line, and last
@@ -331,7 +343,11 @@ from repro_torch.train.step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.train.step import shard_train_state  # noqa: E402
 from repro_torch.train.compress import init_error_state, make_compressed_grad_fn  # noqa: E402
 from repro_torch.train.optim import adamw_init  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
+from repro_torch.launch import roofline as roof  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.specs import step_fn_for  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded  # noqa: E402
 from repro_torch.parallel import gather_state, set_mesh  # noqa: E402
 from repro_torch.traces import (  # noqa: E402
@@ -639,6 +655,15 @@ MOE_SHARDED_TOKENS = (4, 1024)
 MOE_SHARDED_CF = 1.25
 COMPRESS_STEPS = 300
 SLICE13_BUDGET_S = 60  # parallel_train, moe_sharded, compress
+SLICE14_BUDGET_S = 60  # dryrun_check
+DRYRUN_ARCHS = {"qwen1.5-4b": 2, "mamba2-130m": 2}  # arch: layers (full width)
+DRYRUN_BATCH = (2, 1024)  # sequences, tokens (decode: one token against a 1024-row cache)
+DRYRUN_TIMED = 3  # timed runs of each step after the counted one; the median is kept
+# meta peak_bytes against torch.cuda.max_memory_allocated over the step:
+# the tracker counts storage bytes as created; the caching allocator
+# rounds each block up to 512 bytes, and the step's first cuBLAS call on a
+# new stream may allocate its workspace
+DRYRUN_PEAK_TOL = 0.10
 NCCL_TIMEOUT_S = 120  # a collective of the one-rank world that hangs fails instead
 # past this wall, every thread's stack goes to stderr (the run itself is
 # stopped at 1,200 s from outside): where a slow or hung run was
@@ -4148,6 +4173,130 @@ def slice13_phases(seed: int, card: str) -> dict:
     return counts
 
 
+# ---- slice 14: the dry run's counts against real steps -----------------------
+
+
+# the kernels each (family, step kind) must launch on the card: Mamba2's
+# decode step is a plain recurrence (no K5, no K7)
+DRYRUN_KERNELS = {("dense", "train"): ("rmsnorm", "flash_attention"),
+                  ("dense", "prefill"): ("rmsnorm", "flash_attention"),
+                  ("dense", "decode"): ("rmsnorm", "decode_attention"),
+                  ("mamba2", "train"): ("rmsnorm", "ssd_scan"),
+                  ("mamba2", "prefill"): ("rmsnorm", "ssd_scan"),
+                  ("mamba2", "decode"): ("rmsnorm",)}
+
+
+def _fill_step_args(kind: str, args: tuple, gen: torch.Generator, vocab: int) -> None:
+    """Seeded values in a real step's arguments: the parameters N(0, 0.02²),
+    the tokens and targets uniform over the vocabulary; the moments and
+    the cache stay zero (``pos`` at the cache's end)."""
+    params = args[0]["params"] if kind == "train" else args[0]
+    batch = args[1] if kind != "decode" else {"tokens": args[1]}
+    with torch.no_grad():
+        for t in dry._tensors(params):
+            t.copy_(_randn(gen, t.shape, torch.float32).mul_(0.02).to(t.dtype))
+        for t in dry._tensors(batch):
+            if not t.is_floating_point():
+                t.copy_(torch.randint(0, vocab, t.shape, generator=gen, device="cuda"))
+
+
+def _dryrun_shapes() -> list[ShapeSpec]:
+    b, s = DRYRUN_BATCH
+    return [ShapeSpec(f"check_{kind}", kind, s, b) for kind in ("train", "prefill", "decode")]
+
+
+def phase_dryrun_check(seed: int, card: str) -> dict:
+    """The dry run's counts against real steps: for Qwen1.5-4B and
+    Mamba2-130M at full width and 2 layers, a train step, a prefill and a
+    decode step (DRYRUN_BATCH) through ``step_fn_for`` on a (1, 1) mesh,
+    counted on ``meta`` in a fake world of one rank
+    (``dryrun.count_step``) and run for real in a world of one NCCL rank,
+    counted the same way: (a) the meta FLOP count equals the CUDA step's
+    exactly; (b) the kernels of the step launched on the card, as many
+    times as the meta count's calls; (c) meta ``peak_bytes`` within
+    DRYRUN_PEAK_TOL of ``torch.cuda.max_memory_allocated`` over the step;
+    (d) each step's time (median of DRYRUN_TIMED) beside its bound under
+    the H100's data-sheet peaks (printed, not checked); (e) ``hbm_bytes``
+    equals the card's ``total_memory``."""
+    opt_cfg = TrainAdamWConfig()
+    cases = [(arch, get_config(arch).scaled(n_layers=layers), shape)
+             for arch, layers in DRYRUN_ARCHS.items() for shape in _dryrun_shapes()]
+    meta = {}
+    with dry.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        for arch, cfg, shape in cases:
+            fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh,
+                                   in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+            out, meta[arch, shape.kind] = dry.count_step(fn, args)
+            del fn, args, out
+    rows, ok = [], True
+    gen = torch.Generator(device="cuda").manual_seed(seed + 270)
+    with one_rank_world() as mesh:
+        for arch, cfg, shape in cases:
+            m = meta[arch, shape.kind]
+            _free()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="cuda",
+                                   in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+            _fill_step_args(shape.kind, args, gen, cfg.vocab)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_model_counts()
+            out, c = dry.count_step(fn, args, device="cuda")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = {k: v[k] for k, v in _model_counts().items() if k != "waterlevel"}
+            del out
+            walls = []
+            for _ in range(DRYRUN_TIMED):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                del out
+            del fn, args
+            want = DRYRUN_KERNELS[cfg.block_pattern, shape.kind]
+            bound_s = max(m.flops / roof.PEAK_FLOPS, m.bytes / roof.HBM_BW)
+            ms = sorted(walls)[len(walls) // 2] * 1e3
+            row = {"arch": arch, "layers": cfg.n_layers, "kind": shape.kind,
+                   "batch": list(DRYRUN_BATCH), "flops_meta": m.flops, "flops_cuda": c.flops,
+                   "kernel_calls_meta": {k: v["calls"] for k, v in m.kernels.items()},
+                   "launches_cuda": launches, "bytes_meta": m.bytes, "bytes_cuda": c.bytes,
+                   "peak_bytes_meta": m.peak_bytes, "peak_bytes_cuda": peak,
+                   "peak_ratio": m.peak_bytes / peak, "temp_bytes_meta": m.temp_bytes,
+                   "temp_bytes_cuda_tracker": c.temp_bytes,
+                   "ms": ms, "bound_ms": bound_s * 1e3, "ms_over_bound": ms / (bound_s * 1e3)}
+            row["checks"] = {
+                "a_flops_equal": m.flops == c.flops,
+                "b_kernels_launched": all(launches[k] > 0 for k in want)
+                and all(launches[k] == m.kernels.get(k, {"calls": 0})["calls"]
+                        for k in launches),
+                "c_peak_within_tol": abs(m.peak_bytes / peak - 1) <= DRYRUN_PEAK_TOL,
+            }
+            ok &= all(row["checks"].values())
+            rows.append(row)
+    total = torch.cuda.get_device_properties(0).total_memory
+    hbm_ok = dry.HBM_BYTES == total
+    emit({"phase": "dryrun_check", "card": card, "world": "meta: fake world of one rank; "
+          "cuda: one NCCL rank on cuda:0; (1, 1) (data, model) mesh", "peak_tol": DRYRUN_PEAK_TOL,
+          "hbm_bytes": dry.HBM_BYTES, "total_memory": total, "e_hbm_equal": hbm_ok,
+          "bound": "max(flops / 989e12, bytes / 3.35e12): H100 SXM5 data-sheet peaks",
+          "rows": rows})
+    if not (ok and hbm_ok):
+        raise AssertionError(f"dryrun_check failed: hbm {dry.HBM_BYTES} vs {total}; {rows}")
+    return {"rows": rows}
+
+
+def slice14_phases(seed: int, card: str) -> None:
+    """The dry run's check; its wall on the ``slice14_phases`` line."""
+    t0 = time.perf_counter()
+    phase_dryrun_check(seed, card)
+    seconds = {"dryrun_check": time.perf_counter() - t0}
+    emit({"phase": "slice14_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE14_BUDGET_S, "card": card})
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -4747,6 +4896,8 @@ def run(args: argparse.Namespace, pool) -> int:
     # this slice: parallel/ (the sharded train step, the expert-parallel
     # MoE, int8 gradient compression) in a world of one NCCL rank
     parallel_counts = slice13_phases(args.seed, dev["nvidia_smi"])
+    # this slice: the dry run's counts against real steps
+    slice14_phases(args.seed, dev["nvidia_smi"])
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()

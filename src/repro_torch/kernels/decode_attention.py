@@ -36,6 +36,15 @@ to 0; launches that share the counters run one at a time (one stream).
 ``COUNTS`` holds plain integers: ``decode_attention`` counts kernel
 launches, ``plain`` counts calls of the plain version.
 :func:`reset_counts` zeroes them.
+
+The dry run's rules (:mod:`._tensors`, inside its ``counting`` scope):
+``meta`` inputs get :func:`decode_attention`'s shape rule (``out`` like
+``q`` and the fp32 partials the launch allocates, planned for an
+H100's SMs), after the launch's checks, and every call adds
+:func:`op_count` and :func:`byte_count`.  Both read shapes only: a count
+cannot read ``pos``, which lies on the device, so they take every one of
+the T cache rows, and where the kernel stops at ``pos + 1`` they are
+upper bounds.
 """
 
 from __future__ import annotations
@@ -47,18 +56,20 @@ import torch
 
 from ..analysis.contracts import BlockConfig, choice, contract, span
 from . import _build
-from ._tensors import check_device, check_dtype
+from ._tensors import H100_SMS, active, check_device, check_dtype, count, uncounted
 
 __all__ = [
     "COUNTS",
     "MAX_HEAD_DIM",
     "MAX_SLICE",
     "NEG_INF",
+    "byte_count",
     "decode_attention",
     "decode_attention_plain",
     "group_slices",
     "lane_plan",
     "lane_width",
+    "op_count",
     "reset_counts",
     "split_plan",
 ]
@@ -127,6 +138,33 @@ def split_plan(b: int, hkv: int, t: int, sms: int, group: int = 1) -> tuple[int,
     chunks = -(-t // CHUNK)
     blocks = b * hkv * group_slices(group)[0]
     return CHUNK, max(1, min(chunks, MAX_SPLITS, BLOCKS_PER_SM * sms // blocks))
+
+
+def _partial_rows(b: int, h: int, hkv: int, t: int, sms: int) -> int:
+    """Rows of hd + 2 fp32 the launch's partials hold: one per (sequence,
+    KV head, slice, split, head of the slice)."""
+    n_slices, slice_heads = group_slices(h // hkv)
+    return b * hkv * n_slices * split_plan(b, hkv, t, sms, h // hkv)[1] * slice_heads
+
+
+def op_count(b: int, h: int, hkv: int, t: int, hd: int) -> int:
+    """Operations of one call: q . k and p . v over all ``t`` cache rows
+    for each of the B x H query heads, ``4 * B * H * T * hd``.  An upper
+    bound: the kernel reads the keys up to ``pos`` only."""
+    return 4 * b * h * t * hd
+
+
+def byte_count(b: int, h: int, hkv: int, t: int, hd: int, itemsize: int,
+               sms: int = H100_SMS) -> int:
+    """Device-memory bytes of one call: q, ``pos`` and the output once, the
+    K and V rows of all ``t`` positions once per slice of the group (an
+    upper bound, as :func:`op_count`), and the fp32 partials written by
+    the splits and read by the merge."""
+    n_slices = group_slices(h // hkv)[0]
+    qo = 2 * b * h * hd * itemsize
+    kv = 2 * b * hkv * t * hd * itemsize * n_slices
+    part = 2 * _partial_rows(b, h, hkv, t, sms) * (hd + 2) * 4
+    return qo + kv + part + 4 * b
 
 
 @functools.cache
@@ -273,10 +311,21 @@ def decode_attention(
     Launches on the current stream and does not synchronise."""
     _check(q, k, v, pos)
     code = check_dtype("decode_attention", q, k, v)
-    if check_device("decode_attention", q, k, v, pos) == "cpu":
-        return decode_attention_plain(q, k, v, pos)
+    dev = check_device("decode_attention", q, k, v, pos)
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    if dev == "cpu":
+        if not active():
+            return decode_attention_plain(q, k, v, pos)
+        # the launch's output and partials, in the counters' sight
+        out = torch.empty_like(q)
+        part = torch.empty(_partial_rows(b, h, hkv, t, H100_SMS) * (hd + 2),
+                           dtype=torch.float32)
+        with uncounted():
+            out.copy_(decode_attention_plain(q, k, v, pos))
+        del part
+        _count(b, h, hkv, t, hd, q.element_size())
+        return out
     plan = lane_plan(hd, q.element_size())
     if plan is None:
         raise ValueError(
@@ -289,10 +338,14 @@ def decode_attention(
     align = epl * q.element_size()
     if any(x.data_ptr() % align for x in (q, k, v)):
         raise ValueError(f"decode_attention: q, k and v must be {align}-byte aligned")
-    chunk, splits = split_plan(b, hkv, t, _sms(q.device.index), h // hkv)
+    sms = H100_SMS if dev == "meta" else _sms(q.device.index)
+    chunk, splits = split_plan(b, hkv, t, sms, h // hkv)
     out = torch.empty_like(q)
     rows = b * hkv * n_slices * splits * slice_heads  # partial rows of hd + 2
     part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
+    if dev == "meta":
+        _count(b, h, hkv, t, hd, q.element_size())
+        return out
     err = _launcher()(
         q.data_ptr(),
         k.data_ptr(),
@@ -320,4 +373,11 @@ def decode_attention(
             f"(B={b}, H={h}, Hkv={hkv}, T={t}, hd={hd}, dtype={q.dtype})"
         )
     COUNTS["decode_attention"] += 1
+    if active():
+        _count(b, h, hkv, t, hd, q.element_size())
     return out
+
+
+def _count(b: int, h: int, hkv: int, t: int, hd: int, itemsize: int) -> None:
+    count("decode_attention", op_count(b, h, hkv, t, hd),
+          byte_count(b, h, hkv, t, hd, itemsize))

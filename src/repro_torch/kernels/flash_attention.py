@@ -52,6 +52,13 @@ here.  Elsewhere it calls :func:`flash_attention` itself.
 ``COUNTS`` holds plain integers: ``flash_attention`` counts kernel
 launches, ``tensor_core`` those on the tensor-core route, ``plain`` calls
 of the plain version.  :func:`reset_counts` zeroes them.
+
+The dry run's rules (:mod:`._tensors`, inside its ``counting`` scope):
+``meta`` inputs get :func:`flash_attention`'s shape rule (``empty_like(q)``,
+after the launch's checks: the route's dtype and the 256 ceiling, a
+contiguous head dim, TMA's strides on the tensor-core route), and every
+call adds :func:`op_count` and :func:`byte_count` at the tile
+granularity of the route the inputs take (:func:`tile_walk`).
 """
 
 from __future__ import annotations
@@ -63,7 +70,7 @@ import torch
 
 from ..analysis.contracts import BlockConfig, choice, contract, span
 from . import _build
-from ._tensors import check_device, check_dtype
+from ._tensors import active, check_device, check_dtype, count, uncounted
 
 __all__ = [
     "COUNTS",
@@ -72,13 +79,16 @@ __all__ = [
     "MAX_HEAD_DIM",
     "NEG_INF",
     "TC_HEAD_DIMS",
+    "byte_count",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_fn",
     "flash_attention_plain",
     "launch_config",
+    "op_count",
     "reset_counts",
     "route",
+    "tile_walk",
     "tma_strides",
 ]
 
@@ -153,6 +163,46 @@ def route(dtype: torch.dtype, hd: int) -> str:
     if dtype == torch.float32 and hd in HEAD_DIMS:
         return "cuda_core"
     return "any_width"
+
+
+def tile_walk(s: int, t: int, causal: bool, kind: str) -> tuple[int, int]:
+    """``(pairs, keys)`` of one (sequence, query head) on route ``kind``:
+    over the query tiles (128 rows on the tensor cores, 64 on the CUDA
+    cores) and the key tiles each visits (128 / 64 keys; when causal only
+    those up to the tile's last row, as the kernels' loop bounds, the
+    tensor-core kernel's at the last row present, the CUDA-core kernels'
+    at the tile's last row), ``pairs`` sums rows x keys visited and
+    ``keys`` the keys visited, each tile's keys clipped at ``t``."""
+    bm = bn = 128 if kind == "tensor_core" else 64
+    n_all = -(-t // bn)
+    if not causal:
+        return s * t, -(-s // bm) * t
+    pairs = keys = 0
+    for q0 in range(0, s, bm):
+        rows = min(bm, s - q0)
+        last = q0 + rows - 1 if kind == "tensor_core" else q0 + bm - 1
+        visited = min(min(n_all, last // bn + 1) * bn, t)
+        pairs += rows * visited
+        keys += visited
+    return pairs, keys
+
+
+def op_count(b: int, h: int, s: int, t: int, hd: int, causal: bool, kind: str) -> int:
+    """Operations of one call: q . k and p . v, ``4 * hd`` a (row, key)
+    pair of the tiles the kernel visits (:func:`tile_walk`) for each of
+    the B x H (sequence, query head) pairs: ``4 * B * H * S * T * hd``
+    when not causal."""
+    return 4 * b * h * hd * tile_walk(s, t, causal, kind)[0]
+
+
+def byte_count(b: int, h: int, s: int, t: int, hd: int, causal: bool, kind: str,
+               itemsize: int) -> int:
+    """Device-memory bytes of one call: q read and the output written once;
+    K and V read once per query tile of each query head, over the key
+    tiles it visits (:func:`tile_walk`); a group's heads share KV rows,
+    which the L2 may serve, and they are counted as read each time."""
+    keys = tile_walk(s, t, causal, kind)[1]
+    return (2 * b * h * s * hd + 2 * b * h * keys * hd) * itemsize
 
 
 def tma_strides(name: str, x: torch.Tensor) -> tuple[int, int, int]:
@@ -256,10 +306,17 @@ def flash_attention(
     Launches on the current stream and does not synchronise."""
     _check(q, k, v)
     code = check_dtype("flash_attention", q, k, v)
-    if check_device("flash_attention", q, k, v) == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+    dev = check_device("flash_attention", q, k, v)
     b, h, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    if dev == "cpu":
+        if not active():
+            return flash_attention_plain(q, k, v, causal=causal)
+        out = torch.empty_like(q)  # the launch's output, in the counters' sight
+        with uncounted():
+            out.copy_(flash_attention_plain(q, k, v, causal=causal))
+        _count(b, h, s, t, hd, causal, q.dtype)
+        return out
     kind = route(q.dtype, hd)
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention: the head dim of q, k and v must be contiguous")
@@ -268,6 +325,9 @@ def flash_attention(
     else:
         strides = [x.stride()[:3] for x in (q, k, v)]
     out = torch.empty_like(q)  # q's strides where q is dense, else contiguous
+    if dev == "meta":
+        _count(b, h, s, t, hd, causal, q.dtype)
+        return out
     err = _launcher(_ENTRY[kind])(
         q.data_ptr(),
         k.data_ptr(),
@@ -296,7 +356,17 @@ def flash_attention(
     COUNTS["flash_attention"] += 1
     if kind == "tensor_core":
         COUNTS["tensor_core"] += 1
+    if active():
+        _count(b, h, s, t, hd, causal, q.dtype)
     return out
+
+
+def _count(b: int, h: int, s: int, t: int, hd: int, causal: bool, dtype) -> None:
+    """One call's counts, at the tiles of the route a CUDA tensor of
+    ``dtype`` takes (the plain version's call on the CPU too)."""
+    kind = route(dtype, hd)
+    count("flash_attention", op_count(b, h, s, t, hd, causal, kind),
+          byte_count(b, h, s, t, hd, causal, kind, dtype.itemsize))
 
 
 def flash_attention_backward(

@@ -24,6 +24,12 @@ math and the result cast back to ``x``'s dtype, over the last axis of
 ``plain`` counts calls of the plain version.  :func:`reset_counts`
 zeroes them.
 
+The dry run's rules (:mod:`._tensors`, inside its ``counting`` scope):
+a ``meta`` ``x`` gets :func:`rmsnorm`'s shape rule, ``empty_like(x)``
+after the launch's checks, and every call adds :func:`op_count` and
+:func:`byte_count`: the kernel's one pass, as the vector route (the
+model's aligned rows) runs it.
+
 Gradients: :func:`rmsnorm_fn` is the model's entry point.  Where autograd
 records (grad mode on and ``x`` or ``g`` requiring a gradient) it applies
 :class:`RMSNormFunction`, whose forward is :func:`rmsnorm` (the kernel,
@@ -42,11 +48,13 @@ import functools
 import torch
 
 from . import _build
-from ._tensors import check_device, check_dtype
+from ._tensors import H100_SMS, active, check_device, check_dtype, count, uncounted
 
 __all__ = [
     "COUNTS",
     "RMSNormFunction",
+    "byte_count",
+    "op_count",
     "reset_counts",
     "rmsnorm",
     "rmsnorm_backward",
@@ -58,6 +66,9 @@ __all__ = [
 COUNTS = {"rmsnorm": 0, "plain": 0}
 VEC_BYTES = 16  # one vector access
 MAX_VECTORS_PER_LANE = 20  # the largest register row the kernel compiles
+ROWS_PER_BLOCK = 8  # the vector route's rows a block (csrc kRowsPerBlock)
+BLOCKS_PER_SM = 8  # the vector route's grid cap, per SM
+OPS_PER_ELEMENT = 4  # square, sum, scale by the row's rsqrt, gain
 
 
 def reset_counts() -> None:
@@ -94,6 +105,23 @@ def route(x: torch.Tensor, g: torch.Tensor) -> str:
     return "scalar"
 
 
+def op_count(rows: int, d: int) -> int:
+    """Operations of one call over ``rows`` rows of width ``d``: four an
+    element (square, sum, scale, gain); the row's rsqrt is not counted."""
+    return OPS_PER_ELEMENT * rows * d
+
+
+def byte_count(rows: int, d: int, itemsize: int, sms: int = H100_SMS) -> int:
+    """Device-memory bytes of one call on the vector route: x read once,
+    y written once, g read once a block (a block a row where fewer than
+    ``sms`` blocks of 8 rows would run, else ``ceil(rows / 8)`` blocks up
+    to 8 an SM).  The scalar route reads x a second time from L1 and L2,
+    not counted."""
+    blocks = -(-rows // ROWS_PER_BLOCK)
+    blocks = rows if blocks < sms else min(blocks, BLOCKS_PER_SM * sms)
+    return (2 * rows * d + blocks * d) * itemsize
+
+
 @functools.cache
 def _launcher():
     fn = _build.library("rmsnorm").rmsnorm_launch
@@ -106,17 +134,28 @@ def _launcher():
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Launch the CUDA kernel over the rows of ``x``; CPU tensors take
-    :func:`rmsnorm_plain`.  Launches on the current stream and does not
+    :func:`rmsnorm_plain`, ``meta`` tensors (inside the dry run's scope)
+    the shape rule.  Launches on the current stream and does not
     synchronise."""
     _check(x, g)
     code = check_dtype("rmsnorm", x, g)
-    if check_device("rmsnorm", x, g) == "cpu":
-        return rmsnorm_plain(x, g, eps)
-    if not (x.is_contiguous() and g.is_contiguous()):
-        raise ValueError("rmsnorm: x and g must be contiguous")
+    dev = check_device("rmsnorm", x, g)
     d = x.shape[-1]
     rows = x.numel() // d
+    if dev == "cpu":
+        if not active():
+            return rmsnorm_plain(x, g, eps)
+        y = torch.empty_like(x)  # the launch's output, in the counters' sight
+        with uncounted():
+            y.copy_(rmsnorm_plain(x, g, eps))
+        _count(rows, d, x.element_size())
+        return y
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("rmsnorm: x and g must be contiguous")
     y = torch.empty_like(x)
+    if dev == "meta":
+        _count(rows, d, x.element_size())
+        return y
     err = _launcher()(
         x.data_ptr(),
         g.data_ptr(),
@@ -133,7 +172,13 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
             f"(rows={rows}, d={d}, dtype={x.dtype})"
         )
     COUNTS["rmsnorm"] += 1
+    if active():
+        _count(rows, d, x.element_size())
     return y
+
+
+def _count(rows: int, d: int, itemsize: int) -> None:
+    count("rmsnorm", op_count(rows, d), byte_count(rows, d, itemsize))
 
 
 def rmsnorm_backward(

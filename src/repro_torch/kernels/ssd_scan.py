@@ -51,6 +51,12 @@ per :func:`ssd_scan` call on the card, whatever its route's number of
 launches), ``tensor_core`` those of them on the tensor-core route,
 ``plain`` counts calls of the plain version.  :func:`reset_counts`
 zeroes them.
+
+The dry run's rules (:mod:`._tensors`, inside its ``counting`` scope):
+``meta`` inputs get :func:`ssd_scan`'s shape rule (``y`` and ``h_last``
+in fp32, and the tensor-core route's scratch, after the launch's
+checks), and every call adds :func:`op_count` and :func:`byte_count` at
+the kernel's 64-row chunks, not the plain version's.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ import torch
 from torch.nn import functional as F
 
 from . import _build
-from ._tensors import check_device, check_dtype
+from ._tensors import active, check_device, check_dtype, count, uncounted
 
 __all__ = [
     "CHUNK",
@@ -70,6 +76,8 @@ __all__ = [
     "SSDScanFunction",
     "HEAD_DIMS",
     "STATE_DIMS",
+    "byte_count",
+    "op_count",
     "reset_counts",
     "route",
     "scratch_bytes",
@@ -216,6 +224,34 @@ def scratch_bytes(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype) ->
     return 4 * b * (-(-s // TILE)) * h * p * n
 
 
+def op_count(b: int, s: int, h: int, p: int, n: int) -> int:
+    """Operations of one call: the chunked dual form's products at the
+    kernel's 64-row chunks (the last one whole), two a multiply-add: per
+    sequence and chunk C . B^T once (``2 Q^2 N``: the heads share B and
+    C), and per head the scores times x (``2 Q^2 P``), the chunk's local
+    state (``2 Q P N``) and the entering state's share of y (``2 Q N P``).
+    The same on both routes (the bf16 route runs each of the last three
+    as three bf16 ``mma`` s, one per term of its split fp32 operand; the
+    float32 route skips score blocks above the diagonal); the decays and
+    the carry, elementwise, are not counted."""
+    chunks = -(-s // TILE)
+    return b * chunks * (2 * TILE * TILE * n + h * (2 * TILE * TILE * p + 4 * TILE * p * n))
+
+
+def byte_count(b: int, s: int, h: int, p: int, n: int, itemsize: int, kind: str) -> int:
+    """Device-memory bytes of one call on route ``kind``: x, dt, a, B and C
+    read, y and h_last (fp32) written, once; the tensor-core route's two
+    launches read x, dt and B once each and write then read the scratch.
+    B and C re-read by a launch's blocks of other heads (from the L2) are
+    not counted."""
+    x, dt, bc = b * s * h * p * itemsize, b * s * h * 4, b * s * n * itemsize
+    out = 4 * (b * s * h * p + b * h * p * n)
+    once = x + dt + 2 * bc + 4 * h + out
+    if kind != "tensor_core":
+        return once
+    return once + x + dt + bc + 2 * scratch_bytes(b, s, h, p, n, torch.bfloat16)
+
+
 @functools.cache
 def _launcher():
     fn = _build.library("ssd_scan").ssd_scan_launch
@@ -241,10 +277,22 @@ def ssd_scan(
     stream and does not synchronise."""
     _check(x, dt, a, bm, cm)
     code = check_dtype("ssd_scan", x, bm, cm)
-    if check_device("ssd_scan", x, dt, a, bm, cm) == "cpu":
-        return ssd_scan_plain(x, dt, a, bm, cm, chunk)
+    dev = check_device("ssd_scan", x, dt, a, bm, cm)
     b, s, h, p = x.shape
     n = bm.shape[-1]
+    if dev == "cpu":
+        if not active():
+            return ssd_scan_plain(x, dt, a, bm, cm, chunk)
+        # the launch's outputs and scratch, in the counters' sight
+        y = torch.empty(b, s, h, p, dtype=torch.float32)
+        h_last = torch.empty(b, h, p, n, dtype=torch.float32)
+        scratch = torch.empty(scratch_bytes(b, s, h, p, n, x.dtype), dtype=torch.uint8)
+        with uncounted():
+            for out, plain in zip((y, h_last), ssd_scan_plain(x, dt, a, bm, cm, chunk)):
+                out.copy_(plain)
+        del scratch
+        _count(b, s, h, p, n, x.dtype)
+        return y, h_last
     if p not in HEAD_DIMS or n not in STATE_DIMS:
         raise ValueError(
             f"ssd_scan: the kernel takes P in {HEAD_DIMS} and N in {STATE_DIMS}, "
@@ -256,6 +304,9 @@ def ssd_scan(
     h_last = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     nbytes = scratch_bytes(b, s, h, p, n, x.dtype)
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    if dev == "meta":
+        _count(b, s, h, p, n, x.dtype)
+        return y, h_last
     err = _launcher()(
         x.data_ptr(),
         dt.data_ptr(),
@@ -285,7 +336,14 @@ def ssd_scan(
     COUNTS["ssd_scan"] += 1
     if nbytes:
         COUNTS["tensor_core"] += 1
+    if active():
+        _count(b, s, h, p, n, x.dtype)
     return y, h_last
+
+
+def _count(b: int, s: int, h: int, p: int, n: int, dtype) -> None:
+    count("ssd_scan", op_count(b, s, h, p, n),
+          byte_count(b, s, h, p, n, dtype.itemsize, route(dtype)))
 
 
 class SSDScanFunction(torch.autograd.Function):

@@ -49,6 +49,7 @@ __all__ = [
     "AbstractMesh",
     "batch_sharding",
     "cache_sharding",
+    "data_shard",
     "fsdp_axes",
     "gather_state",
     "local_block",
@@ -78,6 +79,17 @@ def mesh_sizes(mesh) -> dict[str, int]:
 def fsdp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel axes: ('pod', 'data') if multi-pod else ('data',)."""
     return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+
+
+def data_shard(mesh) -> tuple[int, int]:
+    """``(n, index)``: the number of data-parallel shards (the product of
+    the :func:`fsdp_axes`) and this rank's, the major axis first."""
+    sizes = mesh_sizes(mesh)
+    n, index = 1, 0
+    for a in fsdp_axes(mesh):
+        n *= sizes[a]
+        index = index * sizes[a] + mesh.get_local_rank(a)
+    return n, index
 
 
 def _names(axes) -> tuple[str, ...]:

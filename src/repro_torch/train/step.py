@@ -49,7 +49,7 @@ import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 import torch.distributed as dist
@@ -60,7 +60,7 @@ from ..models.config import ModelConfig
 from ..models.model import FAMILIES, LM
 from ..models.moe_sharded import expert_parallel
 from ..parallel.constrain import set_mesh, split_batch
-from ..parallel.sharding import fsdp_axes, mesh_sizes, param_sharding, shard_state
+from ..parallel.sharding import data_shard, fsdp_axes, param_sharding, shard_state
 from .optim import (
     AdamWConfig,
     adamw_init,
@@ -74,6 +74,7 @@ from .optim import (
 __all__ = [
     "MTP_WEIGHT",
     "TrainState",
+    "gathered",
     "loss_fn",
     "make_train_step",
     "shard_train_state",
@@ -233,11 +234,8 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
         raise RuntimeError("the sharded train step needs an initialised process group "
                            "(torch.distributed.init_process_group); it never runs unsharded")
     dp = fsdp_axes(mesh)
-    sizes = mesh_sizes(mesh)
-    n_dp = math.prod(sizes[a] for a in dp)
-    dp_index = 0
-    for a in dp:  # this rank's data shard, the major axis first
-        dp_index = dp_index * sizes[a] + mesh.get_local_rank(a)
+    n_dp, dp_index = data_shard(mesh)
+    skeleton = FAMILIES[cfg.block_pattern](cfg, device="meta")
     experts_summed = expert_parallel(cfg, mesh)
     names = mesh.mesh_dim_names
 
@@ -274,10 +272,6 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params, opt = state["params"], state["opt"]
-        model = FAMILIES[cfg.block_pattern](cfg, device="meta")
-        full = {".".join(path): t.full_tensor() for path, t in _paths(params)}
-        model.load_state_dict(full, assign=True)
-        del full
         rows = batch["tokens"].shape[0] // microbatches
         split = n_dp > 1 and rows % n_dp == 0
         if not split and n_dp > 1 and experts_summed:
@@ -286,7 +280,8 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
         local = rows // n_dp if split else rows
         scale = n_dp if split else 1
         total, metrics = None, []
-        with set_mesh(mesh), (split_batch(dp) if split else contextlib.nullcontext()):
+        with gathered(skeleton, params) as model, set_mesh(mesh), \
+                (split_batch(dp) if split else contextlib.nullcontext()):
             for i in range(microbatches):
                 mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
                 counts = ((mb["targets"] >= 0).sum().clamp(min=1),
@@ -297,7 +292,6 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
                 grads = tree_map(lambda g: g.float(), grads)
                 total = grads if total is None else tree_map(torch.add, total, grads)
                 metrics.append(m)
-        del model
         total = tree_map(lambda g: g / microbatches, total)
         metrics = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
         if split:  # the shards' cross-entropies add up to the global one
@@ -317,6 +311,21 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
         return _map_paths(_as_like, new, like), metrics
 
     return train_step
+
+
+@contextlib.contextmanager
+def gathered(model: LM, params: dict) -> Iterator[LM]:
+    """``model``, a ``meta`` module built once with its step, holding for
+    the body the full parameters gathered from a tree of ``DTensor``
+    blocks (a collective on every rank); its own ``meta`` parameters are
+    put back on exit, so the gathered ones live no longer than the body."""
+    own = model.state_dict(keep_vars=True)
+    model.load_state_dict({".".join(path): t.full_tensor() for path, t in _paths(params)},
+                          assign=True)
+    try:
+        yield model
+    finally:
+        model.load_state_dict(own, assign=True)
 
 
 @torch.no_grad()
