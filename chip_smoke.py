@@ -233,6 +233,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
     over the step, each step's time beside its bound under the H100's
     data-sheet peaks (printed), ``dryrun.HBM_BYTES`` equal to the card's
     ``total_memory``;
+14m. examples — the four ``examples_torch`` scripts (the reference's
+    ``examples/*.py`` entry points), each through its ``main`` on the card
+    and again with ``--device cpu``, its output captured: quickstart (NLIP,
+    OBTA, WF through ``wf_torch``, RD through ``rd_torch``, RD+, then a
+    40-job trace FIFO vs OCWF-ACC), fault tolerance (a 60-job trace
+    healthy, with two failures, with two stragglers) and the serving
+    example (continuous batching on the qwen1.5-4b smoke config, its
+    weights drawn once on the CPU; ``wf_torch`` replica routing; MoE
+    expert-replica balancing) print the same text on both; the training
+    example (Mamba2-130M cut to d_model 256 and 4 layers, float32, from
+    one set of seeded weights: 26 steps failing a data host, then resumed
+    to 51 with the int8 compression demo) prints losses within 1e-3 and
+    every other line equal; on the card the fused WF launches equal the
+    ``wf_torch`` adapter calls (plus the serving example's MoE call), K3
+    launches in the quickstart, K4 and K5 in serving, K4 and K7 in
+    training, no plain call;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -255,10 +271,10 @@ Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
 walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 ``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
 14i-14k's on the ``slice13_phases`` line; 14l's on the
-``slice14_phases`` line), the
+``slice14_phases`` line; 14m's on the ``slice15_phases`` line), the
 ``kernels``
-summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's
-launches too), the ``nvidia-smi`` line, and last
+summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's and
+14m's launches too), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's line carries ``t_s``,
 the seconds since the start.  The host-only references of 5 (the host
 ``wf`` schedules) and 6c (OBTA, NLIP, the host ``rd``) run in one worker
@@ -283,6 +299,7 @@ import json
 import multiprocessing
 import re
 import os
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -656,6 +673,14 @@ MOE_SHARDED_CF = 1.25
 COMPRESS_STEPS = 300
 SLICE13_BUDGET_S = 60  # parallel_train, moe_sharded, compress
 SLICE14_BUDGET_S = 60  # dryrun_check
+SLICE15_BUDGET_S = 60  # examples: the four scripts on the card and on the CPU
+EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locality")
+# the training example's two calls at its default 8 x 128 tokens a step:
+# 26 steps failing data host 3 at step 13, then resumed to 51 (the async
+# save at 50) with the compression demo
+EXAMPLE_CALLS = {"train_locality": (["--steps", "26", "--fail-host", "3"],
+                                    ["--steps", "51", "--compress"])}
+EXAMPLE_LOSS_TOL = 1e-3  # card against CPU, float32, at each printed step
 DRYRUN_ARCHS = {"qwen1.5-4b": 2, "mamba2-130m": 2}  # arch: layers (full width)
 DRYRUN_BATCH = (2, 1024)  # sequences, tokens (decode: one token against a 1024-row cache)
 DRYRUN_TIMED = 3  # timed runs of each step after the counted one; the median is kept
@@ -4297,6 +4322,148 @@ def slice14_phases(seed: int, card: str) -> None:
           "budget_s": SLICE14_BUDGET_S, "card": card})
 
 
+# ---- slice 15: the reference's example entry points --------------------------
+
+
+def _example(name: str) -> dict:
+    """``examples_torch/<name>.py``'s globals, loaded by path."""
+    return runpy.run_path(str(ROOT / "examples_torch" / f"{name}.py"))
+
+
+def _run_example(name: str, argv: list[str], **inject) -> tuple[list[str], float]:
+    """``examples_torch/<name>.py``'s ``main(argv, **inject)``: its printed
+    lines and its wall."""
+    main = _example(name)["main"]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        main(argv, **inject)
+    torch.cuda.synchronize()
+    return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _example_launches() -> dict:
+    """The launches since the last reset, by kernel, the ``wf_torch``
+    adapter calls, and the plain calls and host RD re-runs."""
+    counts = _model_counts()
+    wf = counts.pop("waterlevel")
+    return {"wf_fused": _fused_launches(wf), "wf_adapter_calls": wf_torch.CALLS["adapter"],
+            "waterlevel": wf["waterlevel"] + wf["waterlevel_batch"],
+            "rd_step": rdk.COUNTS["rd_step"], **{k: c[k] for k, c in counts.items()},
+            "flash_attention_tensor_core": counts["flash_attention"]["tensor_core"],
+            "plain": wf["plain"] + rdk.COUNTS["plain"] + rdk.COUNTS["wide"]
+            + _plain_calls(counts),
+            "rd_host_reruns": rd_torch.COUNTS["host_reruns"]}
+
+
+def _example_steps(lines: list[str]) -> list[tuple[int, int]]:
+    """(step, loss in units of its last printed digit, 1e-4) of each step
+    the training example printed."""
+    return [(int(line.split()[1]), round(float(line.split()[2].split("=")[1]) * 1e4))
+            for line in lines if line.startswith("step ")]
+
+
+def _example_pair(name: str, cpu_params, ckpt: str | None = None) -> dict:
+    """One example on the card (launches counted), then on the CPU, from
+    the same weights where it takes them; the training example's two calls
+    each side, in a checkpoint folder of each side's own under ``ckpt``."""
+    calls = EXAMPLE_CALLS.get(name, ([],))
+    row = {"output": {}, "seconds": {}}
+    for dev in ("cuda", "cpu"):
+        _reset_launches()
+        _reset_model_counts()
+        lines, seconds = [], []
+        folder = os.path.join(ckpt, dev) if ckpt is not None else None
+        for argv in calls:
+            if folder is not None:
+                argv = [*argv, "--ckpt-dir", folder]
+            inject = {}
+            if cpu_params is not None:
+                inject["params"] = (cpu_params if dev == "cpu"
+                                    else copy.deepcopy(cpu_params).to(dev))
+            out, wall = _run_example(name, [*argv, "--device", dev], **inject)
+            lines += [line.replace(folder, "CKPT") if folder else line for line in out]
+            seconds.append(wall)
+        row["output"][dev] = lines
+        row["seconds"][dev] = seconds
+        if dev == "cuda":
+            row["launches"], row["counts"] = _example_launches(), _model_counts()
+    return row
+
+
+def phase_examples(card: str) -> tuple[dict, list]:
+    """The four ``examples_torch`` scripts, each through its ``main`` on the
+    card and then with ``--device cpu`` (the plain versions), its output
+    captured.  Quickstart, fault tolerance and the serving example (its
+    weights drawn once on the CPU, a copy on the card) print the same
+    text on both.  The training example's two calls (EXAMPLE_CALLS, from
+    one set of seeded weights; a data host failed, the async save at 50,
+    the second call resumed, the compression demo in a world of one rank:
+    ``nccl`` on the card, ``gloo`` on the CPU) print losses within
+    EXAMPLE_LOSS_TOL at every printed step and every other line equal,
+    the compressed-grad solution included.  On the card: the fused WF
+    kernel's launches equal the ``wf_torch`` adapter calls (plus the
+    serving example's one MoE balancing call) and are above 0 in every
+    example; K3 launches in the quickstart, K4 and K5 in the serving
+    example, K4 and K7 in training; no K1/K2 launch, no plain call, no
+    host RD re-run.  Returns the card runs' launches by example and their
+    counts in ``_model_counts``' form."""
+    # the examples whose weights are drawn once on the CPU for both sides
+    models = {"serve_moe_balanced": get_smoke_config("qwen1.5-4b"),
+              "train_locality": _example("train_locality")["model_config"]("mamba2-130m")}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            t0 = time.perf_counter()
+            cpu_params = None
+            if name in models:
+                with set_backend(device="cpu"):
+                    cpu_params = init_params(torch.Generator().manual_seed(0), models[name])
+            row = _example_pair(name, cpu_params, tmp if name == "train_locality" else None)
+            row["wall_s"] = time.perf_counter() - t0
+            rows[name] = row
+    emit({"phase": "examples", "card": card, "loss_tol": EXAMPLE_LOSS_TOL,
+          "examples": {name: {"output": r["output"]["cuda"], "seconds": r["seconds"],
+                              "wall_s": r["wall_s"], "launches": r["launches"]}
+                       for name, r in rows.items()}})
+    for name, row in rows.items():
+        card_out, cpu_out = row["output"]["cuda"], row["output"]["cpu"]
+        if name == "train_locality":
+            got, want = _example_steps(card_out), _example_steps(cpu_out)
+            same = ([s for s, _ in got] == [s for s, _ in want] and len(got) > 0
+                    and all(abs(a - b) <= round(EXAMPLE_LOSS_TOL * 1e4)
+                            for (_, a), (_, b) in zip(got, want)))
+            rest = [[line for line in out if not line.startswith("step ")]
+                    for out in (card_out, cpu_out)]
+            same = same and rest[0] == rest[1]
+        else:
+            same = card_out == cpu_out
+        if not same:
+            raise AssertionError(f"examples: {name} printed on the card\n{card_out}\n"
+                                 f"and on the CPU\n{cpu_out}")
+        n = row["launches"]
+        moe_calls = 1 if name == "serve_moe_balanced" else 0  # balance_expert_replicas
+        need = {"quickstart": ("rd_step",), "serve_moe_balanced": ("rmsnorm", "decode_attention"),
+                "train_locality": ("rmsnorm", "ssd_scan")}.get(name, ())
+        if (n["wf_fused"] == 0 or n["wf_fused"] != n["wf_adapter_calls"] + moe_calls
+                or any(n[k] == 0 for k in need) or n["waterlevel"] or n["plain"]
+                or n["rd_host_reruns"]):
+            raise AssertionError(f"examples: {name} went around the kernels: {n}")
+    return ({name: r["launches"] for name, r in rows.items()},
+            [r["counts"] for r in rows.values()])
+
+
+def slice15_phases(card: str) -> tuple[dict, list]:
+    """The examples phase; its wall on the ``slice15_phases`` line."""
+    t0 = time.perf_counter()
+    out = phase_examples(card)
+    seconds = {"examples": time.perf_counter() - t0}
+    emit({"phase": "slice15_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE15_BUDGET_S, "card": card})
+    return out
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -4898,6 +5065,11 @@ def run(args: argparse.Namespace, pool) -> int:
     parallel_counts = slice13_phases(args.seed, dev["nvidia_smi"])
     # this slice: the dry run's counts against real steps
     slice14_phases(args.seed, dev["nvidia_smi"])
+    # this slice: the reference's four example entry points
+    example_launches, example_counts = slice15_phases(dev["nvidia_smi"])
+    for row in example_launches.values():
+        launches["wf_fused"] += row["wf_fused"]
+        rd_launches += row["rd_step"]
     timed = phase_timings(args.seed, bursts)
     rd_timed = phase_rd_timings(args.seed, rd_admitted)
     t0 = time.perf_counter()
@@ -4974,7 +5146,7 @@ def run(args: argparse.Namespace, pool) -> int:
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
              vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
-             parallel_counts]
+             parallel_counts, *example_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}

@@ -13,8 +13,9 @@ bit-identical to the frozen trace when the store is static.
 ``cluster_v2017`` replays a ``batch_task.csv``-shaped file whose path
 is given as ``generate("cluster_v2017", path=...)`` (the port reads no
 environment variable); without a path it raises
-:class:`FileNotFoundError`, and :func:`scenario_available` says whether
-a scenario can generate.
+:class:`FileNotFoundError`, :func:`scenario_available` says whether
+a scenario can generate, and :func:`available_scenarios` lists those
+that can without a path.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ __all__ = [
     "ParetoTraceConfig",
     "TRACES",
     "TraceConfig",
+    "available_scenarios",
     "generate",
     "generate_bursty_trace",
     "generate_cluster_trace",
@@ -95,3 +97,9 @@ def scenario_available(scenario: str, path: str | None = None) -> bool:
     if scenario == "cluster_v2017":
         return trace_available(path)
     return True
+
+
+def available_scenarios() -> list[str]:
+    """Registered scenarios that can generate without a path (what
+    benchmark sweeps should default to): the synthetic ones."""
+    return [s for s in list_scenarios() if scenario_available(s)]
