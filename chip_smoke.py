@@ -249,6 +249,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``wf_torch`` adapter calls (plus the serving example's MoE call), K3
     launches in the quickstart, K4 and K5 in serving, K4 and K7 in
     training, no plain call;
+14n. partition check — the partitioned dense strategy
+    (``parallel/partition.py``): in a world of one NCCL rank on a (1, 1)
+    mesh, Qwen1.5-4B at full width, 2 layers, 2 x 1024, bf16: the
+    partitioned prefill (through ``step_fn_for``) bit for bit against
+    ``prefill``, and 2 partitioned train steps (remat on) against the
+    single-device step within 1e-4 / 5e-4, K4 and K6 launched as often on
+    both sides (9 and 4 a step), no plain call; then, where torch's
+    ``fake`` backend takes CUDA tensors, rank 0 of a fake (16, 16) world
+    at Qwen3-32B's full width, 2 layers, train_4k's 256 x 4096: the train
+    step's FLOPs and collective calls on the card equal the ``meta`` count, its
+    peak within 3 % of ``max_memory_allocated``, K6's counted operations
+    those of 4 local query heads (else the refusal on a line of its own);
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -271,7 +283,8 @@ Then the ``new_phases`` line (6e-6g, 16 and 17's walls; 14a-14b's
 walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 ``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
 14i-14k's on the ``slice13_phases`` line; 14l's on the
-``slice14_phases`` line; 14m's on the ``slice15_phases`` line), the
+``slice14_phases`` line; 14m's on the ``slice15_phases`` line; 14n's on
+the ``slice16_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's and
 14m's launches too), the ``nvidia-smi`` line, and last
@@ -296,6 +309,7 @@ import gc
 import io
 import itertools
 import json
+import math
 import multiprocessing
 import re
 import os
@@ -367,6 +381,7 @@ from repro_torch.launch.specs import step_fn_for  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded  # noqa: E402
 from repro_torch.parallel import gather_state, set_mesh  # noqa: E402
+from repro_torch.parallel import partition  # noqa: E402
 from repro_torch.traces import (  # noqa: E402
     generate,
     load_batch_task_csv,
@@ -674,6 +689,14 @@ COMPRESS_STEPS = 300
 SLICE13_BUDGET_S = 60  # parallel_train, moe_sharded, compress
 SLICE14_BUDGET_S = 60  # dryrun_check
 SLICE15_BUDGET_S = 60  # examples: the four scripts on the card and on the CPU
+SLICE16_BUDGET_S = 60  # partition_check
+PARTITION_ARCH = "qwen1.5-4b"
+PARTITION_MODEL = (2, 2, 1024)  # layers, batch, sequence
+PARTITION_STEPS = 2
+PARTITION_FAKE_ARCH = "qwen3-32b"
+PARTITION_FAKE = (2, 256, 4096)  # layers, and train_4k's global batch and sequence
+PARTITION_FAKE_MESH = (16, 16)
+PARTITION_PEAK_TOL = 0.03
 EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locality")
 # the training example's two calls at its default 8 x 128 tokens a step:
 # 26 steps failing data host 3 at step 13, then resumed to 51 (the async
@@ -4003,13 +4026,15 @@ def _tree_paths(tree, prefix=()):
         yield prefix, tree
 
 
-def _parallel_run(cfg, opt_cfg, state: TrainState, batch: dict, mesh, steps: int) -> dict:
+def _parallel_run(cfg, opt_cfg, state: TrainState, batch: dict, mesh, steps: int,
+                  remat: bool = False) -> dict:
     """``steps`` sharded steps and ``steps`` single-device steps from the
     same state: each side's losses, final parameters, per-step K4/K6
     launches, plain calls, wall and the sharded side's peak memory."""
     out = {"sharded": shard_train_state(mesh, state)}
     for side in ("sharded", "single"):
-        step = make_train_step(cfg, opt_cfg, remat=False, mesh=mesh if side == "sharded" else None)
+        step = make_train_step(cfg, opt_cfg, remat=remat,
+                               mesh=mesh if side == "sharded" else None)
         st = out.pop(side) if side == "sharded" else state.as_dict()
         losses, walls = [], []
         torch.cuda.synchronize()
@@ -4462,6 +4487,199 @@ def slice15_phases(card: str) -> tuple[dict, list]:
     emit({"phase": "slice15_phases", "seconds": seconds, "total_s": sum(seconds.values()),
           "budget_s": SLICE15_BUDGET_S, "card": card})
     return out
+
+
+# ---- slice 16: the partitioned dense train and prefill steps -------------------
+
+
+def _partition_fake_probe() -> str | None:
+    """Whether torch's ``fake`` backend takes CUDA tensors: None if an
+    all-gather of a CUDA tensor on a (16, 16) mesh's group returns, else
+    the refusal."""
+    try:
+        with dry.fake_world(math.prod(PARTITION_FAKE_MESH)):
+            mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cuda")
+            x = torch.ones(4, device="cuda")
+            out = x.new_empty(4 * PARTITION_FAKE_MESH[1])
+            dist.all_gather_into_tensor(out, x, group=mesh.get_group("model"))
+            torch.cuda.synchronize()
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _partition_fake(seed: int) -> dict:
+    """Rank 0 of a fake (16, 16) world at Qwen3-32B's full width, 2 layers,
+    train_4k's 256 x 4096 (16 rows a data rank): the partitioned train
+    step counted on ``meta`` (a CPU mesh) and run on the card (a CUDA
+    mesh), counted the same way; FLOPs and collective calls equal, the
+    meta peak within PARTITION_PEAK_TOL of ``max_memory_allocated``, K6's
+    counted operations those of its 4 local query heads.  The collectives
+    return at once and leave their outputs' contents undefined: only
+    shapes and counts are compared.  (The peak is held at the cell's own
+    rows: a CUDA reduction in K4's backward allocates a buffer of ~84 MB
+    below the dispatcher, which no count sees, whatever the rows.)"""
+    layers, b, s = PARTITION_FAKE
+    cfg = get_config(PARTITION_FAKE_ARCH).scaled(n_layers=layers)
+    shape = ShapeSpec("partition_fake", "train", s, b)
+    opt_cfg = TrainAdamWConfig()
+    world = math.prod(PARTITION_FAKE_MESH)
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cpu")
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh,
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        out, meta = dry.count_step(fn, args)
+        del fn, args, out
+    gen = torch.Generator(device="cuda").manual_seed(seed + 291)
+    _free()
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="cuda",
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        _fill_step_args("train", args, gen, cfg.vocab)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_model_counts()
+        t0 = time.perf_counter()
+        out, card = dry.count_step(fn, args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _model_counts()
+        del fn, args, out
+    heads = cfg.n_heads // PARTITION_FAKE_MESH[1]
+    k6 = card.kernels["flash_attention"]
+    per_call = fak.op_count(b // PARTITION_FAKE_MESH[0], heads, s, s, cfg.head_dim_, True,
+                            fak.route(cfg.torch_dtype, cfg.head_dim_))
+    row = {"arch": PARTITION_FAKE_ARCH, "layers": layers, "batch": [b, s],
+           "mesh": list(PARTITION_FAKE_MESH), "rank": 0,
+           "attention": partition.attention_mode(cfg, PARTITION_FAKE_MESH[1]),
+           "flops_meta": meta.flops, "flops_cuda": card.flops,
+           "peak_bytes_meta": meta.peak_bytes, "peak_bytes_cuda": peak,
+           "peak_ratio": meta.peak_bytes / peak,
+           "collective_ops_meta": meta.collective_ops, "collective_ops_cuda": card.collective_ops,
+           "k6_calls": k6["calls"], "k6_local_heads": heads,
+           "k6_ops": k6["ops"], "k6_ops_at_local_heads": k6["calls"] * per_call,
+           "launches": _launches(counts), "plain_calls": _plain_calls(counts),
+           "wall_s": wall}
+    row["checks"] = {
+        "flops_equal": meta.flops == card.flops,
+        "peak_within_tol": abs(meta.peak_bytes / peak - 1) <= PARTITION_PEAK_TOL,
+        "k6_on_local_heads": k6["calls"] > 0 and k6["ops"] == k6["calls"] * per_call,
+        "launches_equal_meta_calls": row["launches"]["flash_attention"] == k6["calls"]
+        and row["launches"]["rmsnorm"] == card.kernels["rmsnorm"]["calls"]
+        == meta.kernels["rmsnorm"]["calls"],
+        "collectives_equal": meta.collective_ops == card.collective_ops,
+        "no_plain_call": row["plain_calls"] == 0,
+    }
+    return {"row": row, "counts": counts}
+
+
+def phase_partition_check(seed: int, card: str) -> dict:
+    """The partitioned strategy on the card (``parallel/partition.py``).
+    (a) In a world of one NCCL rank on a (1, 1) mesh, at Qwen1.5-4B's full
+    width, PARTITION_MODEL's 2 layers and 2 x 1024, bf16 with bf16
+    moments: the partitioned prefill (through ``step_fn_for``, as the dry
+    run builds it) against ``prefill``, bit for bit; the partitioned
+    train step (``make_train_step(..., mesh=)``, remat on) against the
+    single-device step, PARTITION_STEPS steps from one seeded state,
+    within PR 25's limits; K4 and K6 launched as often on both sides, no
+    plain call.  (b) Where torch's ``fake`` backend takes CUDA tensors,
+    rank 0 of a fake (16, 16) world at Qwen3-32B's full width
+    (:func:`_partition_fake`); else the refusal on a line of its own.
+    Returns the launches of both parts' runs in ``_model_counts``' form."""
+    layers, b, s = PARTITION_MODEL
+    cfg = get_config(PARTITION_ARCH).scaled(n_layers=layers)
+    opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 290)
+    state = train_state_init(gen, cfg, opt_cfg)
+    batch = _loader_batch(cfg, b, s, seed)
+    shape = ShapeSpec("partition_prefill", "prefill", s, b)
+    counts_all = []
+    with one_rank_world() as mesh:
+        _reset_model_counts()
+        with torch.no_grad():
+            want_logits, want_cache = prefill(state.params, cfg, {"tokens": batch["tokens"]})
+        single_pre = _model_counts()
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="cuda",
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        full = dict(_tree_paths(state.tree()["params"]))
+        with torch.no_grad():  # a (1, 1) mesh's blocks are the whole tensors
+            for path, t in _tree_paths(args[0]):
+                t.to_local().copy_(full[path])
+            args[1]["tokens"].to_local().copy_(batch["tokens"])
+        _reset_model_counts()
+        got_logits, got_cache = fn(*args)
+        part_pre = _model_counts()
+        del fn, args, full
+        prefill_row = {
+            "logits_bit_equal": bool(torch.equal(got_logits, want_logits)),
+            "cache_bit_equal": all(bool(torch.equal(got_cache["layers"][k],
+                                                    want_cache["layers"][k]))
+                                   for k in ("k", "v")),
+            "logits_max_abs_err": float((got_logits - want_logits).abs().max()),
+            "launches": {"partitioned": _launches(part_pre), "single": _launches(single_pre)},
+            "plain_calls": _plain_calls(part_pre) + _plain_calls(single_pre)}
+        del got_logits, got_cache, want_logits, want_cache
+        counts_all += [part_pre, single_pre]
+        run = _parallel_run(cfg, opt_cfg, state, batch, mesh, PARTITION_STEPS, remat=True)
+    del state
+    _free()
+    sh, si = run["sharded"], run["single"]
+    n = len(sh["losses"])
+    train_row = {
+        "steps": n, "losses_partitioned": sh["losses"], "losses_single": si["losses"],
+        "loss_distance": max(abs(a - c) for a, c in zip(sh["losses"], si["losses"])),
+        "param_distance": _max_diff(sh["params"], si["params"]),
+        "step_ms_partitioned": [w * 1e3 for w in sh["walls_s"]],
+        "step_ms_single": [w * 1e3 for w in si["walls_s"]],
+        "step_gb_partitioned": sh["step_gb"], "step_gb_single": si["step_gb"],
+        "launches_per_step": {side: {"rmsnorm": r["k4"] / n, "flash_attention": r["k6"] / n}
+                              for side, r in (("partitioned", sh), ("single", si))},
+        "plain_calls": sh["plain"] + si["plain"]}
+    counts_all += [sh["counts"], si["counts"]]
+    per_step = {"rmsnorm": 2 * (2 * cfg.n_layers) + 1, "flash_attention": 2 * cfg.n_layers}
+    ok = (prefill_row["logits_bit_equal"] and prefill_row["cache_bit_equal"]
+          and prefill_row["launches"]["partitioned"] == prefill_row["launches"]["single"]
+          and prefill_row["plain_calls"] == 0
+          and train_row["loss_distance"] <= PARALLEL_TOL["loss"]
+          and train_row["param_distance"] <= PARALLEL_TOL["params"]
+          and train_row["launches_per_step"]["partitioned"]
+          == train_row["launches_per_step"]["single"] == per_step
+          and train_row["plain_calls"] == 0)
+    refused = _partition_fake_probe()
+    fake = None
+    if refused is None:
+        fake = _partition_fake(seed)
+        counts_all.append(fake["counts"])
+        ok &= all(fake["row"]["checks"].values())
+    else:
+        print(f"partition_check: the fake backend refuses CUDA tensors ({refused}); "
+              "the (1, 1) check stands alone", flush=True)
+    emit({"phase": "partition_check", "card": card, "arch": PARTITION_ARCH,
+          "reduced": {"depth": f"{cfg.n_layers} of {get_config(PARTITION_ARCH).n_layers} "
+                      "layers", "batch": [b, s]},
+          "world": "one NCCL rank on cuda:0, a (1, 1) (data, model) mesh",
+          "attention": partition.attention_mode(cfg, 1), "tolerance": PARALLEL_TOL,
+          "want_launches_per_step": per_step, "prefill": prefill_row, "train": train_row,
+          "fake_world": fake["row"] if fake else {"refused": refused}})
+    if not ok:
+        raise AssertionError(f"partition_check failed: prefill {prefill_row}, train "
+                             f"{train_row}, fake {fake['row'] if fake else refused}")
+    return {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
+            for k in counts_all[0]}
+
+
+def slice16_phases(seed: int, card: str) -> dict:
+    """The partition check; its wall on the ``slice16_phases`` line."""
+    t0 = time.perf_counter()
+    counts = phase_partition_check(seed, card)
+    seconds = {"partition_check": time.perf_counter() - t0}
+    emit({"phase": "slice16_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE16_BUDGET_S, "card": card})
+    return counts
 
 
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
@@ -5067,6 +5285,8 @@ def run(args: argparse.Namespace, pool) -> int:
     slice14_phases(args.seed, dev["nvidia_smi"])
     # this slice: the reference's four example entry points
     example_launches, example_counts = slice15_phases(dev["nvidia_smi"])
+    # this slice: the partitioned dense train and prefill steps
+    partition_counts = slice16_phases(args.seed, dev["nvidia_smi"])
     for row in example_launches.values():
         launches["wf_fused"] += row["wf_fused"]
         rd_launches += row["rd_step"]
@@ -5146,7 +5366,7 @@ def run(args: argparse.Namespace, pool) -> int:
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
              vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
-             parallel_counts, *example_counts]
+             parallel_counts, *example_counts, partition_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}

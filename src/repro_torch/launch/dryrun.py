@@ -15,9 +15,14 @@ ranks that exists in this process:
   (:func:`repro_torch.launch.mesh.make_production_mesh`), destroyed after
   the cell;
 - **the step**: :func:`repro_torch.launch.specs.step_fn_for` with the
-  mesh, its arguments this rank's blocks (strategy ``"gathered"``: the
-  parameters gathered whole once a step, the batch's rows split over
-  the data axes; :mod:`.specs`).  The per-device numbers are rank 0's;
+  mesh, its arguments this rank's blocks, the batch's rows split over
+  the data axes; its strategy the family's
+  (:func:`repro_torch.parallel.partition.strategy`): ``"partitioned"``
+  for the dense decoder's train and prefill steps (each layer gathered
+  in turn, the projections and the vocabulary split on ``model``; the
+  cell records its ``attention`` mode too), ``"gathered"`` otherwise
+  (the parameters gathered whole once a step; :mod:`.specs`).  The
+  per-device numbers are rank 0's;
 - **the counters** (:func:`count_step`), around one call:
   ``FlopCounterMode`` for ``flops_per_device``, plus the model kernels'
   own operation counts (K4-K7 count themselves inside
@@ -39,12 +44,13 @@ ranks that exists in this process:
   (arguments plus temp), ``hbm_bytes`` (an H100 80GB HBM3's
   ``total_memory``) and ``fits``.  A cell that does not fit is still
   ``"ok"`` with ``"fits": false``, as the reference compiles a cell
-  whatever its memory: e.g. DeepSeek-V3's train step gathers its 1.43 TB
-  of bf16 parameters on every rank.
+  whatever its memory: e.g. DeepSeek-V3's gathered train step gathers
+  its 1.43 TB of bf16 parameters on every rank.
 
 A cell's JSON has the reference's keys (``count_wall_s``, the wall time
 of the counted step, in place of ``lower_s`` / ``compile_s``) plus
-``strategy``, ``peak_bytes``, ``hbm_bytes``, ``fits`` and ``rank``.  An
+``strategy`` (and, where partitioned, ``attention``), ``peak_bytes``,
+``hbm_bytes``, ``fits`` and ``rank``.  An
 exception marks the cell ``"error"`` with its message and the sweep goes
 on; the run exits 1 if any cell erred.  Skipped cells carry the
 reference's reason.  It needs no card and runs on the CPU.
@@ -82,7 +88,8 @@ from ..parallel.sharding import batch_sharding, cache_sharding, param_sharding
 from ..train import AdamWConfig, TrainState
 from ..train.step import state_sharding
 from .mesh import make_production_mesh
-from .specs import GATHERED, cache_specs, input_specs, param_specs, state_specs, step_fn_for
+from ..parallel.partition import PARTITIONED, attention_mode, strategy
+from .specs import cache_specs, input_specs, param_specs, state_specs, step_fn_for
 
 __all__ = [
     "HBM_BYTES",
@@ -293,10 +300,11 @@ def fake_world(world_size: int, rank: int = 0) -> Iterator[None]:
 
 def shardings_for(mesh, cfg: ModelConfig, shape: ShapeSpec, opt_cfg: AdamWConfig) -> tuple:
     """The specs of the cell's step arguments (the reference's
-    ``in_shardings``; its ``logits_sharding`` has no counterpart):
-    ``(state, batch)`` for train, ``(params, batch)`` for prefill and
-    ``(params, tokens, cache)`` for decode, the parameters always as
-    ``param_sharding`` blocks (strategy ``"gathered"``)."""
+    ``in_shardings``; its ``logits_sharding`` is the partitioned step's
+    own layout, not an argument): ``(state, batch)`` for train,
+    ``(params, batch)`` for prefill and ``(params, tokens, cache)`` for
+    decode, the parameters always as ``param_sharding`` blocks, whatever
+    the strategy."""
     if shape.kind == "train":
         st = state_specs(cfg, opt_cfg)
         return (state_sharding(mesh, TrainState(**st).tree()),
@@ -339,9 +347,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:
     t0 = perf_counter()
     try:
         c = count_cell(cfg, shape, multi_pod=multi_pod)
+        cell.update(status="ok", strategy=strategy(cfg, shape.kind))
+        if cell["strategy"] == PARTITIONED:
+            cell["attention"] = attention_mode(cfg, 16)  # the production meshes' model axis
         cell.update(
-            status="ok",
-            strategy=GATHERED,
             rank=0,
             count_wall_s=round(perf_counter() - t0, 2),
             flops_per_device=float(c.flops),

@@ -18,25 +18,26 @@ maps one onto the other).
 - ``train``: ``make_train_step(cfg, opt_cfg, microbatches=..., mesh=mesh)``
   on the state and the global batch; with a mesh it is the port's sharded
   step, its state the blocks :func:`repro_torch.train.shard_train_state`
-  would cut (the step gathers the parameters whole once a step and takes
-  this rank's data-parallel rows);
+  would cut, its strategy the family's (``train/step.py``);
 - ``prefill`` / ``decode`` with no mesh: ``prefill`` / ``decode_step``;
-- ``prefill`` / ``decode`` with a mesh (:data:`GATHERED`): the port has
-  no tensor-parallel serve step, so the cell runs what the port can run,
-  built as its train step is.  The parameters sit as ``param_sharding``
-  blocks (the reference's ``shardings_for`` with ``serve_params=False``)
-  and are gathered whole once a step; the rank holds its
-  ``batch_sharding`` rows of the tokens (and frames, patches), and the
-  cache as ``cache_sharding`` blocks, of which it gathers its own rows
-  whole; then it runs ``prefill`` / ``decode_step`` on plain tensors
-  under the ambient mesh, the batch split over the data axes as the
-  train step splits it (so the MoE routes the global batch).  It is the
-  port's counterpart of ``jax.jit(..., in_shardings=...)`` on the same
-  step, and adds nothing the reference lacks.
+- ``prefill`` / ``decode`` with a mesh: the parameters sit as
+  ``param_sharding`` blocks (the reference's ``shardings_for`` with
+  ``serve_params=False``), the rank holds its ``batch_sharding`` rows of
+  the tokens (and frames, patches) and, for decode, the cache as
+  ``cache_sharding`` blocks.  The strategy is the rule's
+  (:func:`repro_torch.parallel.partition.strategy`):
 
-The reference's ``logits_sharding`` (a layout pin) has no counterpart: a
-rank computes its logits whole, as plain tensors (``train/step.py``), so
-:func:`step_fn_for` takes no such parameter.
+  - ``"partitioned"`` (the dense decoder's prefill): each layer's weights
+    gathered on the data axes in turn, the projections split on
+    ``model``; the last position's logits split on the vocabulary, as
+    the reference's ``logits_sharding`` pins them, and the cache of the
+    rank's KV heads (:class:`repro_torch.parallel.partition.Partitioned`);
+  - ``"gathered"`` (every decode step, and the other families' prefill):
+    built as the gathered train step is, the parameters gathered whole
+    once a step, the rank's own cache rows gathered whole; then
+    ``prefill`` / ``decode_step`` on plain tensors under the ambient
+    mesh, the batch split over the data axes as the train step splits it
+    (so the MoE routes the global batch).
 """
 
 from __future__ import annotations
@@ -53,21 +54,19 @@ from ..models import decode_step, init_decode_cache, prefill
 from ..models.config import ModelConfig
 from ..models.model import FAMILIES, LM, check_family
 from ..parallel.constrain import set_mesh, split_batch
+from ..parallel.partition import PARTITIONED, Partitioned, strategy
 from ..parallel.sharding import data_shard, fsdp_axes, shard_state
 from ..train import AdamWConfig, TrainState, adamw_init, make_train_step
 from ..train.optim import param_tree
-from ..train.step import _map_paths, gathered
+from ..train.step import _map_paths, _paths, gathered
 
 __all__ = [
-    "GATHERED",
     "cache_specs",
     "input_specs",
     "param_specs",
     "state_specs",
     "step_fn_for",
 ]
-
-GATHERED = "gathered"  # the strategy of every cell on a mesh (module docstring)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeSpec, *, device: str = "meta") -> dict:
@@ -155,7 +154,25 @@ def step_fn_for(cfg: ModelConfig, shape: ShapeSpec, opt_cfg: AdamWConfig, *, mes
     blocks = [shard_state(mesh, tree, spec) for tree, spec in zip(trees, in_shardings)]
     if shape.kind == "decode":
         blocks[1] = blocks[1]["tokens"]
+    if strategy(cfg, shape.kind) == PARTITIONED:
+        return _partitioned_prefill(cfg, mesh), tuple(blocks)
     return _gathered_step(cfg, shape.kind, mesh), tuple(blocks)
+
+
+def _partitioned_prefill(cfg: ModelConfig, mesh) -> Callable:
+    """``prefill`` of a rank that holds ``param_sharding`` blocks and its
+    rows of the batch, partitioned (:class:`repro_torch.parallel.partition.
+    Partitioned`): each layer's weights gathered on the data axes in
+    turn, the projections split on ``model``; the last position's logits
+    (B_local, 1, V / model) split on the vocabulary, and the cache of the
+    rank's KV heads."""
+    part = Partitioned(cfg, mesh)
+
+    def step(params: dict, batch: dict):
+        blocks = {path: t.to_local() for path, t in _paths(params)}
+        return part.prefill(blocks, {k: v.to_local() for k, v in batch.items()})
+
+    return step
 
 
 # ---- the gathered serve step -------------------------------------------------

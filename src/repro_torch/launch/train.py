@@ -24,8 +24,12 @@ blocks of it (:func:`repro_torch.train.shard_train_state`), draws the
 same seeded loader stream and takes its data shard of each batch inside
 the sharded step, under the ambient mesh; only rank 0 prints, and the
 checkpoints hold the full tensors (rank 0 writes them), so a restart may
-resume onto another mesh.  :func:`train` is that loop for any mesh (the
-tests drive it on small ``gloo`` meshes).  The encoder-decoder arch
+resume onto another mesh.  The step's strategy is the family's
+(:func:`repro_torch.parallel.partition.strategy`): the dense archs train
+partitioned (each layer gathered in turn, the projections and the
+vocabulary split on ``model``), the others gathered.  :func:`train` is
+that loop for any mesh (the tests drive it on small ``gloo`` meshes).
+The encoder-decoder arch
 (whisper-medium) needs frame embeddings that this driver, like the
 reference's, does not feed: it ends in ``KeyError: 'frames'``.
 """

@@ -26,7 +26,12 @@ attention in plain jnp and calls no kernel, so the port computes it in
 plain PyTorch (only its norms go through K4).  Training
 (``models.model.forward_train``) runs :func:`gqa_prefill` /
 :func:`mla_prefill` and drops their cache rows, as the reference's
-``gqa_attend`` computes the same attention.
+``gqa_attend`` computes the same attention.  The GQA functions read
+their widths from ``cfg`` and their weights from ``p``, so the
+partitioned strategy (:mod:`repro_torch.parallel.partition`) runs them
+unchanged on a rank's local heads: a per-rank ``cfg`` with its query and
+KV head counts, and ``p`` holding its column blocks of ``wq/wk/wv`` and
+row block of ``wo`` (whose partial sums it all-reduces).
 """
 
 from __future__ import annotations

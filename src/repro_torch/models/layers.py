@@ -10,7 +10,10 @@ config's dtype without ``requires_grad`` (serving needs none; the train
 step, :mod:`repro_torch.train.step`, turns it on); norm math runs in
 fp32 and casts back.  A rank holds plain tensors (its own blocks:
 :mod:`repro_torch.parallel`), so the reference's sharding constraints
-have no counterpart here.
+have no counterpart here: the partitioned strategy's vocabulary-split
+embedding and logits (the reference's ``logits_sharding``) are
+:mod:`repro_torch.parallel.partition`'s ``vocab_embed`` and its
+unembedding, on the rank's rows of ``table``.
 """
 
 from __future__ import annotations

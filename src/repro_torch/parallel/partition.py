@@ -1,0 +1,474 @@
+"""The partitioned strategy: the dense decoder's train and prefill steps
+split over the mesh as XLA's SPMD partitioner splits the reference's.
+
+The reference jits its step with ``in_shardings=param_sharding(...)``,
+pins the hidden state to ``(dp, None, None)`` at block boundaries and the
+logits to ``(dp, None, "model")``, and runs its layers under ``lax.scan``
+with ``jax.checkpoint``; XLA then gathers each layer's FSDP blocks inside
+the scan body and splits every projection's work over ``model``.  This
+module is the port's counterpart, written SPMD on ``torch.distributed``
+for the families :func:`strategy` sends here (``dense`` and ``vlm``'s
+dense decoder); the others keep the ``"gathered"`` strategy
+(``train/step.py``, ``launch/specs.py``), which gathers the whole model.
+
+Operators over the ``model`` group (each the identity for a group of one
+or ``None``):
+
+- :func:`copy_in` — identity forward, all-reduce of the gradient;
+- :func:`reduce_out` — all-reduce forward, identity backward;
+- :func:`vocab_embed` — the embedding lookup of a rank's vocabulary
+  rows (zero elsewhere), then :func:`reduce_out`;
+- :func:`vocab_xent` — the per-token cross-entropy of logits split on
+  the vocabulary: the max and the sum of exponentials all-reduced, the
+  target's logit from the rank that holds it; its backward needs no
+  collective.
+
+The per-layer gather (:func:`use`): a parameter's local ``DTensor`` block
+becomes the tensor the rank computes with by a chain of
+:class:`Step` s, one per mesh axis: an all-gather on the dim the axis
+splits (backward: a reduce-scatter, averaged over the data axes, summed
+or sliced over ``model``), or, on an axis that replicates the
+parameter, the identity (backward: an all-reduce where the ranks' grads
+are partial, or nothing).  So each gradient arrives at its block
+already reduced.  :class:`Partitioned` calls it inside the function that
+``torch.utils.checkpoint`` recomputes, so a layer's weights are gathered
+again in the backward, as the reference's ``jax.checkpoint(body)``; no
+full-model gather remains.
+
+Layouts on a rank: the hidden state (B_local, S, d) whole on ``model``;
+``wq/wk/wv`` (and biases) column-parallel, ``wo`` row-parallel then
+:func:`reduce_out`, both FFN halves likewise; the embedding table and the
+logits split on the vocabulary.  Attention takes one of two modes
+(:func:`attention_mode`):
+
+- ``"heads"`` where ``n_heads`` divides by the ``model`` extent and the
+  KV heads split evenly over it or it over them: the rank attends over
+  its ``n_heads / m`` query heads with the KV heads they use, under a
+  per-rank config (``dataclasses.replace(cfg, n_heads=..., n_kv_heads=...)``),
+  so the model functions (``gqa_prefill``, ``swiglu``) run unchanged on
+  local widths.  Where KV heads are fewer than ``m`` (8 on 16), ``wk/wv``
+  are gathered over ``model`` and the rank takes the head its queries
+  use; their gradients are reduce-scattered back (summed: two ranks
+  share a head);
+- ``"replicated"`` otherwise (qwen1.5-4b's 20 heads on 16): the four
+  projections gathered over ``model``, attention computed whole on every
+  ``model`` rank, their gradients sliced back; FFN and vocabulary stay
+  split.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import Any
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Shard
+from torch.utils.checkpoint import checkpoint
+
+from ..models.attention import gqa_prefill, rope_for
+from ..models.config import ModelConfig
+from ..models.ffn import swiglu
+from ..models.layers import rmsnorm
+from ..models.model import FAMILIES
+from .sharding import _spec_leaves, fsdp_axes, mesh_sizes, param_sharding, placements
+
+__all__ = [
+    "GATHERED",
+    "PARTITIONED",
+    "Partitioned",
+    "Step",
+    "attention_mode",
+    "copy_in",
+    "reduce_out",
+    "strategy",
+    "use",
+    "vocab_embed",
+    "vocab_xent",
+]
+
+GATHERED = "gathered"
+PARTITIONED = "partitioned"
+PARTITIONED_FAMILIES = ("dense", "vlm")
+PARTITIONED_KINDS = ("train", "prefill")
+
+
+def strategy(cfg: ModelConfig, kind: str) -> str:
+    """The sharded step's strategy for a family and step kind: the dense
+    decoder's train and prefill steps are partitioned, the rest gathered."""
+    if cfg.block_pattern in PARTITIONED_FAMILIES and kind in PARTITIONED_KINDS:
+        return PARTITIONED
+    return GATHERED
+
+
+def attention_mode(cfg: ModelConfig, m: int) -> str:
+    """``"heads"`` or ``"replicated"`` on a ``model`` extent ``m`` (module
+    docstring)."""
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    return "heads" if h % m == 0 and (hkv % m == 0 or m % hkv == 0) else "replicated"
+
+
+def _size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+# ---- the model-axis operators ------------------------------------------------
+
+
+def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_in(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` entering a ``model``-split computation: the identity, its
+    gradient all-reduced over ``group``."""
+    return x if _size(group) == 1 else _CopyIn.apply(x, group)
+
+
+def reduce_out(x: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' partial sums of a ``model``-split computation, all-reduced
+    over ``group``; the gradient passes through."""
+    return x if _size(group) == 1 else _ReduceOut.apply(x, group)
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int, group) -> torch.Tensor:
+    """Embeddings of ``tokens`` from a table split on the vocabulary:
+    ``table`` holds rows ``[lo, lo + len(table))``; a rank looks up the
+    tokens in its range (zero elsewhere) and the ranks' rows are summed."""
+    if _size(group) == 1:
+        return torch.nn.functional.embedding(tokens, table)
+    n = table.shape[0]
+    local = tokens.long() - lo
+    inside = (local >= 0) & (local < n)
+    x = torch.nn.functional.embedding(local.clamp(0, n - 1), table)
+    return reduce_out(torch.where(inside[..., None], x, torch.zeros_like(x)), group)
+
+
+class _VocabXent(torch.autograd.Function):
+    """Per-token ``logsumexp - target logit`` of fp32 logits split on the
+    vocabulary (0 where the target is padding)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, group):
+        n = logits.shape[-1]
+        top = logits.detach().amax(dim=-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        total = torch.exp(logits - top[..., None]).sum(dim=-1)
+        dist.all_reduce(total, group=group)
+        local = targets.long() - lo
+        mine = (local >= 0) & (local < n)
+        picked = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        picked = torch.where(mine, picked, torch.zeros_like(picked))
+        dist.all_reduce(picked, group=group)
+        logz = torch.log(total) + top
+        valid = targets >= 0
+        ctx.save_for_backward(logits, logz, local, mine & valid, valid)
+        return torch.where(valid, logz - picked, torch.zeros_like(logz))
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, logz, local, hit, valid = ctx.saved_tensors
+        g = torch.where(valid, g, torch.zeros_like(g))
+        grad = torch.exp(logits - logz[..., None]) * g[..., None]
+        n = logits.shape[-1]
+        grad.scatter_add_(-1, local.clamp(0, n - 1)[..., None],
+                          torch.where(hit, -g, torch.zeros_like(g))[..., None])
+        return grad, None, None, None
+
+
+def vocab_xent(logits: torch.Tensor, targets: torch.Tensor, lo: int, group) -> torch.Tensor:
+    """Per-token cross-entropy (B, S) of ``logits`` (B, S, V_local) fp32
+    holding vocabulary entries ``[lo, lo + V_local)``, targets -1 for
+    padding (0 there); with a group of one, the plain math."""
+    if _size(group) == 1:
+        valid = targets >= 0
+        lf = logits.float()
+        picked = torch.gather(lf, -1, targets.clamp(min=0).long()[..., None])[..., 0]
+        nll = torch.logsumexp(lf, dim=-1) - picked
+        return torch.where(valid, nll, torch.zeros_like(nll))
+    return _VocabXent.apply(logits, targets, lo, group)
+
+
+# ---- the per-layer gather -------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One mesh axis of a parameter's gather: ``dim`` the block's dim the
+    axis splits (None: the axis replicates it); ``grad`` what the backward
+    does over the axis: ``"avg"`` / ``"sum"`` (a reduce-scatter where
+    ``dim`` is set, else an all-reduce), ``"slice"`` (take this rank's
+    part of a gradient every rank holds whole) or None (nothing)."""
+
+    group: Any
+    n: int
+    rank: int
+    dim: int | None
+    grad: str | None
+
+
+_OPS = {"avg": dist.ReduceOp.AVG, "sum": dist.ReduceOp.SUM}
+
+
+def _all_gather(x: torch.Tensor, s: Step) -> torch.Tensor:
+    x = x.movedim(s.dim, 0).contiguous()
+    out = x.new_empty((s.n * x.shape[0],) + x.shape[1:])
+    dist.all_gather_into_tensor(out, x, group=s.group)
+    return out.movedim(0, s.dim)
+
+
+def _scatter_back(g: torch.Tensor, s: Step) -> torch.Tensor:
+    if s.grad == "slice":
+        return g.chunk(s.n, dim=s.dim)[s.rank]
+    g = g.movedim(s.dim, 0).contiguous()
+    out = g.new_empty((g.shape[0] // s.n,) + g.shape[1:])
+    dist.reduce_scatter_tensor(out, g, op=_OPS[s.grad], group=s.group)
+    return out.movedim(0, s.dim)
+
+
+class _Use(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, block, steps):
+        ctx.steps = steps
+        x = block
+        for s in steps:
+            if s.dim is not None:
+                x = _all_gather(x, s)
+        return x.view_as(x) if x is block else x
+
+    @staticmethod
+    def backward(ctx, g):
+        for s in reversed(ctx.steps):
+            if s.dim is not None:
+                g = _scatter_back(g, s)
+            elif s.grad is not None:
+                g = _all_reduce(g, s.group, _OPS[s.grad])
+        return g, None
+
+
+def use(block: torch.Tensor, steps: tuple[Step, ...]) -> torch.Tensor:
+    """The tensor a rank computes with from its ``block`` (module
+    docstring); the block itself where no step communicates."""
+    steps = tuple(s for s in steps if s.n > 1 and (s.dim is not None or s.grad is not None))
+    return _Use.apply(block, steps) if steps else block
+
+
+# ---- the partitioned dense decoder ------------------------------------------------
+
+
+def _ns(tree: dict) -> types.SimpleNamespace:
+    """Nested dicts as attribute namespaces, a projection's absent bias as
+    ``b=None`` (what the model functions read)."""
+    out = {k: _ns(v) if isinstance(v, dict) else v for k, v in tree.items()}
+    if "w" in out:
+        out.setdefault("b", None)
+    return types.SimpleNamespace(**out)
+
+
+_KV = (("attn", "wk", "w"), ("attn", "wk", "b"), ("attn", "wv", "w"), ("attn", "wv", "b"))
+
+
+class Partitioned:
+    """One rank's partitioned dense decoder on ``mesh`` (module docstring).
+
+    Its methods take ``blocks``, a dict from a parameter's path (a tuple of
+    names, as ``param_tree`` nests them) to this rank's local block (a
+    plain tensor, the ``DTensor`` 's ``to_local()``): :meth:`forward` gives
+    the logits split on the vocabulary, :meth:`xent` their per-token
+    cross-entropy, :meth:`prefill` the last position's split logits and a
+    cache of the rank's KV heads."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        if strategy(cfg, "train") != PARTITIONED:
+            raise ValueError(f"{cfg.name}: the {cfg.block_pattern!r} family is not partitioned")
+        self.cfg = cfg
+        sizes = mesh_sizes(mesh)
+        self.m, self.r = sizes["model"], mesh.get_local_rank("model")
+        self.tp = mesh.get_group("model") if self.m > 1 else None
+        self.attention = attention_mode(cfg, self.m)
+        self.local_cfg = cfg
+        self.kv = None  # the KV heads' columns this rank takes from the whole wk / wv
+        if self.attention == "heads":
+            h_l = cfg.n_heads // self.m
+            hkv_l = max(1, cfg.n_kv_heads // self.m)
+            self.local_cfg = dataclasses.replace(cfg, n_heads=h_l, n_kv_heads=hkv_l,
+                                                 head_dim=cfg.head_dim_)
+            if cfg.n_kv_heads % self.m:
+                head = self.r // (self.m // cfg.n_kv_heads)
+                self.kv = slice(head * cfg.head_dim_, (head + 1) * cfg.head_dim_)
+        skeleton = FAMILIES[cfg.block_pattern](cfg, device="meta")
+        specs = _spec_leaves(param_sharding(mesh, skeleton))
+        self.steps = {path: self._steps(mesh, path, placements(mesh, spec))
+                      for path, spec in specs.items()}
+        on_model = mesh.mesh_dim_names.index("model")
+        split_vocab = isinstance(placements(mesh, specs[("embed", "table")])[on_model], Shard)
+        self.vocab_group = self.tp if split_vocab else None
+        self.vocab_lo = self.r * cfg.vocab // self.m if split_vocab else 0
+        self.ffn_split = isinstance(
+            placements(mesh, specs[("layers", "0", "ffn", "wo", "w")])[on_model], Shard)
+
+    def _model_grad(self, path: tuple, sharded: bool) -> str | None:
+        """What the backward does over ``model`` for a parameter (module
+        docstring): heads-mode ``wk/wv`` taken whole and sliced, and the
+        per-head norms, have partial gradients (summed); replicated-mode
+        attention weights are taken whole, their gradients sliced."""
+        tail = path[2:]
+        if tail[:1] != ("attn",):
+            return None
+        if self.attention == "replicated":
+            return "slice" if sharded else None
+        if tail[1] in ("q_norm", "k_norm"):
+            return "sum"
+        if tail in _KV and self.kv is not None:
+            return "sum"
+        return None
+
+    def _steps(self, mesh, path: tuple, places: list) -> tuple[Step, ...]:
+        """The forward's steps: the data axes inner first (a dim split over
+        (pod, data) gathers data, then pod), then ``model``; the backward
+        runs them in reverse, so a sliced or summed ``model`` gradient
+        shrinks before the data axes' reduce-scatters."""
+        dp = fsdp_axes(mesh)
+        names = mesh.mesh_dim_names
+        order = [names.index(a) for a in reversed(dp)] + [names.index("model")]
+        out = []
+        for i in order:
+            p = places[i]
+            dim = p.dim if isinstance(p, Shard) else None
+            if names[i] == "model":
+                grad = self._model_grad(path, dim is not None)
+                if dim is not None and grad is None:
+                    continue  # used as this rank's block
+            else:
+                grad = "avg"
+            out.append(Step(mesh.get_group(i) if mesh.shape[i] > 1 else None,
+                            mesh.shape[i], mesh.get_local_rank(i), dim, grad))
+        return tuple(out)
+
+    # -- parameters --
+
+    def use(self, blocks: dict, path: tuple) -> torch.Tensor:
+        return use(blocks[path], self.steps[path])
+
+    def _layer_params(self, blocks: dict, i: int) -> types.SimpleNamespace:
+        prefix = ("layers", str(i))
+        tree: dict = {}
+        for path in self.steps:
+            if path[:2] != prefix:
+                continue
+            t = self.use(blocks, path)
+            if self.kv is not None and path[2:] in _KV:
+                t = t[..., self.kv]
+            node = tree
+            for k in path[2:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        return _ns(tree)
+
+    # -- the model --
+
+    def _attend(self, a, h: torch.Tensor, rope):
+        """Attention of one layer: ``(out, k, v)``, k and v the rank's KV
+        heads as ``(B, Hkv_local, S, hd)``."""
+        if self.attention == "replicated":
+            return gqa_prefill(a, self.cfg, h, rope)
+        out, k, v = gqa_prefill(a, self.local_cfg, copy_in(h, self.tp), rope)
+        return reduce_out(out, self.tp), k, v
+
+    def _ffn(self, f, h: torch.Tensor) -> torch.Tensor:
+        if not self.ffn_split:
+            return swiglu(f, h)
+        return reduce_out(swiglu(f, copy_in(h, self.tp)), self.tp)
+
+    def _layer(self, blocks: dict, i: int, x: torch.Tensor, rope) -> torch.Tensor:
+        p = self._layer_params(blocks, i)
+        eps = self.cfg.norm_eps
+        x = x + self._attend(p.attn, rmsnorm(p.norm1, x, eps), rope)[0]
+        return x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
+
+    def _embed_inputs(self, table: torch.Tensor, batch: dict):
+        """As ``models.model._embed_inputs``, the lookup split on the
+        vocabulary."""
+        x = vocab_embed(table, batch["tokens"], self.vocab_lo, self.vocab_group)
+        if self.cfg.block_pattern == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        b, s, _ = x.shape
+        return x, torch.arange(s, device=x.device)[None, :].expand(b, s)
+
+    def _unembed(self, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        return (copy_in(x, self.vocab_group) @ table.T).float()
+
+    def forward(self, blocks: dict, batch: dict, *, remat: bool = True) -> torch.Tensor:
+        """``forward_train``'s logits (B_local, S, V_local) fp32, this rank's
+        vocabulary entries ``[vocab_lo, vocab_lo + V_local)``; ``remat``
+        recomputes each layer, its gathers included, in the backward."""
+        cfg = self.cfg
+        table = self.use(blocks, ("embed", "table"))
+        x, positions = self._embed_inputs(table, batch)
+        rope = rope_for(cfg, positions)
+        for i in range(cfg.n_layers):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(self._layer, blocks, i, x, rope, use_reentrant=False)
+            else:
+                x = self._layer(blocks, i, x, rope)
+        x = rmsnorm(_ns({"g": self.use(blocks, ("final_norm", "g"))}), x, cfg.norm_eps)
+        if cfg.block_pattern == "vlm" and "patches" in batch:
+            x = x[:, batch["patches"].shape[1]:]
+        return self._unembed(table, x)
+
+    def xent(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+        """Per-token cross-entropy of :meth:`forward`'s logits (0 at padding)."""
+        return vocab_xent(logits, targets, self.vocab_lo, self.vocab_group)
+
+    @torch.no_grad()
+    def prefill(self, blocks: dict, batch: dict, *, max_len: int | None = None):
+        """``models.prefill`` partitioned: the last position's logits (B, 1,
+        V_local) fp32, split on the vocabulary as :meth:`forward` 's, and
+        the cache of this rank's KV heads, ``{"layers": {"k", "v"} (L, B,
+        Hkv_local, S_max, hd), "pos"}``; each layer's weights gathered in
+        turn and freed."""
+        cfg = self.cfg
+        table = self.use(blocks, ("embed", "table"))
+        x, positions = self._embed_inputs(table, batch)
+        b, s, _ = x.shape
+        rope = rope_for(cfg, positions)
+        hkv = cfg.n_kv_heads if self.attention == "replicated" else self.local_cfg.n_kv_heads
+        shape = (cfg.n_layers, b, hkv, max(s, max_len or 0), cfg.head_dim_)
+        kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+        eps = cfg.norm_eps
+        for i in range(cfg.n_layers):
+            p = self._layer_params(blocks, i)
+            h, k, v = self._attend(p.attn, rmsnorm(p.norm1, x, eps), rope)
+            kv["k"][i, :, :, :s] = k
+            kv["v"][i, :, :, :s] = v
+            x = x + h
+            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
+            del p, h, k, v
+        final = _ns({"g": self.use(blocks, ("final_norm", "g"))})
+        x = rmsnorm(final, x[:, -1:].contiguous(), eps)
+        pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        return self._unembed(table, x), {"layers": kv, "pos": pos}

@@ -16,31 +16,38 @@ step is the counterpart of the reference's ``jax.jit(make_train_step(...),
 in_shardings=(state_sh, batch_sh))``, written SPMD: every rank calls it
 with the same global batch, and the state is the tree of
 :func:`shard_train_state`, the parameters and both moments ``DTensor``
-blocks placed by ``param_sharding``, ``step`` replicated.  Each step:
+blocks placed by ``param_sharding``, ``step`` replicated.  Every rank
+takes its rows of each global microbatch on the data-parallel axes where
+they divide it (``batch_sharding``), else the whole of it, and normalises
+the cross-entropy (and the MTP head's) by the valid targets of the
+*global* microbatch, so the data shards' losses add up to the
+single-device loss; the norm is summed over the shards once (a block
+held by several ranks counts once) and ``adamw_update`` runs on the
+blocks.  The rule of :func:`repro_torch.parallel.partition.strategy`
+picks how the rest is done:
 
-- gathers the full parameters (once per step: the peak holds the full
-  parameters, their fp32 gradients and this rank's blocks of the state)
-  into a model on plain tensors, so the kernels never see a ``DTensor``;
-- takes this rank's rows of each global microbatch on the data-parallel
-  axes where they divide it (``batch_sharding``), else the whole of it;
-- normalises the cross-entropy (and the MTP head's) by the valid
-  targets of the *global* microbatch, so the data shards' losses add up
-  to the single-device loss;
-- reduces each gradient to its parameter's placements (the data axes
-  averaged; the ``model`` axis replicated, but for the expert tensors of
-  the expert-parallel MoE, whose ranks each hold their slice's gradient:
-  summed);
-- clips by the global norm summed over the shards once (a block held by
-  several ranks counts once) and applies ``adamw_update`` to the blocks.
+- ``"partitioned"`` (the dense decoder: ``dense``, ``vlm``), as XLA
+  partitions the reference's step: each layer's weights gathered on the
+  data axes inside the recomputed layer (their gradients reduce-scattered
+  back in its backward, so each arrives at its block reduced), the
+  projections split on ``model`` (attention by heads, or replicated on
+  ``model`` where the heads do not split), the logits and the
+  cross-entropy split on the vocabulary, as the reference's
+  ``logits_sharding`` pins them (:mod:`repro_torch.parallel.partition`);
+- ``"gathered"`` (the other families): the full parameters gathered
+  once a step into a model on plain tensors (the peak holds them, their
+  fp32 gradients and this rank's blocks of the state), each rank's whole
+  forward and backward on its rows, and each gradient reduced to its
+  parameter's placements at the end (the data axes averaged; the
+  ``model`` axis replicated, but for the expert tensors of the
+  expert-parallel MoE, whose ranks each hold their slice's gradient:
+  summed).
 
 An MoE under the default ``"gspmd"`` dispatch routes the whole batch with
 its global capacity (the data shards' tokens gathered: :func:`repro_torch.
 models.moe_sharded.moe_apply_global`); under ``"shard_map"`` it takes the
 expert-parallel dispatch, whose capacity is per data shard, as the
-reference's.  The reference's ``logits_sharding`` (a layout pin that keeps
-the vocab axis on ``model`` through the cross-entropy) has no
-counterpart: a rank computes its logits whole, as plain tensors, and
-there is no layout propagation to pin.
+reference's.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from ..models.config import ModelConfig
 from ..models.model import FAMILIES, LM
 from ..models.moe_sharded import expert_parallel
 from ..parallel.constrain import set_mesh, split_batch
+from ..parallel.partition import PARTITIONED, Partitioned, strategy
 from ..parallel.sharding import data_shard, fsdp_axes, param_sharding, shard_state
 from .optim import (
     AdamWConfig,
@@ -180,6 +188,8 @@ def make_train_step(
     With ``mesh`` the step is the sharded one (module docstring): its
     state is :func:`shard_train_state`'s, returned anew."""
     if mesh is not None:
+        if strategy(cfg, "train") == PARTITIONED:
+            return _partitioned_train_step(cfg, opt_cfg, microbatches, remat, mesh)
         return _sharded_train_step(cfg, opt_cfg, microbatches, remat, mesh)
 
     def accumulated(params: LM, batch: dict) -> tuple[dict, dict]:
@@ -228,11 +238,59 @@ def shard_train_state(mesh, state: TrainState) -> dict:
     return shard_state(mesh, tree, state_sharding(mesh, tree))
 
 
-def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int,
-                        remat: bool, mesh) -> Callable:
+def _need_group() -> None:
     if not dist.is_initialized():
         raise RuntimeError("the sharded train step needs an initialised process group "
                            "(torch.distributed.init_process_group); it never runs unsharded")
+
+
+def _global_norm(mesh, grads: dict, params: dict) -> torch.Tensor:
+    """The global norm of the reduced gradient (``grads``: this rank's
+    blocks): each block's squares over the number of ranks holding it,
+    summed over every rank."""
+    total = 0
+    for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+        copies = math.prod(mesh.shape[i] for i, pl in enumerate(p.placements)
+                           if isinstance(pl, Replicate))
+        total = total + g.detach().float().square().sum() / copies
+    for i in range(mesh.ndim):
+        dist.all_reduce(total, group=mesh.get_group(i))
+    return torch.sqrt(total)
+
+
+def _split_rows(batch: dict, microbatches: int, n_dp: int) -> tuple[int, bool]:
+    """The rows of a microbatch and whether they split over the data axes."""
+    rows = batch["tokens"].shape[0] // microbatches
+    return rows, n_dp > 1 and rows % n_dp == 0
+
+
+def _global_ce(metrics: list, split: bool, mesh, dp) -> dict:
+    """The microbatches' mean metrics; where the rows were split, the data
+    shards' cross-entropies summed into the global one, and the loss anew."""
+    metrics = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
+    if split:  # the shards' cross-entropies add up to the global one
+        ces = [k for k in ("ce", "mtp_ce") if k in metrics]
+        for k, a in itertools.product(ces, dp):
+            dist.all_reduce(metrics[k], group=mesh.get_group(a))
+        mtp = metrics.get("mtp_ce", 0.0)
+        metrics["loss"] = metrics["ce"] + metrics["aux"] + MTP_WEIGHT * mtp
+    return metrics
+
+
+def _update(opt_cfg: AdamWConfig, mesh, grads: dict, params: dict, opt: dict):
+    """AdamW on this rank's blocks, clipped by the norm summed over the
+    shards: ``(new state, optimizer metrics)``, the state's ``DTensor`` s
+    placed as the old."""
+    local_opt = {"m": _local(opt["m"]), "v": _local(opt["v"]), "step": opt["step"].to_local()}
+    new_params, new_opt, metrics = adamw_update(
+        opt_cfg, grads, local_opt, _local(params), gnorm=_global_norm(mesh, grads, params))
+    new = {"params": new_params, "opt": new_opt}
+    return _map_paths(_as_like, new, {"params": params, "opt": opt}), metrics
+
+
+def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int,
+                        remat: bool, mesh) -> Callable:
+    _need_group()
     dp = fsdp_axes(mesh)
     n_dp, dp_index = data_shard(mesh)
     skeleton = FAMILIES[cfg.block_pattern](cfg, device="meta")
@@ -258,22 +316,9 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
 
         return _map_paths(one, grads, params)
 
-    def norm_of(grads: dict, params: dict) -> torch.Tensor:
-        """The global norm of the reduced gradient: each block's squares
-        over the number of ranks holding it, summed over every rank."""
-        total = 0
-        for g, p in zip(tree_leaves(grads), tree_leaves(params)):
-            copies = math.prod(mesh.shape[i] for i, pl in enumerate(p.placements)
-                               if isinstance(pl, Replicate))
-            total = total + g.detach().float().square().sum() / copies
-        for i in range(mesh.ndim):
-            dist.all_reduce(total, group=mesh.get_group(i))
-        return torch.sqrt(total)
-
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         params, opt = state["params"], state["opt"]
-        rows = batch["tokens"].shape[0] // microbatches
-        split = n_dp > 1 and rows % n_dp == 0
+        rows, split = _split_rows(batch, microbatches, n_dp)
         if not split and n_dp > 1 and experts_summed:
             raise ValueError(f"the expert-parallel MoE needs each microbatch's {rows} rows "
                              f"split over the data axes {dp} ({n_dp})")
@@ -293,22 +338,54 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
                 total = grads if total is None else tree_map(torch.add, total, grads)
                 metrics.append(m)
         total = tree_map(lambda g: g / microbatches, total)
-        metrics = {k: torch.stack([m[k] for m in metrics]).mean() for k in metrics[0]}
-        if split:  # the shards' cross-entropies add up to the global one
-            ces = [k for k in ("ce", "mtp_ce") if k in metrics]
-            for k, a in itertools.product(ces, dp):
-                dist.all_reduce(metrics[k], group=mesh.get_group(a))
-            mtp = metrics.get("mtp_ce", 0.0)
-            metrics["loss"] = metrics["ce"] + metrics["aux"] + MTP_WEIGHT * mtp
-        grads = reduce(total, params, split)
-        local_opt = {"m": _local(opt["m"]), "v": _local(opt["v"]),
-                     "step": opt["step"].to_local()}
-        new_params, new_opt, opt_metrics = adamw_update(
-            opt_cfg, grads, local_opt, _local(params), gnorm=norm_of(grads, params))
+        metrics = _global_ce(metrics, split, mesh, dp)
+        new, opt_metrics = _update(opt_cfg, mesh, reduce(total, params, split), params, opt)
         metrics.update(opt_metrics)
-        like = {"params": params, "opt": opt}
-        new = {"params": new_params, "opt": new_opt}
-        return _map_paths(_as_like, new, like), metrics
+        return new, metrics
+
+    return train_step
+
+
+def _partitioned_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int,
+                            remat: bool, mesh) -> Callable:
+    """The dense decoder's step partitioned as the reference's GSPMD step
+    (:mod:`repro_torch.parallel.partition`): the state and the batch as
+    :func:`_sharded_train_step` takes them; each layer's weights gathered
+    on the data axes inside the recomputed layer, the projections split
+    on ``model``, the logits and the cross-entropy split on the
+    vocabulary.  Each gradient arrives at its block reduced (the
+    per-layer gather's backward), so no reduction remains at the step's
+    end; the norm and AdamW run on the blocks as the gathered step's."""
+    _need_group()
+    dp = fsdp_axes(mesh)
+    n_dp, dp_index = data_shard(mesh)
+    part = Partitioned(cfg, mesh)
+
+    def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
+        params, opt = state["params"], state["opt"]
+        rows, split = _split_rows(batch, microbatches, n_dp)
+        local = rows // n_dp if split else rows
+        scale = n_dp if split else 1
+        blocks = {path: t.to_local().detach().requires_grad_(True) for path, t in _paths(params)}
+        total, metrics = None, []
+        for i in range(microbatches):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            count = (mb["targets"] >= 0).sum().clamp(min=1)
+            if split:
+                mb = {k: v[dp_index * local:(dp_index + 1) * local] for k, v in mb.items()}
+            nll = part.xent(part.forward(blocks, mb, remat=remat), mb["targets"])
+            ce = nll.sum() / count
+            grads = torch.autograd.grad(scale * ce, list(blocks.values()), allow_unused=True)
+            grads = {path: (torch.zeros_like(b) if g is None else g).float()
+                     for (path, b), g in zip(blocks.items(), grads)}
+            total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
+            ce = ce.detach()
+            metrics.append({"ce": ce, "aux": torch.zeros_like(ce), "loss": ce})
+        grads = _map_paths(lambda path, t: total[path] / microbatches, params)
+        metrics = _global_ce(metrics, split, mesh, dp)
+        new, opt_metrics = _update(opt_cfg, mesh, grads, params, opt)
+        metrics.update(opt_metrics)
+        return new, metrics
 
     return train_step
 

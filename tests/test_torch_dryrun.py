@@ -19,7 +19,7 @@ the count rules of K4-K7, on the CPU.
   in-process tests (``tests/torch_dryrun_cases.py``): the production meshes and
   the collectives the dry run relies on (torch's ``fake_pg`` is
   internal, so its behaviour is pinned here); a small train cell's
-  collectives equal a hand count from the sharded step's code, the same
+  collectives equal a hand count from the partitioned step's rules, the same
   at rank 0 and rank 255; counts linear in depth (4 layers less 2 equal
   twice one layer within 0.1 %); Qwen1.5-4B ``decode_32k`` at full size
   written with the reference's keys, and DeepSeek-V3 ``train_4k`` not
@@ -40,7 +40,6 @@ from repro_torch.kernels import flash_attention as fak
 from repro_torch.kernels import rmsnorm as rnk
 from repro_torch.kernels import ssd_scan as ssk
 from repro_torch.launch import dryrun, specs
-from repro_torch.parallel import AbstractMesh, param_sharding
 from repro_torch.train import AdamWConfig
 
 import torch_dryrun_cases as cases
@@ -320,32 +319,14 @@ def test_the_fake_world_builds_the_production_meshes(world, mesh):
 
 def test_small_train_cell_collectives_equal_a_hand_count(cells):
     """Qwen1.5-4B at full width, 2 layers, 16 x 64 tokens on (16, 16),
-    counted from ``train/step.py``'s sharded step: one gather per sharded
-    mesh axis of each parameter; one reduction of each gradient over
-    ``data`` (a reduce-scatter where the parameter is sharded on ``data``,
-    else an all-reduce; ``model`` needs none: replicated gradients become
-    its blocks locally); the norm's all-reduce over each mesh axis; the
-    cross-entropy's over ``data``."""
+    counted from the partitioned step (its 20 heads on 16: attention
+    replicated on ``model``, the FFN and the vocabulary split): the hand
+    count of ``torch_dryrun_cases.partitioned_collectives``."""
     counts, _ = cells
     cfg = get_config("qwen1.5-4b").scaled(n_layers=2)
-    rules = param_sharding(AbstractMesh((16, 16), ("data", "model")),
-                           specs.param_specs(cfg))
-    gathers = on_data = n = 0
-    stack = [rules]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-            continue
-        n += 1
-        axes = {a for entry in node if entry for a in
-                ((entry,) if isinstance(entry, str) else entry)}
-        gathers += len(axes)
-        on_data += "data" in axes
-    want = {"all-gather": gathers, "reduce-scatter": on_data,
-            "all-reduce": (n - on_data) + 2 + 1}
+    want = cases.partitioned_collectives(cfg, (16, 16))
     assert counts["small_train/0"]["ops"] == want
-    assert gathers > 0 and on_data > 0
+    assert min(want.values()) > 0
 
 
 def test_rank_0_and_rank_255_count_the_same(cells):

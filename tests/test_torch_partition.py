@@ -1,0 +1,347 @@
+"""The partitioned strategy (``parallel/partition.py``) against the plain
+math, the port's single-device step and the reference's sharded step, on
+the CPU.
+
+- With a group of one (or ``None``) every ``model``-axis operator is the
+  identity, and the strategy rule sends exactly the dense decoder's
+  train and prefill steps to ``"partitioned"``.
+- On 4 ``gloo`` ranks (``tests/torch_parallel_ranks.py``, task
+  ``partition``), a (1, 4) mesh's ``model`` group: ``copy_in``,
+  ``reduce_out``, ``vocab_embed`` and ``vocab_xent`` (outputs and
+  gradients) against the plain ones in float32 within 1e-6.
+- The partitioned train step on (2, 2) and (1, 4), 2 steps, against the
+  port's single-device step within PR 25's tolerances (loss 1e-4,
+  parameters 5e-4): heads that divide the ``model`` extent, heads that
+  do not (attention replicated on ``model``), 2 KV heads shared over 4
+  ranks, the per-head norms, the VLM patch prefix.
+- The partitioned prefill: each rank's logits are its vocabulary range
+  of the single-device prefill's, its cache its KV heads.
+- The same step from the reference's initial parameters against the
+  reference's ``jax.jit(make_train_step(...), in_shardings=...)`` on its
+  (2, 2) CPU mesh (a subprocess with 4 host devices, started with the
+  ranks).
+- The partition factor, ranks x per-rank FLOPs / one device's FLOPs:
+  the port's (``FlopCounterMode``) within 10 % of the reference's
+  (``compiled.cost_analysis()`` with and without ``in_shardings``) on
+  (2, 2) and (1, 4).  The gathered step's was 2 on (2, 2) and 4 on
+  (1, 4): each rank ran its data shard's whole model.
+- The dry run in a fake (2, 2) world (``launch/dryrun.py``): a small
+  dense train cell's partitioned peak lies below the gathered step's by
+  at least the gathered parameters' bytes, and its collective calls
+  equal a hand count (``tests/torch_dryrun_cases.py``).
+"""
+
+import subprocess
+import sys
+import textwrap
+
+import jax
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import init_params as ref_init_params
+from repro_torch.backend import set_backend
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.convert import reference_leaf
+from repro_torch.launch import dryrun, specs
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import prefill
+from repro_torch.parallel import partition
+from repro_torch.train import AdamWConfig, make_train_step
+from repro_torch.train.step import _sharded_train_step
+
+import torch_dryrun_cases as dry_cases
+import torch_parallel_ranks as ranks
+
+LOSS_TOL, PARAM_TOL = 1e-4, 5e-4  # PR 25's (the reference's test_distributed limits)
+OP_TOL = 1e-6
+FACTOR_TOL = 0.10
+
+REFERENCE = """
+import dataclasses, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.parallel import batch_sharding, compat, param_sharding
+from repro.train import AdamWConfig, make_train_step, train_state_init
+from repro.train.optim import adamw_init
+
+out = sys.argv[1]
+opt = AdamWConfig(lr=1e-2, warmup_steps=1, eps=1.0, moment_dtype="float32")
+batch = {k: jnp.asarray(v) for k, v in np.load(out + "/batch.npz").items()}
+
+def unflatten(arrays):
+    tree = {}
+    for key, v in arrays.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = jnp.asarray(v)
+    return tree
+
+def flops(compiled):
+    ca = compiled.cost_analysis()
+    return float((ca[0] if isinstance(ca, list) else ca)["flops"])
+
+def mesh_of(shape):
+    return jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+
+def sharded(cfg, state, mesh):
+    st = {"params": param_sharding(mesh, state["params"]),
+          "opt": {"m": param_sharding(mesh, state["opt"]["m"]),
+                  "v": param_sharding(mesh, state["opt"]["v"]),
+                  "step": NamedSharding(mesh, P())}}
+    return jax.jit(make_train_step(cfg, opt), in_shardings=(st, batch_sharding(mesh, batch)))
+
+res = {}
+for name, heads in (("dense", None), ("odd_heads", 5)):
+    cfg = get_smoke_config("qwen1.5-4b")
+    if heads:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    abstract = jax.eval_shape(lambda k: train_state_init(k, cfg, opt).as_dict(),
+                              jax.random.PRNGKey(0))
+    single = jax.jit(make_train_step(cfg, opt)).lower(abstract, batch).compile()
+    res[name + "_single"] = flops(single)
+    for shape in ((2, 2), (1, 4)):
+        mesh = mesh_of(shape)
+        with compat.set_mesh(mesh):
+            c = sharded(cfg, abstract, mesh).lower(abstract, batch).compile()
+        res[f"{name}_{shape[0]}x{shape[1]}"] = flops(c)
+
+cfg = get_smoke_config("qwen1.5-4b")
+params = unflatten(dict(np.load(out + "/ref_init.npz")))
+state = {"params": params, "opt": adamw_init(opt, params)}
+mesh = mesh_of((2, 2))
+losses = []
+with compat.set_mesh(mesh):
+    step = sharded(cfg, state, mesh)
+    for _ in range(2):
+        state, m = step(state, batch)
+        state = jax.tree.map(np.asarray, state)
+        losses.append(float(m["loss"]))
+res["losses"] = np.asarray(losses)
+for path, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+    res["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+np.savez(out + "/reference_partition.npz", **res)
+"""
+
+
+def _flat(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _operator_inputs(rng) -> dict:
+    logits = rng.normal(size=(2, 5, 16)).astype(np.float32) * 3
+    targets = rng.integers(0, 16, (2, 5))
+    targets[0, 3:] = -1
+    return {"x": rng.normal(size=(6, 5)).astype(np.float32),
+            "w": rng.normal(size=(4, 6, 5)).astype(np.float32),
+            "xs": rng.normal(size=(4, 6, 5)).astype(np.float32),
+            "table": rng.normal(size=(16, 3)).astype(np.float32),
+            "tokens": rng.integers(0, 16, (2, 5)),
+            "c": rng.normal(size=(2, 5, 3)).astype(np.float32),
+            "logits": logits, "targets": targets,
+            "g": rng.normal(size=(2, 5)).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The port's 4 gloo ranks and the reference's 4-device subprocess,
+    started together."""
+    out = tmp_path_factory.mktemp("partition")
+    np.savez(out / "operators.npz", **_operator_inputs(np.random.default_rng(31)))
+    tree = ref_init_params(jax.random.PRNGKey(0), ref_smoke_config("qwen1.5-4b"))
+    np.savez(out / "ref_init.npz", **{"/".join(p.key for p in path): np.asarray(leaf) for
+                                     path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]})
+    batch = ranks.step_batch("dense", ref_smoke_config("qwen1.5-4b").vocab)
+    np.savez(out / "batch.npz", **{k: v.numpy().astype(np.int32) for k, v in batch.items()})
+    reference = subprocess.Popen(
+        [sys.executable, "-c",
+         "import os\n"
+         'os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"\n'
+         + textwrap.dedent(REFERENCE), str(out)],
+        env=ranks.subprocess_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ranks.wait_all([*ranks.start_ranks("partition", 4, out), reference])
+    return out
+
+
+def _single_device(cfg, batch, steps=ranks.STEPS):
+    """The port's own single-device step: metrics, final parameters and
+    the first step's FLOPs."""
+    with set_backend(device="cpu"):
+        state = ranks.initial_state(cfg)
+        step = make_train_step(cfg, AdamWConfig(**ranks.OPT))
+        st, metrics, flops = state.as_dict(), [], None
+        for i in range(steps):
+            counter = FlopCounterMode(display=False)
+            with counter:
+                st, m = step(st, batch)
+            flops = flops or counter.get_total_flops()
+            metrics.append({k: float(v) for k, v in m.items()})
+    return metrics, {n: p.detach() for n, p in st["params"].named_parameters()}, flops
+
+
+# ---- in-process -------------------------------------------------------------------
+
+
+def test_operators_are_the_identity_on_a_group_of_one():
+    x = torch.randn(3, 4, requires_grad=True)
+    assert partition.copy_in(x, None) is x and partition.reduce_out(x, None) is x
+    table, tokens = torch.randn(10, 4), torch.tensor([[1, 9, 0]])
+    assert torch.equal(partition.vocab_embed(table, tokens, 0, None), table[tokens])
+    logits, targets = torch.randn(2, 3, 10), torch.tensor([[1, -1, 4], [0, 9, -1]])
+    want = torch.logsumexp(logits, -1) - logits.gather(-1, targets.clamp(min=0)[..., None])[..., 0]
+    want = torch.where(targets >= 0, want, torch.zeros_like(want))
+    assert torch.equal(partition.vocab_xent(logits, targets, 0, None), want)
+    block = torch.randn(4, 2)
+    steps = (partition.Step(None, 1, 0, 0, "avg"), partition.Step(None, 1, 0, None, "sum"))
+    assert partition.use(block, steps) is block
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_the_rule_partitions_the_dense_train_and_prefill_steps_only(arch):
+    cfg = get_config(arch)
+    dense = cfg.block_pattern in ("dense", "vlm")
+    for kind in ("train", "prefill", "decode"):
+        want = "partitioned" if dense and kind != "decode" else "gathered"
+        assert partition.strategy(cfg, kind) == want
+    if dense:  # the attention modes on the production meshes' model axis of 16
+        heads = {"qwen2-72b", "qwen3-32b", "llava-next-mistral-7b"}
+        assert partition.attention_mode(cfg, 16) == ("heads" if arch in heads else "replicated")
+    else:
+        with pytest.raises(ValueError, match="not partitioned"):
+            partition.Partitioned(cfg, None)
+
+
+# ---- the model-axis operators on 4 gloo ranks ------------------------------------
+
+
+def test_model_axis_operators_equal_the_plain_ones(runs):
+    a = {k: torch.from_numpy(v) for k, v in np.load(runs / "operators.npz").items()}
+    table = a["table"].clone().requires_grad_(True)
+    emb = torch.nn.functional.embedding(a["tokens"], table)
+    (emb * a["c"]).sum().backward()
+    logits = a["logits"].clone().requires_grad_(True)
+    valid = a["targets"] >= 0
+    picked = logits.gather(-1, a["targets"].clamp(min=0)[..., None])[..., 0]
+    lz = torch.logsumexp(logits, -1) - picked
+    nll = torch.where(valid, lz, torch.zeros_like(lz))
+    (nll * a["g"]).sum().backward()
+    for r in range(4):
+        got = torch.load(runs / f"operators_rank{r}.pt")
+        close = lambda x, y: torch.testing.assert_close(x, y, rtol=0, atol=OP_TOL)  # noqa: E731
+        close(got["copy_in"], a["x"])
+        close(got["copy_in_grad"], a["w"].sum(0))
+        close(got["reduce_out"], a["xs"].sum(0))
+        close(got["reduce_out_grad"], a["w"][0])
+        close(got["embed"], emb.detach())
+        close(got["embed_grad"], table.grad[r * 4:(r + 1) * 4])
+        close(got["xent"], nll.detach())
+        close(got["xent_grad"], logits.grad[..., r * 4:(r + 1) * 4])
+
+
+# ---- the partitioned train step and prefill ---------------------------------------
+
+
+@pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
+def test_partitioned_step_equals_the_single_device_step(runs, name):
+    got = torch.load(runs / "partition_rank0.pt")[name]
+    cfg = ranks.partition_config(name)
+    want_metrics, want, _ = _single_device(cfg, ranks.partition_batch(cfg))
+    for g, w in zip(got["metrics"], want_metrics):
+        assert set(g) == set(w)
+        assert abs(g["loss"] - w["loss"]) < LOSS_TOL
+        assert abs(g["grad_norm"] - w["grad_norm"]) <= 1e-5 * w["grad_norm"]
+    flat = {".".join(p): t for p, t in _flat(got["params"])}
+    assert set(flat) == set(want)
+    for n, w in want.items():
+        assert float((flat[n] - w).abs().max()) < PARAM_TOL, n
+
+
+@pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
+def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(runs, name):
+    cfg = ranks.partition_config(name)
+    data, model = ranks.PARTITION_CASES[name][2]
+    batch = ranks.partition_batch(cfg)
+    prompt = {k: v[:, :ranks.PREFILL_LEN] for k, v in batch.items() if k != "targets"}
+    if "patches" in batch:
+        prompt["patches"] = batch["patches"]
+    with set_backend(device="cpu"):
+        logits, cache = prefill(ranks.initial_state(cfg).params, cfg, prompt)
+    rows, vocab = logits.shape[0] // data, cfg.vocab // model
+    heads = (partition.attention_mode(cfg, model) == "heads")
+    for r in range(4):
+        got = torch.load(runs / f"partition_rank{r}.pt")["prefill"][name]
+        d, m = divmod(r, model)
+        b = slice(d * rows, (d + 1) * rows)
+        assert got["attention"] == ("heads" if heads else "replicated")
+        torch.testing.assert_close(got["logits"], logits[b, :, m * vocab:(m + 1) * vocab],
+                                   rtol=0, atol=1e-5)
+        kv = slice(None)
+        if heads:  # the KV heads this rank's query heads use
+            per = cfg.n_kv_heads // model or 1
+            first = m * cfg.n_kv_heads // model if cfg.n_kv_heads >= model else (
+                m // (model // cfg.n_kv_heads))
+            kv = slice(first, first + per)
+        for k in ("k", "v"):
+            torch.testing.assert_close(got[k], cache["layers"][k][:, b, kv], rtol=0, atol=1e-5)
+        assert torch.equal(got["pos"], cache["pos"][b])
+
+
+def test_partitioned_step_equals_the_references_sharded_step(runs):
+    ref = dict(np.load(runs / "reference_partition.npz"))
+    got = torch.load(runs / "partition_rank0.pt")["reference_2x2"]
+    losses = [m["loss"] for m in got["metrics"]]
+    assert np.abs(np.asarray(losses) - ref["losses"]).max() < LOSS_TOL
+    for path, t in _flat(got["params"]):
+        key, index = reference_leaf(".".join(path))
+        want = ref["param/" + "/".join(key)]
+        want = want if index is None else want[index]
+        assert np.abs(t.numpy() - want).max() < PARAM_TOL, path
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_partition_factor_is_the_references(runs, mesh):
+    """ranks x per-rank FLOPs / one device's FLOPs: the port's within 10 %
+    of XLA's on the same config and mesh (the gathered step's: 2 on
+    (2, 2), 4 on (1, 4))."""
+    ref = dict(np.load(runs / "reference_partition.npz"))
+    name = f"dense_{mesh}"
+    cfg = ranks.partition_config(name)
+    _, _, single = _single_device(cfg, ranks.partition_batch(cfg), steps=1)
+    port = sum(torch.load(runs / f"partition_rank{r}.pt")["flops"][name]
+               for r in range(4)) / single
+    want = 4 * ref[f"dense_{mesh}"] / ref["dense_single"]
+    assert abs(port - want) <= FACTOR_TOL * want, (port, want)
+    assert port < 1.5  # the model axis splits the work, not repeats it
+
+
+# ---- the dry run in a fake (2, 2) world --------------------------------------------
+
+
+def test_dry_run_partitioned_cell_against_gathered_and_a_hand_count():
+    cfg = get_config("qwen3-32b").scaled(n_layers=2)
+    shape = ShapeSpec("small_train", "train", 64, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, part = dryrun.count_step(fn, args)
+        gathered = _sharded_train_step(cfg, opt, 1, True, mesh)
+        _, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, full = dryrun.count_step(gathered, args)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in specs.param_specs(cfg).parameters())
+    assert part.peak_bytes <= full.peak_bytes - param_bytes
+    assert part.collective_ops == dry_cases.partitioned_collectives(cfg, (2, 2))
+    assert part.flops * 1.5 < full.flops

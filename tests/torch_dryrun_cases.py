@@ -39,7 +39,9 @@ from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable, get_shape
 from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import step_fn_for
+from repro_torch.models.model import FAMILIES
 from repro_torch.obs.clock import perf_counter
+from repro_torch.parallel import AbstractMesh, param_sharding
 from repro_torch.train import AdamWConfig
 
 SMALL_TRAIN = ShapeSpec("small_train", "train", 64, 16)
@@ -91,6 +93,66 @@ def _shapes(tree, prefix=()) -> dict:
         return {n: list(p.shape) for n, p in tree.named_parameters()}
     local = tree.to_local() if hasattr(tree, "to_local") else tree
     return {"/".join(prefix): list(local.shape)}
+
+
+def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> dict:
+    """The collective calls of one partitioned train step (remat on, one
+    microbatch, the batch split on the data axes, the FFN and the
+    vocabulary split on ``model``), counted by hand from the rules of
+    ``parallel/partition.py``'s docstring:
+
+    - each parameter, on a data axis that splits it: an all-gather in each
+      forward pass (a layer's two: the forward and the recomputation) and
+      a reduce-scatter; on one that replicates it: an all-reduce;
+    - on ``model``, attention replicated: every projection that ``model``
+      splits gathered in each pass (its gradient sliced back, no call);
+      attention by heads: the per-head norms' all-reduce, and where KV
+      heads are fewer than ``model``, ``wk`` / ``wv`` (and their biases)
+      gathered in each pass and reduce-scattered;
+    - per layer, the FFN's input all-reduce (``copy_in``'s backward) and
+      its output all-reduce, in the forward only (the recomputation stops
+      at the layer's last saved tensor, before it); by heads, attention's
+      input all-reduce and its output all-reduce in both passes;
+    - once: the embedding's and the unembedding's all-reduces, the
+      cross-entropy's three (max, sum, the target's logit), its sum over
+      each data axis, and the global norm's over every mesh axis."""
+    sizes = dict(zip(names, mesh_shape))
+    m = sizes["model"]
+    data = [a for a in names if a != "model" and sizes[a] > 1]
+    heads = cfg.n_heads % m == 0 and (cfg.n_kv_heads % m == 0 or m % cfg.n_kv_heads == 0)
+    kv_whole = heads and cfg.n_kv_heads % m != 0
+    rules = param_sharding(AbstractMesh(tuple(mesh_shape), tuple(names)),
+                           FAMILIES[cfg.block_pattern](cfg, device="meta"))
+    ag = rs = ar = 0
+    stack = [((), rules)]
+    while stack:
+        path, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((path + (k,), v) for k, v in node.items())
+            continue
+        axes = {a for entry in node if entry
+                for a in ((entry,) if isinstance(entry, str) else entry)}
+        passes = 2 if path[0] == "layers" else 1
+        for a in data:
+            if a in axes:
+                ag, rs = ag + passes, rs + 1
+            else:
+                ar += 1
+        if m == 1 or "attn" not in path:
+            continue
+        if not heads:
+            ag += passes if "model" in axes else 0
+        elif path[-2] in ("q_norm", "k_norm"):
+            ar += 1
+        elif kv_whole and path[-2] in ("wk", "wv"):
+            if "model" in axes:
+                ag, rs = ag + passes, rs + 1
+            else:
+                ar += 1
+    if m > 1:
+        ar += cfg.n_layers * (2 + (3 if heads else 0)) + 1 + 1 + 3
+    ar += len(data) + len(names)
+    return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs}
 
 
 def task_world() -> dict:

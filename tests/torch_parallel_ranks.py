@@ -1,7 +1,7 @@
 """One rank of the port's multi-rank checks on the CPU (``gloo``).
 
-Run by ``tests/test_torch_parallel.py`` and
-``tests/test_torch_launch_train.py``, one process per rank::
+Run by ``tests/test_torch_parallel.py``, ``tests/test_torch_partition.py``
+and ``tests/test_torch_launch_train.py``, one process per rank::
 
     python tests/torch_parallel_ranks.py TASK RANK WORLD DIR
 
@@ -12,6 +12,7 @@ from DIR (numpy files the test wrote) and write their outputs there
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -21,18 +22,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.backend import set_backend
 from repro_torch.obs import clock
 from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_smoke_config
+from repro_torch.convert import from_reference_params
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.ffn import MoE
 from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded
+from repro_torch.launch import specs
 from repro_torch.parallel import gather_state, set_mesh, shard, split_batch
-from repro_torch.parallel.sharding import local_block
-from repro_torch.train import AdamWConfig, make_train_step, train_state_init
+from repro_torch.parallel import partition
+from repro_torch.parallel.sharding import batch_sharding, local_block, param_sharding, shard_state
+from repro_torch.train import (AdamWConfig, TrainState, adamw_init, make_train_step,
+                               train_state_init)
+from repro_torch.train.optim import param_tree
 from repro_torch.train.compress import init_error_state, make_compressed_grad_fn
 from repro_torch.train.step import shard_train_state, state_sharding
 
@@ -234,6 +241,133 @@ def _task_launch(out: str) -> None:
                os.path.join(out, f"launch_rank{dist.get_rank()}.pt"))
 
 
+# the partitioned step's cases (``tests/test_torch_partition.py``): smoke
+# arch, n_heads = n_kv_heads override (None: the smoke config's), mesh.
+# qwen1.5-4b's 4 heads divide both model extents; 5 heads divide neither
+# (attention replicated on model); qwen2.5-32b's 2 KV heads on 4 are
+# shared by two ranks each; qwen3-32b adds the per-head norms; llava the
+# patch prefix
+PARTITION_CASES = {
+    "dense_2x2": ("qwen1.5-4b", None, (2, 2)),
+    "dense_1x4": ("qwen1.5-4b", None, (1, 4)),
+    "odd_heads_2x2": ("qwen1.5-4b", 5, (2, 2)),
+    "odd_heads_1x4": ("qwen1.5-4b", 5, (1, 4)),
+    "shared_kv_1x4": ("qwen2.5-32b", None, (1, 4)),
+    "qk_norm_1x4": ("qwen3-32b", None, (1, 4)),
+    "vlm_2x2": ("llava-next-mistral-7b", None, (2, 2)),
+}
+PREFILL_LEN = 12
+
+
+def partition_config(name: str):
+    arch, heads = PARTITION_CASES[name][:2]
+    cfg = get_smoke_config(arch)
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    return cfg
+
+
+def partition_batch(cfg) -> dict:
+    """The dense cases' batch (``step_batch``), with llava's seeded patch
+    prefix."""
+    batch = step_batch("dense", cfg.vocab)
+    if cfg.block_pattern == "vlm":
+        rng = np.random.default_rng(9)
+        batch["patches"] = torch.from_numpy(
+            rng.standard_normal((8, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+def reference_state(out: str, cfg):
+    """The reference's initial parameters (``ref_init.npz``, written by the
+    test) in the port's model, and zero moments."""
+    arrays = dict(np.load(os.path.join(out, "ref_init.npz")))
+    tree: dict = {}
+    for key, value in arrays.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    params = from_reference_params(tree, cfg)
+    return TrainState(params, adamw_init(AdamWConfig(**OPT), params))
+
+
+def _train_run(mesh, cfg, state, batch, count_flops: bool) -> dict:
+    placed = shard_train_state(mesh, state)
+    step = make_train_step(cfg, AdamWConfig(**OPT), mesh=mesh)
+    metrics, flops = [], None
+    for i in range(STEPS):
+        counter = FlopCounterMode(display=False)
+        with counter if count_flops and i == 0 else contextlib.nullcontext():
+            placed, m = step(placed, batch)
+        if count_flops and i == 0:
+            flops = counter.get_total_flops()
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "params": gather_state(placed)["params"], "flops": flops}
+
+
+def _task_partition(out: str) -> None:
+    """The partitioned train step on every case, 2 steps (rank 0 saves the
+    gathered state and each rank its first step's FLOPs); the partitioned
+    prefill (each rank saves its split logits and KV heads); the same step
+    from the reference's initial parameters on (2, 2)."""
+    meshes: dict = {}
+    results: dict = {"flops": {}, "prefill": {}}
+    rank = dist.get_rank()
+    for name, (_, _, shape) in PARTITION_CASES.items():
+        mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
+        cfg = partition_config(name)
+        batch = partition_batch(cfg)
+        run = _train_run(mesh, cfg, initial_state(cfg), batch, count_flops=True)
+        results["flops"][name] = run.pop("flops")
+        results[name] = run
+        model = initial_state(cfg).params
+        params = shard_state(mesh, param_tree(model), param_sharding(mesh, model))
+        prompt = {k: v[:, :PREFILL_LEN] for k, v in batch.items() if k != "targets"}
+        if "patches" in batch:
+            prompt["patches"] = batch["patches"]
+        placed = shard_state(mesh, prompt, batch_sharding(mesh, prompt))
+        logits, cache = specs._partitioned_prefill(cfg, mesh)(params, placed)
+        results["prefill"][name] = {"logits": logits, "k": cache["layers"]["k"],
+                                    "v": cache["layers"]["v"], "pos": cache["pos"],
+                                    "attention": partition.attention_mode(cfg, mesh.shape[1])}
+    cfg = get_smoke_config("qwen1.5-4b")
+    results["reference_2x2"] = _train_run(meshes[(2, 2)], cfg, reference_state(out, cfg),
+                                          step_batch("dense", cfg.vocab), count_flops=False)
+    torch.save(results if rank == 0 else {"flops": results["flops"],
+                                          "prefill": results["prefill"]},
+               os.path.join(out, f"partition_rank{rank}.pt"))
+
+
+def _task_operators(out: str) -> None:
+    """The model-axis operators on the (1, 4) mesh's ``model`` group, on
+    the test's seeded inputs: each rank's outputs and gradients."""
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    group, r = mesh.get_group("model"), mesh.get_local_rank("model")
+    a = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(out, "operators.npz")).items()}
+    res = {}
+    x = a["x"].clone().requires_grad_(True)
+    y = partition.copy_in(x, group)
+    (y * a["w"][r]).sum().backward()
+    res["copy_in"], res["copy_in_grad"] = y.detach(), x.grad
+    x = a["xs"][r].clone().requires_grad_(True)
+    y = partition.reduce_out(x, group)
+    (y * a["w"][0]).sum().backward()
+    res["reduce_out"], res["reduce_out_grad"] = y.detach(), x.grad
+    n = a["table"].shape[0] // 4
+    table = a["table"][r * n:(r + 1) * n].clone().requires_grad_(True)
+    y = partition.vocab_embed(table, a["tokens"], r * n, group)
+    (y * a["c"]).sum().backward()
+    res["embed"], res["embed_grad"] = y.detach(), table.grad
+    n = a["logits"].shape[-1] // 4
+    logits = a["logits"][..., r * n:(r + 1) * n].clone().requires_grad_(True)
+    nll = partition.vocab_xent(logits, a["targets"], r * n, group)
+    (nll * a["g"]).sum().backward()
+    res["xent"], res["xent_grad"] = nll.detach(), logits.grad
+    torch.save(res, os.path.join(out, f"operators_rank{dist.get_rank()}.pt"))
+
+
 GROUP_TIMEOUT_S = 180  # a hung collective fails its test instead of the suite
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -274,6 +408,7 @@ def wait_all(procs: list, timeout: float = GROUP_TIMEOUT_S) -> None:
 TASKS = {
     "parallel": (_task_train_step, _task_moe, _task_compress, _task_elastic, _task_constrain),
     "launch": (_task_launch,),
+    "partition": (_task_operators, _task_partition),
 }
 
 
