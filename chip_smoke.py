@@ -261,6 +261,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
     step's FLOPs and collective calls on the card equal the ``meta`` count, its
     peak within 3 % of ``max_memory_allocated``, K6's counted operations
     those of 4 local query heads (else the refusal on a line of its own);
+14o. partition decode — the partitioned dense decode step
+    (``Partitioned.decode``: the cache's sequence on ``model``, K5's
+    partial mode, the shards' softmaxes combined): on a (1, 1) mesh in a
+    world of one NCCL rank, Qwen1.5-4B at full width, 2 layers, 2 x 1024
+    prompts, the partitioned prefill and 8 partitioned decode steps (both
+    through ``step_fn_for``, greedy tokens on each side) against
+    ``prefill`` + ``decode_step``: tokens, logits and caches bit for bit,
+    K4 / K5 launches equal, no plain call; K5's partial mode against its
+    plain version at Qwen3-32B decode_32k's shard (8, 64 / 8, 2048, 128)
+    bf16, group 1 and float32, rows whose shard is full, partial or empty
+    (``out`` within float32's 5e-5, ``lse`` within 1e-4, the empty rows
+    0 / -inf); 16 shards of one 32,768-row cache combined against the
+    whole-cache K5 within its bf16 tolerance; both modes, the plain
+    version and SDPA timed at the shard shape; then rank 0 of a fake (16,
+    16) world at Qwen3-32B's width, 2 layers, decode_32k's 128 x 32,768
+    (8 rows x 2,048 positions a rank): FLOPs and collective calls on the
+    card equal the ``meta`` count, the peak within 3 %, one K5 partial
+    launch a layer over 2,048 positions;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -284,10 +302,11 @@ walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 ``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
 14i-14k's on the ``slice13_phases`` line; 14l's on the
 ``slice14_phases`` line; 14m's on the ``slice15_phases`` line; 14n's on
-the ``slice16_phases`` line), the
+the ``slice16_phases`` line; 14o's on the ``slice17_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's and
-14m's launches too), the ``nvidia-smi`` line, and last
+14m's launches too; ``decode_attention_partial`` is K5's partial mode,
+its launches 14o's), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's line carries ``t_s``,
 the seconds since the start.  The host-only references of 5 (the host
 ``wf`` schedules) and 6c (OBTA, NLIP, the host ``rd``) run in one worker
@@ -373,7 +392,7 @@ from repro_torch.train.optim import tree_leaves as ckpt_leaves  # noqa: E402
 from repro_torch.train.step import loss_fn as train_loss_fn  # noqa: E402
 from repro_torch.train.step import shard_train_state  # noqa: E402
 from repro_torch.train.compress import init_error_state, make_compressed_grad_fn  # noqa: E402
-from repro_torch.train.optim import adamw_init  # noqa: E402
+from repro_torch.train.optim import adamw_init, param_tree  # noqa: E402
 from repro_torch.launch import dryrun as dry  # noqa: E402
 from repro_torch.launch import roofline as roof  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
@@ -697,6 +716,12 @@ PARTITION_FAKE_ARCH = "qwen3-32b"
 PARTITION_FAKE = (2, 256, 4096)  # layers, and train_4k's global batch and sequence
 PARTITION_FAKE_MESH = (16, 16)
 PARTITION_PEAK_TOL = 0.03
+SLICE17_BUDGET_S = 60  # partition_decode
+PARTITION_DECODE_STEPS = 8
+PARTITION_DECODE_FAKE = (2, 128, 32768)  # layers, and decode_32k's global batch and cache
+K5_SHARD = (8, 64, 8, 2048, 128)  # B, H, Hkv, T, hd: Qwen3-32B decode_32k's block on (16, 16)
+K5_SHARDS = 16  # the model axis of pod16x16: one 32,768-row cache's shards
+K5_LSE_TOL = 1e-4  # |lse - plain lse| (natural log units), fp32 math on both sides
 EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locality")
 # the training example's two calls at its default 8 x 128 tokens a step:
 # 26 steps failing data host 3 at step 13, then resumed to 51 (the async
@@ -3269,7 +3294,8 @@ def _attention_cases(phase: str, gen: torch.Generator, k5: list, k6: list, views
     counts = _model_counts()
     n5 = sum(r[0] == "decode_attention" for r in runs)
     n6 = len(runs) - n5
-    if (counts["decode_attention"] != {"decode_attention": n5, "plain": 0}
+    if (counts["decode_attention"] != {"decode_attention": n5, "decode_attention_partial": 0,
+                                       "plain": 0}
             or counts["flash_attention"]["flash_attention"] != n6
             or counts["flash_attention"]["plain"] != 0):
         raise AssertionError(f"{phase}: {n5} K5 and {n6} K6 calls gave counts "
@@ -4682,6 +4708,288 @@ def slice16_phases(seed: int, card: str) -> dict:
     return counts
 
 
+# ---- slice 17: the partitioned dense decode step ---------------------------------
+
+
+def _k5_partial_bound(q: torch.Tensor, hkv: int, t: int, pos: torch.Tensor) -> tuple[float, str]:
+    """The partial mode's bound at this run's positions: q read, the fp32
+    output and ``lse`` written, each row's keys ``t <= pos`` (clamped to the
+    shard) of K and V read once, ``pos`` read."""
+    b, h, hd = q.shape
+    item = q.element_size()
+    keys = int((pos.clamp(min=-1, max=t - 1) + 1).sum())
+    nbytes = b * h * hd * (item + 4) + 4 * b * h + 2 * keys * hkv * hd * item + 4 * b
+    return _bound(nbytes, 4 * keys * h * hd, PEAK_BF16_FLOPS)
+
+
+def _k5_partial_case(gen: torch.Generator, shape: tuple, dtype, pos: list) -> dict:
+    """K5's partial mode against its plain version on one set of inputs:
+    ``out`` (fp32 from either input dtype) within MODEL_TOL's float32
+    limits, ``lse`` within K5_LSE_TOL, the same rows at ``-inf``."""
+    b, h, hkv, t, hd = shape
+    q = _randn(gen, (b, h, hd), dtype)
+    k, v = _randn(gen, (b, hkv, t, hd), dtype), _randn(gen, (b, hkv, t, hd), dtype)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    out, lse = dak.decode_attention_partial(q, k, v, p)
+    want_out, want_lse = dak.decode_attention_partial_plain(q, k, v, p)
+    torch.cuda.synchronize()
+    empty = want_lse == float("-inf")
+    out_err, out_ok = _model_err(out, want_out, "float32")
+    lse_err = float((lse[~empty] - want_lse[~empty]).abs().max())
+    return {"shape": list(shape), "dtype": str(dtype).removeprefix("torch."), "pos": pos,
+            "out_max_abs_err": out_err, "lse_max_abs_err": lse_err,
+            "empty_rows": int(empty.all(dim=1).sum()),
+            "ok": out_ok and lse_err <= K5_LSE_TOL
+            and bool(torch.equal(lse == float("-inf"), empty))
+            and bool((out[empty] == 0).all())}
+
+
+def _k5_partial_checks(seed: int) -> dict:
+    """K5's partial mode on the card: against its plain version at Qwen3-32B
+    decode_32k's shard (bf16), a group-1 shape and float32, with rows
+    whose shard is full, partial and empty; 16 shards of one 32,768-row
+    cache combined against the whole-cache K5 (its bf16 tolerance); and
+    the timings at the shard shape of both modes, the plain version and
+    ``F.scaled_dot_product_attention``."""
+    F = torch.nn.functional
+    gen = torch.Generator(device="cuda").manual_seed(seed + 310)
+    b, h, hkv, t, hd = K5_SHARD
+    # rows past the shard (full), inside it (partial), before it (empty)
+    pos = [t + 5000, t - 1, t, 1000, 37, 0, -1, -t]
+    cases = [_k5_partial_case(gen, K5_SHARD, torch.bfloat16, pos),
+             _k5_partial_case(gen, (b, hkv, hkv, t, hd), torch.bfloat16, pos),
+             _k5_partial_case(gen, K5_SHARD, torch.float32, pos)]
+    width, whole_t = t, t * K5_SHARDS
+    q = _randn(gen, (b, h, hd), torch.bfloat16)
+    k = _randn(gen, (b, hkv, whole_t, hd), torch.bfloat16)
+    v = _randn(gen, (b, hkv, whole_t, hd), torch.bfloat16)
+    gpos = torch.tensor([whole_t - 1, 0, width - 1, width, 15000, 30000, 100, 20000],
+                        dtype=torch.int32, device="cuda")
+    whole = dak.decode_attention(q, k, v, gpos)
+    parts = [dak.decode_attention_partial(q, k[:, :, r * width:(r + 1) * width].contiguous(),
+                                          v[:, :, r * width:(r + 1) * width].contiguous(),
+                                          gpos - r * width) for r in range(K5_SHARDS)]
+    combined = dak.combine_partials(torch.stack([o for o, _ in parts]),
+                                    torch.stack([lse for _, lse in parts]))
+    torch.cuda.synchronize()
+    comb_err, comb_ok = _model_err(combined, whole, "bfloat16")
+    del k, v, parts, whole, combined
+    q = _randn(gen, (b, h, hd), torch.bfloat16)
+    k, v = _randn(gen, (b, hkv, t, hd), torch.bfloat16), _randn(gen, (b, hkv, t, hd), torch.bfloat16)
+    full = torch.full((b,), t - 1, dtype=torch.int32, device="cuda")
+    partial = _rotating(dak.decode_attention_partial, (q, k, v, full))
+    timed = _time_three(partial, _rotating(dak.decode_attention_partial_plain, (q, k, v, full)),
+                        _rotating(lambda *a: F.scaled_dot_product_attention(
+                            a[0][:, :, None], a[1], a[2], enable_gqa=True), (q, k, v)), 200)
+    timed["whole_mode_ms"] = device_ms_per_call(
+        _rotating(dak.decode_attention, (q, k, v, full)), 200)
+    bound, by = _k5_partial_bound(q, hkv, t, full)
+    row = {"shape": list(K5_SHARD), "pos": t - 1, **timed, "bound_ms": bound, "bound_by": by,
+           "chunk_splits": dak.split_plan(b, hkv, t, _sms(), h // hkv)}
+    return {"cases": cases, "combine": {"shards": K5_SHARDS, "cache": whole_t,
+                                        "pos": gpos.tolist(), "max_abs_err": comb_err,
+                                        "ok": comb_ok},
+            "timed": row, "max_abs_err": max([comb_err] + [c["out_max_abs_err"]
+                                                           for c in cases]),
+            "ok": comb_ok and all(c["ok"] for c in cases)}
+
+
+def _partition_decode_one_rank(seed: int, mesh) -> dict:
+    """On a (1, 1) mesh, Qwen1.5-4B at full width, PARTITION_MODEL's 2
+    layers, 2 x 1024 prompts: the partitioned prefill and then
+    PARTITION_DECODE_STEPS partitioned decode steps, both built by
+    ``step_fn_for`` as the dry run builds them (the decode cell's cache
+    holds the prefill's rows and room for the steps), each side feeding
+    its own greedy tokens, against ``prefill`` + ``decode_step``: tokens,
+    logits and caches bit for bit (a ``model`` group of one takes K5's
+    whole-cache launch), K4 / K5 launches equal, no plain call."""
+    layers, b, s = PARTITION_MODEL
+    n = PARTITION_DECODE_STEPS
+    cfg = get_config(PARTITION_ARCH).scaled(n_layers=layers)
+    opt_cfg = TrainAdamWConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+    params = init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda", dtype=torch.int32)
+    full = dict(_tree_paths(param_tree(params)))
+    _reset_model_counts()
+    want, cache = prefill(params, cfg, {"tokens": toks}, max_len=s + n)
+    want_tokens, want_logits = [], [want]
+    for _ in range(n):
+        nxt = want_logits[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        want_tokens.append(nxt)
+        logits, cache = decode_step(params, cfg, nxt, cache)
+        want_logits.append(logits)
+    single = _model_counts()
+    pre = ShapeSpec("partition_decode_prefill", "prefill", s, b)
+    dec = ShapeSpec("partition_decode", "decode", s + n, b)
+
+    def built(shape):
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="cuda",
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        with torch.no_grad():  # a (1, 1) mesh's blocks are the whole tensors
+            for path, t in _tree_paths(args[0]):
+                t.to_local().copy_(full[path])
+        return fn, args
+
+    _reset_model_counts()
+    fn, args = built(pre)
+    args[1]["tokens"].to_local().copy_(toks)
+    got, pcache = fn(*args)
+    del fn, args
+    fn, (blocks, tokens, dcache) = built(dec)
+    with torch.no_grad():
+        for key in ("k", "v"):
+            dcache["layers"][key].to_local()[:, :, :, :s].copy_(pcache["layers"][key])
+        dcache["pos"].to_local().copy_(pcache["pos"])
+    got_tokens, got_logits = [], [got]
+    for _ in range(n):
+        nxt = got_logits[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        got_tokens.append(nxt)
+        tokens.to_local().copy_(nxt)
+        logits, dcache = fn(blocks, tokens, dcache)
+        got_logits.append(logits)
+    part = _model_counts()
+    same_cache = all(bool(torch.equal(dcache["layers"][k].to_local(), cache["layers"][k]))
+                     for k in ("k", "v")) and bool(torch.equal(dcache["pos"].to_local(),
+                                                               cache["pos"]))
+    row = {
+        "arch": PARTITION_ARCH, "layers": layers, "batch": [b, s], "decode_steps": n,
+        "tokens_equal": all(bool(torch.equal(a, c)) for a, c in zip(got_tokens, want_tokens)),
+        "logits_bit_equal": all(bool(torch.equal(a, c))
+                                for a, c in zip(got_logits, want_logits)),
+        "logits_max_abs_err": max(float((a - c).abs().max())
+                                  for a, c in zip(got_logits, want_logits)),
+        "cache_bit_equal": same_cache,
+        "launches": {"partitioned": _launches(part), "single": _launches(single)},
+        "k5_partial_launches": part["decode_attention"]["decode_attention_partial"],
+        "plain_calls": _plain_calls(part) + _plain_calls(single)}
+    row["ok"] = (row["tokens_equal"] and row["logits_bit_equal"] and same_cache
+                 and row["launches"]["partitioned"] == row["launches"]["single"]
+                 and row["launches"]["single"]["decode_attention"] == n * layers
+                 and row["k5_partial_launches"] == 0 and row["plain_calls"] == 0)
+    return {"row": row, "counts": [part, single]}
+
+
+def _partition_decode_fake(seed: int) -> dict:
+    """Rank 0 of a fake (16, 16) world at Qwen3-32B's full width, 2 layers,
+    decode_32k's 128 x 32,768 (a block of 8 rows x 2,048 positions on a
+    rank): the partitioned decode step counted on ``meta`` (a CPU mesh)
+    and run on the card (a CUDA mesh), counted the same way; FLOPs and
+    collective calls equal, the meta peak within PARTITION_PEAK_TOL of
+    ``max_memory_allocated``, one K5 partial launch a layer over the
+    rank's 2,048 positions and no whole-cache one, K4 launches = meta
+    calls, no plain call.  The collectives return at once, their outputs
+    undefined: only shapes and counts are compared.  The counts are set
+    to 0 just before the card's step and read just after it."""
+    layers, b, s = PARTITION_DECODE_FAKE
+    cfg = get_config(PARTITION_FAKE_ARCH).scaled(n_layers=layers)
+    shape = ShapeSpec("partition_decode_fake", "decode", s, b)
+    opt_cfg = TrainAdamWConfig()
+    world = math.prod(PARTITION_FAKE_MESH)
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cpu")
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh,
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        out, meta = dry.count_step(fn, args)
+        del fn, args, out
+    gen = torch.Generator(device="cuda").manual_seed(seed + 311)
+    _free()
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="cuda",
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        _fill_step_args("decode", args, gen, cfg.vocab)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_model_counts()
+        t0 = time.perf_counter()
+        out, card = dry.count_step(fn, args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _model_counts()
+        del fn, args, out
+    _free()
+    b_l, s_l = b // PARTITION_FAKE_MESH[0], s // PARTITION_FAKE_MESH[1]
+    k5 = card.kernels["decode_attention_partial"]
+    per_call = dak.op_count(b_l, cfg.n_heads, cfg.n_kv_heads, s_l, cfg.head_dim_)
+    row = {"arch": PARTITION_FAKE_ARCH, "layers": layers, "batch": [b, s],
+           "block": [b_l, s_l], "mesh": list(PARTITION_FAKE_MESH), "rank": 0,
+           "flops_meta": meta.flops, "flops_cuda": card.flops,
+           "peak_bytes_meta": meta.peak_bytes, "peak_bytes_cuda": peak,
+           "peak_ratio": meta.peak_bytes / peak,
+           "collective_ops_meta": meta.collective_ops, "collective_ops_cuda": card.collective_ops,
+           "collective_wire_bytes": card.collective_wire_bytes,
+           "k5_partial_calls": k5["calls"], "k5_partial_ops": k5["ops"],
+           "k5_ops_at_local_positions": k5["calls"] * per_call,
+           "launches": _launches(counts),
+           "k5_partial_launches": counts["decode_attention"]["decode_attention_partial"],
+           "plain_calls": _plain_calls(counts), "wall_s": wall}
+    row["checks"] = {
+        "flops_equal": meta.flops == card.flops,
+        "peak_within_tol": abs(meta.peak_bytes / peak - 1) <= PARTITION_PEAK_TOL,
+        "collectives_equal": meta.collective_ops == card.collective_ops,
+        "k5_partial_a_layer": row["k5_partial_launches"] == layers == k5["calls"]
+        and row["launches"]["decode_attention"] == 0,
+        "k5_on_local_positions": k5["ops"] == k5["calls"] * per_call,
+        "k4_launches_equal_meta_calls": row["launches"]["rmsnorm"]
+        == card.kernels["rmsnorm"]["calls"] == meta.kernels["rmsnorm"]["calls"],
+        "no_plain_call": row["plain_calls"] == 0,
+    }
+    return {"row": row, "counts": counts}
+
+
+def phase_partition_decode(seed: int, card: str) -> tuple[dict, dict]:
+    """The partitioned dense decode on the card (``Partitioned.decode``):
+    (a) :func:`_partition_decode_one_rank` in a world of one NCCL rank;
+    (b) K5's partial mode (:func:`_k5_partial_checks`); (c) where torch's
+    ``fake`` backend takes CUDA tensors (the slice-16 probe),
+    :func:`_partition_decode_fake`, else the refusal on a line of its own.
+    Every check is made, the line emitted, and then a failure raises.
+    Returns the main-path launches of (a) and (c) in ``_model_counts``'
+    form, and (b)'s row for the ``kernels`` line."""
+    with one_rank_world() as mesh:
+        one = _partition_decode_one_rank(seed, mesh)
+    _free()
+    _reset_model_counts()
+    kernel = _k5_partial_checks(seed)
+    _free()
+    refused = _partition_fake_probe()
+    fake = _partition_decode_fake(seed) if refused is None else None
+    if refused is not None:
+        print(f"partition_decode: the fake backend refuses CUDA tensors ({refused}); "
+              "the (1, 1) and kernel checks stand alone", flush=True)
+    emit({"phase": "partition_decode", "card": card,
+          "reduced": {"one_rank": f"{PARTITION_MODEL[0]} of "
+                      f"{get_config(PARTITION_ARCH).n_layers} layers",
+                      "fake_world": f"{PARTITION_DECODE_FAKE[0]} of "
+                      f"{get_config(PARTITION_FAKE_ARCH).n_layers} layers"},
+          "world": "one NCCL rank on cuda:0, a (1, 1) (data, model) mesh",
+          "one_rank": one["row"], "k5_partial": kernel,
+          "k5_lse_tol": K5_LSE_TOL, "fake_world": fake["row"] if fake else {"refused": refused}})
+    ok = one["row"]["ok"] and kernel["ok"] and (fake is None or all(fake["row"]["checks"].values()))
+    if not ok:
+        raise AssertionError(f"partition_decode failed: one rank {one['row']}, kernel "
+                             f"{kernel['cases']} {kernel['combine']}, fake "
+                             f"{fake['row'] if fake else refused}")
+    counts_all = one["counts"] + ([fake["counts"]] if fake else [])
+    counts = {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
+              for k in counts_all[0]}
+    return counts, kernel
+
+
+def slice17_phases(seed: int, card: str) -> tuple[dict, dict]:
+    """The partitioned decode; its wall on the ``slice17_phases`` line."""
+    t0 = time.perf_counter()
+    counts, kernel = phase_partition_decode(seed, card)
+    seconds = {"partition_decode": time.perf_counter() - t0}
+    emit({"phase": "slice17_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE17_BUDGET_S, "card": card})
+    return counts, kernel
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -5287,6 +5595,8 @@ def run(args: argparse.Namespace, pool) -> int:
     example_launches, example_counts = slice15_phases(dev["nvidia_smi"])
     # this slice: the partitioned dense train and prefill steps
     partition_counts = slice16_phases(args.seed, dev["nvidia_smi"])
+    # this slice: the partitioned dense decode step
+    decode_counts, k5_partial = slice17_phases(args.seed, dev["nvidia_smi"])
     for row in example_launches.values():
         launches["wf_fused"] += row["wf_fused"]
         rd_launches += row["rd_step"]
@@ -5366,7 +5676,7 @@ def run(args: argparse.Namespace, pool) -> int:
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
              vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
-             parallel_counts, *example_counts, partition_counts]
+             parallel_counts, *example_counts, partition_counts, decode_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}
@@ -5437,6 +5747,27 @@ def run(args: argparse.Namespace, pool) -> int:
                                             "library_ms": row["library_ms"]}
                     for label, row in source["timed"].items() if label.startswith(name)}
         summary.append(entry)
+    # K5's partial mode: the partitioned decode's attention over a rank's
+    # shard, timed at Qwen3-32B decode_32k's block
+    timed = k5_partial["timed"]
+    summary.append({
+        "name": "decode_attention_partial",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:67",
+        "contract": "K5 over a cache shard at shard-local positions: fp32 out and each "
+        "head's log-sum-exp, combined across the model axis",
+        "launches": sum(c["decode_attention"].get("decode_attention_partial", 0)
+                        for c in paths),
+        "max_abs_err": k5_partial["max_abs_err"],
+        "ms": timed["kernel_ms"],
+        "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
+        "library_ms": timed["library_ms"],
+        "shape": timed["shape"],
+        "whole_mode_ms": timed["whole_mode_ms"],
+    })
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(dev["nvidia_smi"], flush=True)

@@ -16,6 +16,14 @@
 // is cast back to the input dtype, and is 0 for pos < 0 (no key), as the
 // TPU kernel gives.
 //
+// Partial mode (lse not null): the launch also writes lse (B, H) fp32,
+// each head's log-sum-exp of its scaled logits over the keys it read, in
+// natural-log units (-inf where it read none), and writes out in fp32
+// rather than the input dtype, still normalised.  A cache split over
+// ranks by the sequence (shard-local pos = pos - offset, negative for a
+// shard wholly past pos) then combines the shards' (out, lse) exactly:
+// weights exp(lse - max lse), the outputs' weighted sum over the weights'.
+//
 // What bounds it on this card: the cache is read once, 2 * T * hd
 // elements per (sequence, KV head), with about 4 * G operations per
 // element read, so device-memory bandwidth bounds it.
@@ -142,7 +150,8 @@ template <typename T, int NG, int EPL, int NV>
 __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const int* __restrict__ pos,
-                            T* __restrict__ out, float* __restrict__ part,
+                            T* __restrict__ out, float* __restrict__ out32,
+                            float* __restrict__ lse, float* __restrict__ part,
                             int* __restrict__ tickets, int n_heads, int n_kv_heads,
                             int t_len, int hd, int group, int slice_heads,
                             int n_slices, int chunk, int splits, int lanes_log2,
@@ -353,8 +362,14 @@ __global__ void __launch_bounds__(kThreads, NG <= 2 ? 4 : 2)
       o = o * fa + a * fb;
       mt = mn;
     }
-    out[((size_t)b * n_heads + (size_t)h0 + g) * hd + d] =
-        from_float<T>(lt > 0.f ? o / lt : 0.f);
+    const size_t row = (size_t)b * n_heads + (size_t)h0 + g;
+    const float val = lt > 0.f ? o / lt : 0.f;
+    if (lse == nullptr) {
+      out[row * hd + d] = from_float<T>(val);
+    } else {  // partial mode: fp32 out and the head's log-sum-exp
+      out32[row * hd + d] = val;
+      if (d == 0) lse[row] = lt > 0.f ? mt + logf(lt) : -INFINITY;
+    }
   }
   if (threadIdx.x == 0) tickets[bs] = 0;
 }
@@ -363,6 +378,7 @@ struct Args {
   const void *q, *k, *v;
   const int* pos;
   void* out;
+  float* lse;
   float* part;
   int* tickets;
   int batch, n_heads, n_kv_heads, t_len, hd, group, slice_heads, n_slices, chunk, splits;
@@ -382,7 +398,9 @@ int launch_one(const Args& a, cudaStream_t s) {
   decode_attention_kernel<T, NG, EPL, NV>
       <<<dim3(a.splits, a.n_kv_heads * a.n_slices, a.batch), kThreads, 0, s>>>(
           static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-          a.pos, static_cast<T*>(a.out), a.part, a.tickets, a.n_heads, a.n_kv_heads, a.t_len,
+          a.pos, a.lse ? nullptr : static_cast<T*>(a.out),
+          a.lse ? static_cast<float*>(a.out) : nullptr, a.lse, a.part, a.tickets, a.n_heads,
+          a.n_kv_heads, a.t_len,
           a.hd, a.group, a.slice_heads, a.n_slices, a.chunk, a.splits, lanes_log2, a.scale);
   return (int)cudaGetLastError();
 }
@@ -451,6 +469,8 @@ int launch(const Args& a, int epl, int nv, cudaStream_t s) {
 // (the kernel leaves it 0).  The group G = H / Hkv is cut into n_slices =
 // ceil(G / 8) slices of slice_heads = ceil(G / n_slices) heads (the last
 // may hold fewer); the caller sizes its buffers by the same rule.
+// lse: null, or a float32 (B, H) buffer for the partial mode (out is
+// then float32 too; see the header).
 // Launches on `stream` and returns cudaGetLastError() after the launch (0
 // on success); nothing here synchronises.  Refuses (cudaErrorInvalidValue)
 // what the kernel does not take: hd past 256 or not a multiple of epl; a
@@ -460,7 +480,7 @@ int launch(const Args& a, int epl, int nv, cudaStream_t s) {
 // 64 splits.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, void* out, void* part,
-                                       void* tickets, int batch, int n_heads,
+                                       void* tickets, void* lse, int batch, int n_heads,
                                        int n_kv_heads, int t_len, int hd, int chunk,
                                        int splits, int epl, int nv, float scale, int dtype,
                                        void* stream) {
@@ -474,7 +494,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   const int n_slices = (group + kMaxSlice - 1) / kMaxSlice;
   const int slice_heads = (group + n_slices - 1) / n_slices;
   if ((long long)n_kv_heads * n_slices > 65535) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
+  const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(lse),
+               static_cast<float*>(part),
                static_cast<int*>(tickets), batch, n_heads, n_kv_heads, t_len, hd, group,
                slice_heads, n_slices, chunk, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -28,20 +28,32 @@ head ``h`` reads KV head ``h // (H // Hkv)``.
   For ``pos < 0`` (no valid key, which no caller passes) the two differ:
   the plain version averages every value row, the kernel returns 0, as
   the TPU kernel does.
+- :func:`decode_attention_partial` is the same launch in its partial
+  mode, for a cache split over ranks by the sequence: ``pos`` is the
+  shard-local position (``pos - offset``, negative where the shard lies
+  wholly past it) and it returns ``(out, lse)``, ``out`` (B, H, hd)
+  fp32, still normalised, and ``lse`` (B, H) fp32, each head's
+  log-sum-exp of its scaled logits over the shard's keys ``t <= pos``
+  (natural log); a head with no key gets ``out = 0``, ``lse = -inf``.
+  :func:`combine_partials` puts shards' partials together into the whole
+  cache's result.  :func:`decode_attention_partial_plain` is its plain
+  version, the same ``-inf`` / 0 where a row has no key.
 
 The kernel's merge finds the last block of a (sequence, KV head, slice)
 by a ticket counter that this module keeps per device and the kernel resets
 to 0; launches that share the counters run one at a time (one stream).
 
-``COUNTS`` holds plain integers: ``decode_attention`` counts kernel
-launches, ``plain`` counts calls of the plain version.
+``COUNTS`` holds plain integers: ``decode_attention`` and
+``decode_attention_partial`` count kernel launches of each mode,
+``plain`` counts calls of either plain version.
 :func:`reset_counts` zeroes them.
 
 The dry run's rules (:mod:`._tensors`, inside its ``counting`` scope):
 ``meta`` inputs get :func:`decode_attention`'s shape rule (``out`` like
 ``q`` and the fp32 partials the launch allocates, planned for an
-H100's SMs), after the launch's checks, and every call adds
-:func:`op_count` and :func:`byte_count`.  Both read shapes only: a count
+H100's SMs; in the partial mode ``out`` fp32 and ``lse`` (B, H) fp32),
+after the launch's checks, and every call adds :func:`op_count` and
+:func:`byte_count` (with ``lse=True`` in the partial mode).  Both read shapes only: a count
 cannot read ``pos``, which lies on the device, so they take every one of
 the T cache rows, and where the kernel stops at ``pos + 1`` they are
 upper bounds.
@@ -64,7 +76,10 @@ __all__ = [
     "MAX_SLICE",
     "NEG_INF",
     "byte_count",
+    "combine_partials",
     "decode_attention",
+    "decode_attention_partial",
+    "decode_attention_partial_plain",
     "decode_attention_plain",
     "group_slices",
     "lane_plan",
@@ -87,7 +102,7 @@ THREADS = 128  # the kernel's block: 4 warps
 
 _TICKETS: dict[int, torch.Tensor] = {}  # device index -> int32 counters, all 0
 
-COUNTS = {"decode_attention": 0, "plain": 0}
+COUNTS = {"decode_attention": 0, "decode_attention_partial": 0, "plain": 0}
 
 
 def reset_counts() -> None:
@@ -109,6 +124,38 @@ def decode_attention_plain(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bngt,bnth->bngh", p, v.float())
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def decode_attention_partial_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partial mode's function in plain PyTorch: ``(out, lse)`` fp32
+    (module docstring)."""
+    COUNTS["plain"] += 1
+    b, h, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, h // hkv, hd)
+    logits = torch.einsum("bngh,bnth->bngt", qg, k.float()) * hd**-0.5
+    valid = torch.arange(t, device=q.device)[None, :] <= pos[:, None]
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    lse = torch.logsumexp(logits, dim=-1)
+    out = torch.einsum("bngt,bnth->bngh", torch.exp(logits - lse[..., None]), v.float())
+    empty = (pos < 0)[:, None, None]
+    out = torch.where(empty[..., None], 0.0, out)
+    lse = torch.where(empty, float("-inf"), lse)
+    return out.reshape(b, h, hd), lse.reshape(b, h)
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The whole cache's result from its shards' partials: ``outs`` (n, B,
+    H, hd) and ``lses`` (n, B, H), stacked over the n shards; weights
+    ``exp(lse - max lse)`` (0 for an empty shard), the outputs' weighted
+    sum over the weights' (0 where no shard read a key).  fp32."""
+    top = lses.amax(dim=0)
+    w = torch.where(lses == float("-inf"), 0.0, torch.exp(lses - top))
+    num = (outs.float() * w[..., None]).sum(dim=0)
+    den = w.sum(dim=0)[..., None]
+    return torch.where(den > 0, num / den.clamp(min=torch.finfo(torch.float32).tiny), 0.0)
 
 
 def group_slices(group: int) -> tuple[int, int]:
@@ -148,23 +195,24 @@ def _partial_rows(b: int, h: int, hkv: int, t: int, sms: int) -> int:
 
 
 def op_count(b: int, h: int, hkv: int, t: int, hd: int) -> int:
-    """Operations of one call: q . k and p . v over all ``t`` cache rows
-    for each of the B x H query heads, ``4 * B * H * T * hd``.  An upper
-    bound: the kernel reads the keys up to ``pos`` only."""
+    """Operations of one call (either mode): q . k and p . v over all ``t``
+    cache rows for each of the B x H query heads, ``4 * B * H * T * hd``.
+    An upper bound: the kernel reads the keys up to ``pos`` only."""
     return 4 * b * h * t * hd
 
 
 def byte_count(b: int, h: int, hkv: int, t: int, hd: int, itemsize: int,
-               sms: int = H100_SMS) -> int:
+               sms: int = H100_SMS, lse: bool = False) -> int:
     """Device-memory bytes of one call: q, ``pos`` and the output once, the
     K and V rows of all ``t`` positions once per slice of the group (an
     upper bound, as :func:`op_count`), and the fp32 partials written by
-    the splits and read by the merge."""
+    the splits and read by the merge.  ``lse``: the partial mode, whose
+    output is fp32 and which writes ``4 * B * H`` bytes of ``lse`` more."""
     n_slices = group_slices(h // hkv)[0]
-    qo = 2 * b * h * hd * itemsize
+    qo = b * h * hd * (itemsize + (4 if lse else itemsize))
     kv = 2 * b * hkv * t * hd * itemsize * n_slices
     part = 2 * _partial_rows(b, h, hkv, t, sms) * (hd + 2) * 4
-    return qo + kv + part + 4 * b
+    return qo + kv + part + 4 * b + (4 * b * h if lse else 0)
 
 
 @functools.cache
@@ -237,7 +285,7 @@ def _launcher():
     fn = _build.library("decode_attention").decode_attention_launch
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
-    fn.argtypes = [ptr] * 7 + [i32] * 9 + [ctypes.c_float, i32, ptr]
+    fn.argtypes = [ptr] * 8 + [i32] * 9 + [ctypes.c_float, i32, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -276,7 +324,8 @@ def _k5_abstract(geom: dict):
     g, hd = geom["group"], geom["hd"]
     q = torch.zeros(1, g, hd, dtype=dt)
     kv = torch.zeros(1, 1, 8, hd, dtype=dt)
-    return decode_attention, (q, kv, kv, torch.tensor([3], dtype=torch.int32))
+    fn = decode_attention_partial if geom["lse"] else decode_attention
+    return fn, (q, kv, kv, torch.tensor([3], dtype=torch.int32))
 
 
 @contract(
@@ -287,13 +336,15 @@ def _k5_abstract(geom: dict):
         choice("group", 1, 2, 4, 8, 9, 16, 17, 32, 64),
         choice("dtype", "float32", "bfloat16"),
         choice("device", "cuda", "cpu"),
+        choice("lse", False, True),  # the partial mode: the same instance, lse written
     ),
     backends=("cuda", "plain", "refused"),
     device_backends=("cuda",),
     dispatch=_k5_dispatch,
     smem=_k5_smem,
     # the compiled instance (NG, EPL, NV) and hd, which the launch takes
-    # at run time: at most 2 dtypes x 4 slice widths x 256 widths
+    # at run time: at most 2 dtypes x 4 slice widths x 256 widths (the
+    # partial mode is a pointer the same instance takes)
     signature=lambda geom: ("decode_attention", geom["dtype"],
                             _instance_heads(geom["group"],
                                             lane_plan(geom["hd"], _itemsize(geom))[1]),
@@ -301,31 +352,59 @@ def _k5_abstract(geom: dict):
     max_signatures=2 * 4 * MAX_HEAD_DIM,
     abstract=_k5_abstract,
     notes="K5: every group (ceil(G / 8) slices) and every hd from 1 to 256 "
-    "launch; past 256 a CUDA tensor is refused, a CPU tensor takes the plain "
-    "version",
+    "launch, in both modes; past 256 a CUDA tensor is refused, a CPU tensor "
+    "takes the plain version",
 )
 def decode_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
 ) -> torch.Tensor:
     """Launch the CUDA kernel; CPU tensors take :func:`decode_attention_plain`.
     Launches on the current stream and does not synchronise."""
+    return _run(q, k, v, pos, partial=False)
+
+
+def decode_attention_partial(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel in its partial mode: ``(out, lse)`` fp32 over
+    a shard of the cache, ``pos`` shard-local (module docstring); CPU
+    tensors take :func:`decode_attention_partial_plain`.  Launches on the
+    current stream and does not synchronise."""
+    return _run(q, k, v, pos, partial=True)
+
+
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+         partial: bool):
+    """Either mode's launch (``decode_attention``'s checks and routes)."""
     _check(q, k, v, pos)
     code = check_dtype("decode_attention", q, k, v)
     dev = check_device("decode_attention", q, k, v, pos)
     b, h, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    plain = decode_attention_partial_plain if partial else decode_attention_plain
+
+    def outputs(device):
+        out = torch.empty(q.shape, dtype=torch.float32 if partial else q.dtype, device=device)
+        lse = torch.empty((b, h), dtype=torch.float32, device=device) if partial else None
+        return out, lse
+
     if dev == "cpu":
         if not active():
-            return decode_attention_plain(q, k, v, pos)
-        # the launch's output and partials, in the counters' sight
-        out = torch.empty_like(q)
+            return plain(q, k, v, pos)
+        # the launch's outputs and partials, in the counters' sight
+        out, lse = outputs("cpu")
         part = torch.empty(_partial_rows(b, h, hkv, t, H100_SMS) * (hd + 2),
                            dtype=torch.float32)
         with uncounted():
-            out.copy_(decode_attention_plain(q, k, v, pos))
+            got = plain(q, k, v, pos)
+            if partial:
+                out.copy_(got[0])
+                lse.copy_(got[1])
+            else:
+                out.copy_(got)
         del part
-        _count(b, h, hkv, t, hd, q.element_size())
-        return out
+        _count(b, h, hkv, t, hd, q.element_size(), partial)
+        return (out, lse) if partial else out
     plan = lane_plan(hd, q.element_size())
     if plan is None:
         raise ValueError(
@@ -340,12 +419,12 @@ def decode_attention(
         raise ValueError(f"decode_attention: q, k and v must be {align}-byte aligned")
     sms = H100_SMS if dev == "meta" else _sms(q.device.index)
     chunk, splits = split_plan(b, hkv, t, sms, h // hkv)
-    out = torch.empty_like(q)
+    out, lse = outputs(q.device)
     rows = b * hkv * n_slices * splits * slice_heads  # partial rows of hd + 2
     part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
     if dev == "meta":
-        _count(b, h, hkv, t, hd, q.element_size())
-        return out
+        _count(b, h, hkv, t, hd, q.element_size(), partial)
+        return (out, lse) if partial else out
     err = _launcher()(
         q.data_ptr(),
         k.data_ptr(),
@@ -354,6 +433,7 @@ def decode_attention(
         out.data_ptr(),
         part.data_ptr(),
         _tickets(q.device, b * hkv * n_slices).data_ptr(),
+        lse.data_ptr() if partial else None,
         b,
         h,
         hkv,
@@ -370,14 +450,14 @@ def decode_attention(
     if err != 0:
         raise RuntimeError(
             f"decode_attention kernel launch failed with CUDA error {err} "
-            f"(B={b}, H={h}, Hkv={hkv}, T={t}, hd={hd}, dtype={q.dtype})"
+            f"(B={b}, H={h}, Hkv={hkv}, T={t}, hd={hd}, dtype={q.dtype}, partial={partial})"
         )
-    COUNTS["decode_attention"] += 1
+    COUNTS["decode_attention_partial" if partial else "decode_attention"] += 1
     if active():
-        _count(b, h, hkv, t, hd, q.element_size())
-    return out
+        _count(b, h, hkv, t, hd, q.element_size(), partial)
+    return (out, lse) if partial else out
 
 
-def _count(b: int, h: int, hkv: int, t: int, hd: int, itemsize: int) -> None:
-    count("decode_attention", op_count(b, h, hkv, t, hd),
-          byte_count(b, h, hkv, t, hd, itemsize))
+def _count(b: int, h: int, hkv: int, t: int, hd: int, itemsize: int, partial: bool) -> None:
+    count("decode_attention_partial" if partial else "decode_attention",
+          op_count(b, h, hkv, t, hd), byte_count(b, h, hkv, t, hd, itemsize, lse=partial))

@@ -18,11 +18,13 @@ ranks that exists in this process:
   mesh, its arguments this rank's blocks, the batch's rows split over
   the data axes; its strategy the family's
   (:func:`repro_torch.parallel.partition.strategy`): ``"partitioned"``
-  for the dense decoder's train and prefill steps (each layer gathered
-  in turn, the projections and the vocabulary split on ``model``; the
-  cell records its ``attention`` mode too), ``"gathered"`` otherwise
-  (the parameters gathered whole once a step; :mod:`.specs`).  The
-  per-device numbers are rank 0's;
+  for the dense decoder's train, prefill and decode steps (each layer
+  gathered in turn, the projections and the vocabulary split on
+  ``model``; decode keeps the cache's sequence on ``model`` and combines
+  the shards' softmaxes; the cell records its ``attention`` mode too,
+  ``"sequence"`` for decode), ``"gathered"`` otherwise (the parameters
+  gathered whole once a step; :mod:`.specs`).  The per-device numbers
+  are rank 0's;
 - **the counters** (:func:`count_step`), around one call:
   ``FlopCounterMode`` for ``flops_per_device``, plus the model kernels'
   own operation counts (K4-K7 count themselves inside
@@ -33,8 +35,9 @@ ranks that exists in this process:
   allocations move nothing; the kernels by their byte rules), for the
   collectives (each call's operand bytes and group, its wire bytes by
   the reference's ring factors, ``repro/launch/hlo.py``) and for the
-  memory (storage bytes added when an op creates them and taken off when
-  they are freed); ``CommDebugMode`` counts the collective calls too,
+  memory (storage bytes added when an op creates them, a functional
+  collective's output (a ``DTensor`` 's gather) included, and taken off
+  when they are freed); ``CommDebugMode`` counts the collective calls too,
   and the two counts must agree.  The collective counts are the calls
   the step made, not a formula of what it should make;
 - **memory**: ``argument_bytes`` (this rank's blocks of the state and
@@ -224,14 +227,15 @@ class _Tracker(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func.namespace in _COLLECTIVE_NAMESPACES:
-            self._collective(func, args, out)
-            return out
         if func.is_view:
             return out
         ins = list(_tensors((args, kwargs)))
         outs = list(_tensors(out))
-        if func not in _NO_MOVE:
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            # its bytes are wire bytes; a functional collective's output
+            # (a DTensor's gather) is new storage, an in-place one's is not
+            self._collective(func, args, out)
+        elif func not in _NO_MOVE:
             read = ins[1:] if func in _WRITE_ONLY else ins
             self.counts.bytes += sum(t.numel() * t.element_size() for t in read + outs)
         seen = {_storage(t)[0] for t in ins}
@@ -349,7 +353,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:
         c = count_cell(cfg, shape, multi_pod=multi_pod)
         cell.update(status="ok", strategy=strategy(cfg, shape.kind))
         if cell["strategy"] == PARTITIONED:
-            cell["attention"] = attention_mode(cfg, 16)  # the production meshes' model axis
+            # decode: every rank attends all heads over its positions; else the
+            # mode on the production meshes' model axis
+            cell["attention"] = ("sequence" if shape.kind == "decode"
+                                 else attention_mode(cfg, 16))
         cell.update(
             rank=0,
             count_wall_s=round(perf_counter() - t0, 2),

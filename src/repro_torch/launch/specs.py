@@ -27,17 +27,23 @@ maps one onto the other).
   ``cache_sharding`` blocks.  The strategy is the rule's
   (:func:`repro_torch.parallel.partition.strategy`):
 
-  - ``"partitioned"`` (the dense decoder's prefill): each layer's weights
-    gathered on the data axes in turn, the projections split on
-    ``model``; the last position's logits split on the vocabulary, as
-    the reference's ``logits_sharding`` pins them, and the cache of the
-    rank's KV heads (:class:`repro_torch.parallel.partition.Partitioned`);
-  - ``"gathered"`` (every decode step, and the other families' prefill):
-    built as the gathered train step is, the parameters gathered whole
-    once a step, the rank's own cache rows gathered whole; then
-    ``prefill`` / ``decode_step`` on plain tensors under the ambient
-    mesh, the batch split over the data axes as the train step splits it
-    (so the MoE routes the global batch).
+  - ``"partitioned"`` (the dense decoder's prefill and decode): each
+    layer's weights gathered on the data axes in turn, the projections
+    split on ``model``; the logits split on the vocabulary, as the
+    reference's ``logits_sharding`` pins them
+    (:class:`repro_torch.parallel.partition.Partitioned`).  Prefill
+    returns the last position's logits and the cache of the rank's KV
+    heads; decode takes the cache's blocks as they lie (the sequence on
+    ``model``, no shard gathered), attends over its shard through K5's
+    partial mode, combines the shards' softmaxes over ``model`` and
+    returns the logits and the cache, its blocks ``DTensor`` s placed as
+    they came (``pos + 1``);
+  - ``"gathered"`` (the other families' prefill and decode): built as the
+    gathered train step is, the parameters gathered whole once a step,
+    the rank's own cache rows gathered whole; then ``prefill`` /
+    ``decode_step`` on plain tensors under the ambient mesh, the batch
+    split over the data axes as the train step splits it (so the MoE
+    routes the global batch).
 """
 
 from __future__ import annotations
@@ -155,7 +161,8 @@ def step_fn_for(cfg: ModelConfig, shape: ShapeSpec, opt_cfg: AdamWConfig, *, mes
     if shape.kind == "decode":
         blocks[1] = blocks[1]["tokens"]
     if strategy(cfg, shape.kind) == PARTITIONED:
-        return _partitioned_prefill(cfg, mesh), tuple(blocks)
+        make = _partitioned_prefill if shape.kind == "prefill" else _partitioned_decode
+        return make(cfg, mesh), tuple(blocks)
     return _gathered_step(cfg, shape.kind, mesh), tuple(blocks)
 
 
@@ -171,6 +178,46 @@ def _partitioned_prefill(cfg: ModelConfig, mesh) -> Callable:
     def step(params: dict, batch: dict):
         blocks = {path: t.to_local() for path, t in _paths(params)}
         return part.prefill(blocks, {k: v.to_local() for k, v in batch.items()})
+
+    return step
+
+
+def _partitioned_decode(cfg: ModelConfig, mesh) -> Callable:
+    """``decode_step`` of a rank that holds ``param_sharding`` blocks, its
+    rows of the tokens and ``cache_sharding`` blocks of the cache,
+    partitioned (:meth:`repro_torch.parallel.partition.Partitioned.decode`):
+    the logits (B_local, 1, V / model) split on the vocabulary, and the
+    cache as ``DTensor`` s placed as the arguments were.  Refuses a cache
+    whose KV blocks do not hold the sequence on ``model`` (and the rows on
+    the data axes, or whole), or whose ``pos`` is not replicated."""
+    part = Partitioned(cfg, mesh)
+
+    def placed_as_taken(path: tuple, x: DTensor) -> bool:
+        for axis, n, p in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
+            if path[-1] == "pos":
+                ok = isinstance(p, Replicate)
+            elif axis == "model":
+                ok = p == Shard(3) or (n == 1 and isinstance(p, Replicate))
+            else:
+                ok = p in (Shard(1), Replicate())
+            if not ok:
+                return False
+        return True
+
+    def step(params: dict, tokens: DTensor, cache: dict):
+        for path, x in _paths(cache):
+            if not placed_as_taken(path, x):
+                raise ValueError(
+                    f"partitioned decode: cache leaf {'/'.join(path)} placed {x.placements}; "
+                    "it takes the KV blocks with the sequence on 'model' and the rows on "
+                    "the data axes, pos replicated")
+        blocks = {path: t.to_local() for path, t in _paths(params)}
+        local = _map_paths(lambda path, x: x.to_local(), cache)
+        logits, out = part.decode(blocks, tokens.to_local(), local)
+        return logits, _map_paths(
+            lambda path, x, new: DTensor.from_local(new, mesh, x.placements, run_check=False,
+                                                    shape=x.shape, stride=x.stride()),
+            cache, out)
 
     return step
 

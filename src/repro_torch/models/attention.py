@@ -52,6 +52,7 @@ __all__ = [
     "cache_slots",
     "gqa_attend",
     "gqa_decode",
+    "gqa_decode_heads",
     "gqa_init_",
     "gqa_prefill",
     "mla_decode",
@@ -113,16 +114,22 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor) -> Rope:
 
 
 def _project_qkv(p: GQA, cfg: ModelConfig, x: torch.Tensor, rope: Rope,
-                 memory: torch.Tensor | None = None, memory_rope: Rope | None = None):
+                 memory: torch.Tensor | None = None, memory_rope: Rope | None = None,
+                 gather=None):
     """Queries from ``x`` roped by ``rope``; keys and values from ``x`` too,
-    or from ``memory`` (B, T, d) with the keys roped by ``memory_rope``."""
+    or from ``memory`` (B, T, d) with the keys roped by ``memory_rope``.
+    ``gather`` (q, k, v) -> (q, k, v), where given, makes the projections'
+    column blocks whole before they are cut into heads."""
     b, s, _ = x.shape
     h = cfg.head_dim_
     src, src_rope = (x, rope) if memory is None else (memory, memory_rope)
     t = src.shape[1]
-    q = dense(p.wq, x).reshape(b, s, cfg.n_heads, h)
-    k = dense(p.wk, src).reshape(b, t, cfg.n_kv_heads, h)
-    v = dense(p.wv, src).reshape(b, t, cfg.n_kv_heads, h)
+    q, k, v = dense(p.wq, x), dense(p.wk, src), dense(p.wv, src)
+    if gather is not None:
+        q, k, v = gather(q, k, v)
+    q = q.reshape(b, s, cfg.n_heads, h)
+    k = k.reshape(b, t, cfg.n_kv_heads, h)
+    v = v.reshape(b, t, cfg.n_kv_heads, h)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -170,9 +177,12 @@ def gqa_prefill(
 def cache_slots(pos: torch.Tensor, s_max: int) -> Slots:
     """Where :func:`write_rows` writes for positions ``pos`` (B,) in a cache
     of ``s_max`` positions: the sequence index, the clamped position and
-    whether the position lies inside the cache (shared by every layer)."""
+    whether the position lies inside the cache (shared by every layer).
+    A position may be a shard's local one (``pos - offset``, negative where
+    the shard begins past it): it is clamped at 0 too, and writes nothing."""
     bi = torch.arange(pos.shape[0], device=pos.device)
-    return bi, pos.clamp(max=s_max - 1).long(), (pos < s_max)[:, None, None]
+    inside = (pos >= 0) & (pos < s_max)
+    return bi, pos.clamp(0, s_max - 1).long(), inside[:, None, None]
 
 
 def write_rows(cache: torch.Tensor, rows: torch.Tensor, slots: Slots) -> None:
@@ -180,7 +190,7 @@ def write_rows(cache: torch.Tensor, rows: torch.Tensor, slots: Slots) -> None:
 
     cache: (B, Hkv, S_max, hd); rows: (B, Hkv, hd); slots from
     :func:`cache_slots`.  As the reference's masked write, a position
-    past the cache writes nothing (it is clamped and rewritten with the
+    outside the cache writes nothing (it is clamped and rewritten with the
     row already there), and no host sync is needed to find out.
     """
     bi, at, inside = slots
@@ -202,12 +212,32 @@ def gqa_decode(
     write index of every sequence (pad-fed slots included); keys past
     ``pos`` are masked out.  ``rope`` is :func:`rope_for` of
     ``pos[:, None]`` and ``slots`` :func:`cache_slots` of ``pos``."""
-    b = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, cfg, x, rope)
+    out = gqa_decode_heads(p, cfg, x, cache_k, cache_v, pos, rope, slots)
+    return dense(p.wo, out.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim_))
+
+
+def gqa_decode_heads(
+    p: GQA,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    rope: Rope,
+    slots: Slots,
+    *,
+    gather=None,
+    attend=None,
+) -> torch.Tensor:
+    """:func:`gqa_decode` up to ``wo``: the heads' outputs (B, H, hd).  The
+    partitioned decode (:mod:`repro_torch.parallel.partition`) passes
+    ``gather`` (:func:`_project_qkv`'s), a shard-local ``pos`` and
+    ``slots``, ``rope`` of the global positions, and ``attend`` (q, k, v,
+    pos) -> (B, H, hd) in place of K5's whole-cache launch."""
+    q, k_new, v_new = _project_qkv(p, cfg, x, rope, gather=gather)
     write_rows(cache_k, k_new[:, 0], slots)
     write_rows(cache_v, v_new[:, 0], slots)
-    out = ops.decode_attention(q[:, 0], cache_k, cache_v, pos)
-    return dense(p.wo, out.reshape(b, 1, cfg.n_heads * cfg.head_dim_))
+    return (attend or ops.decode_attention)(q[:, 0], cache_k, cache_v, pos)
 
 
 def write_latent_rows(cache: torch.Tensor, rows: torch.Tensor, slots: Slots) -> None:

@@ -1,5 +1,5 @@
-"""The partitioned strategy: the dense decoder's train and prefill steps
-split over the mesh as XLA's SPMD partitioner splits the reference's.
+"""The partitioned strategy: the dense decoder's train, prefill and decode
+steps split over the mesh as XLA's SPMD partitioner splits the reference's.
 
 The reference jits its step with ``in_shardings=param_sharding(...)``,
 pins the hidden state to ``(dp, None, None)`` at block boundaries and the
@@ -21,7 +21,12 @@ or ``None``):
 - :func:`vocab_xent` — the per-token cross-entropy of logits split on
   the vocabulary: the max and the sum of exponentials all-reduced, the
   target's logit from the rank that holds it; its backward needs no
-  collective.
+  collective;
+- :func:`softmax_combine` — the ranks' partial attention over their
+  shards of a cache split by the sequence (K5's partial mode: each
+  head's normalised output and log-sum-exp) made whole: the log-sum-exps'
+  max all-reduced, then the outputs' and the weights' sums in one
+  all-reduce; no backward (decode runs under ``no_grad``).
 
 The per-layer gather (:func:`use`): a parameter's local ``DTensor`` block
 becomes the tensor the rank computes with by a chain of
@@ -38,8 +43,8 @@ full-model gather remains.
 Layouts on a rank: the hidden state (B_local, S, d) whole on ``model``;
 ``wq/wk/wv`` (and biases) column-parallel, ``wo`` row-parallel then
 :func:`reduce_out`, both FFN halves likewise; the embedding table and the
-logits split on the vocabulary.  Attention takes one of two modes
-(:func:`attention_mode`):
+logits split on the vocabulary.  Attention in train and prefill takes one
+of two modes (:func:`attention_mode`):
 
 - ``"heads"`` where ``n_heads`` divides by the ``model`` extent and the
   KV heads split evenly over it or it over them: the rank attends over
@@ -54,6 +59,22 @@ logits split on the vocabulary.  Attention takes one of two modes
   projections gathered over ``model``, attention computed whole on every
   ``model`` rank, their gradients sliced back; FFN and vocabulary stay
   split.
+
+Decode (:meth:`Partitioned.decode`) takes the reference's
+``cache_sharding`` blocks as they lie: the rows on the data axes, the
+sequence on ``model`` (rank ``r`` holds positions ``[r S/m, (r+1) S/m)``),
+``pos`` replicated.  It needs no attention mode: every rank attends all
+H heads over its own positions.  Each layer's weights are gathered on the
+data axes only; a rank projects its column block of ``wq/wk/wv`` (and
+biases) and the blocks' one-token rows are all-gathered over ``model`` in
+one call (a block ``_fit`` left whole is used whole).  RoPE and the
+per-head norms run on the whole rows.  The new K/V row is written by the
+masked write at the shard-local position ``pos - r S/m`` (nothing where it
+falls outside the shard), K5's partial mode attends over the shard, and
+:func:`softmax_combine` makes the heads whole; then ``wo`` row-parallel on
+the rank's column slice, the FFN and the vocabulary as in train.  With a
+``model`` group of one it launches K5's whole-cache mode and is
+``models.decode_step`` bit for bit.
 """
 
 from __future__ import annotations
@@ -67,12 +88,14 @@ import torch.distributed as dist
 from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
-from ..models.attention import gqa_prefill, rope_for
+from ..kernels import ops
+from ..models.attention import cache_slots, gqa_decode_heads, gqa_prefill, rope_for
 from ..models.config import ModelConfig
 from ..models.ffn import swiglu
-from ..models.layers import rmsnorm
+from ..models.layers import dense, rmsnorm
 from ..models.model import FAMILIES
-from .sharding import _spec_leaves, fsdp_axes, mesh_sizes, param_sharding, placements
+from .sharding import (_spec_leaves, data_shard, fsdp_axes, mesh_sizes, param_sharding,
+                       placements)
 
 __all__ = [
     "GATHERED",
@@ -82,6 +105,7 @@ __all__ = [
     "attention_mode",
     "copy_in",
     "reduce_out",
+    "softmax_combine",
     "strategy",
     "use",
     "vocab_embed",
@@ -91,12 +115,13 @@ __all__ = [
 GATHERED = "gathered"
 PARTITIONED = "partitioned"
 PARTITIONED_FAMILIES = ("dense", "vlm")
-PARTITIONED_KINDS = ("train", "prefill")
+PARTITIONED_KINDS = ("train", "prefill", "decode")
 
 
 def strategy(cfg: ModelConfig, kind: str) -> str:
     """The sharded step's strategy for a family and step kind: the dense
-    decoder's train and prefill steps are partitioned, the rest gathered."""
+    decoder's train, prefill and decode steps are partitioned; every
+    other family's steps are gathered."""
     if cfg.block_pattern in PARTITIONED_FAMILIES and kind in PARTITIONED_KINDS:
         return PARTITIONED
     return GATHERED
@@ -153,6 +178,24 @@ def reduce_out(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' partial sums of a ``model``-split computation, all-reduced
     over ``group``; the gradient passes through."""
     return x if _size(group) == 1 else _ReduceOut.apply(x, group)
+
+
+def softmax_combine(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """Attention over a cache split by the sequence, from each rank's
+    partial over its shard: ``out`` (B, H, hd) fp32 normalised over the
+    shard's keys, ``lse`` (B, H) fp32 their log-sum-exp (``-inf`` where the
+    shard had none).  Weights ``exp(lse - max lse)``, max all-reduced; the
+    weighted outputs and the weights summed in one all-reduce; their
+    quotient (0 where no rank had a key), fp32.  ``out`` itself with a
+    group of one."""
+    if _size(group) == 1:
+        return out
+    top = _all_reduce(lse, group, dist.ReduceOp.MAX)
+    w = torch.where(lse == float("-inf"), 0.0, torch.exp(lse - top))
+    packed = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    dist.all_reduce(packed, group=group)
+    num, den = packed[..., :-1], packed[..., -1:]
+    return torch.where(den > 0, num / den.clamp(min=torch.finfo(torch.float32).tiny), 0.0)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, lo: int, group) -> torch.Tensor:
@@ -300,7 +343,8 @@ class Partitioned:
     plain tensor, the ``DTensor`` 's ``to_local()``): :meth:`forward` gives
     the logits split on the vocabulary, :meth:`xent` their per-token
     cross-entropy, :meth:`prefill` the last position's split logits and a
-    cache of the rank's KV heads."""
+    cache of the rank's KV heads, :meth:`decode` one step over the rank's
+    ``cache_sharding`` blocks."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         if strategy(cfg, "train") != PARTITIONED:
@@ -320,16 +364,26 @@ class Partitioned:
             if cfg.n_kv_heads % self.m:
                 head = self.r // (self.m // cfg.n_kv_heads)
                 self.kv = slice(head * cfg.head_dim_, (head + 1) * cfg.head_dim_)
+        self.dp_index = data_shard(mesh)[1]
         skeleton = FAMILIES[cfg.block_pattern](cfg, device="meta")
         specs = _spec_leaves(param_sharding(mesh, skeleton))
         self.steps = {path: self._steps(mesh, path, placements(mesh, spec))
                       for path, spec in specs.items()}
+        # decode's: the data axes only (model-split projections used as blocks)
+        self.decode_steps = {path: self._steps(mesh, path, placements(mesh, spec), model=False)
+                             for path, spec in specs.items()}
         on_model = mesh.mesh_dim_names.index("model")
-        split_vocab = isinstance(placements(mesh, specs[("embed", "table")])[on_model], Shard)
+
+        def on_model_split(*path: str) -> bool:
+            return isinstance(placements(mesh, specs[path])[on_model], Shard)
+
+        split_vocab = on_model_split("embed", "table")
         self.vocab_group = self.tp if split_vocab else None
         self.vocab_lo = self.r * cfg.vocab // self.m if split_vocab else 0
-        self.ffn_split = isinstance(
-            placements(mesh, specs[("layers", "0", "ffn", "wo", "w")])[on_model], Shard)
+        self.ffn_split = on_model_split("layers", "0", "ffn", "wo", "w")
+        attn = ("layers", "0", "attn")
+        self.qkv_split = tuple(on_model_split(*attn, n, "w") for n in ("wq", "wk", "wv"))
+        self.wo_split = on_model_split(*attn, "wo", "w")
 
     def _model_grad(self, path: tuple, sharded: bool) -> str | None:
         """What the backward does over ``model`` for a parameter (module
@@ -347,14 +401,17 @@ class Partitioned:
             return "sum"
         return None
 
-    def _steps(self, mesh, path: tuple, places: list) -> tuple[Step, ...]:
+    def _steps(self, mesh, path: tuple, places: list, model: bool = True) -> tuple[Step, ...]:
         """The forward's steps: the data axes inner first (a dim split over
-        (pod, data) gathers data, then pod), then ``model``; the backward
-        runs them in reverse, so a sliced or summed ``model`` gradient
-        shrinks before the data axes' reduce-scatters."""
+        (pod, data) gathers data, then pod), then ``model`` (unless not
+        ``model``); the backward runs them in reverse, so a sliced or
+        summed ``model`` gradient shrinks before the data axes'
+        reduce-scatters."""
         dp = fsdp_axes(mesh)
         names = mesh.mesh_dim_names
-        order = [names.index(a) for a in reversed(dp)] + [names.index("model")]
+        order = [names.index(a) for a in reversed(dp)]
+        if model:
+            order.append(names.index("model"))
         out = []
         for i in order:
             p = places[i]
@@ -371,17 +428,17 @@ class Partitioned:
 
     # -- parameters --
 
-    def use(self, blocks: dict, path: tuple) -> torch.Tensor:
-        return use(blocks[path], self.steps[path])
+    def use(self, blocks: dict, path: tuple, decode: bool = False) -> torch.Tensor:
+        return use(blocks[path], (self.decode_steps if decode else self.steps)[path])
 
-    def _layer_params(self, blocks: dict, i: int) -> types.SimpleNamespace:
+    def _layer_params(self, blocks: dict, i: int, decode: bool = False) -> types.SimpleNamespace:
         prefix = ("layers", str(i))
         tree: dict = {}
         for path in self.steps:
             if path[:2] != prefix:
                 continue
-            t = self.use(blocks, path)
-            if self.kv is not None and path[2:] in _KV:
+            t = self.use(blocks, path, decode)
+            if self.kv is not None and path[2:] in _KV and not decode:
                 t = t[..., self.kv]
             node = tree
             for k in path[2:-1]:
@@ -472,3 +529,76 @@ class Partitioned:
         x = rmsnorm(final, x[:, -1:].contiguous(), eps)
         pos = torch.full((b,), s, dtype=torch.int32, device=x.device)
         return self._unembed(table, x), {"layers": kv, "pos": pos}
+
+    # -- decode --
+
+    def _gather_qkv(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+        """The projections' one-token rows made whole: the column blocks
+        ``model`` splits all-gathered in one call, rank-major."""
+        rows = (q, k, v)
+        split = [t for t, c in zip(rows, self.qkv_split) if c]
+        if not split:
+            return rows
+        local = torch.cat(split, dim=-1)
+        buf = local.new_empty((self.m * local.shape[0],) + tuple(local.shape[1:]))
+        dist.all_gather_into_tensor(buf, local, group=self.tp)
+        buf = buf.view(self.m, *local.shape)
+        parts = iter(buf.split([t.shape[-1] for t in split], dim=-1))
+        out = []
+        for t, c in zip(rows, self.qkv_split):
+            if c:
+                part = next(parts).movedim(0, -2)  # (..., m, width)
+                t = part.reshape(*part.shape[:-2], self.m * part.shape[-1])
+            out.append(t)
+        return tuple(out)
+
+    def _attend_shard(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos: torch.Tensor) -> torch.Tensor:
+        """K5's partial mode over this rank's shard, the ranks' partials
+        combined over ``model`` in fp32 and cast once."""
+        out, lse = ops.decode_attention_partial(q, k, v, pos)
+        return softmax_combine(out, lse, self.tp).to(q.dtype)
+
+    def _wo(self, wo, heads: torch.Tensor) -> torch.Tensor:
+        """``wo`` of the heads' outputs (B, H, hd): row-parallel on the
+        rank's column slice, then :func:`reduce_out`, where ``model`` splits
+        it; else whole."""
+        b = heads.shape[0]
+        x = heads.reshape(b, 1, -1)
+        if not (self.wo_split and self.tp is not None):
+            return dense(wo, x)
+        n = wo.w.shape[0]
+        return reduce_out(dense(wo, x[..., self.r * n:(self.r + 1) * n]), self.tp)
+
+    @torch.no_grad()
+    def decode(self, blocks: dict, tokens: torch.Tensor, cache: dict):
+        """``models.decode_step`` partitioned (module docstring).  ``tokens``
+        (B_local, 1), this rank's rows; ``cache`` this rank's
+        ``cache_sharding`` blocks, ``{"layers": {"k", "v"} (L, B_local, Hkv,
+        S_max / m, hd), the sequence on model, "pos" (B,) replicated}``.
+        Returns the logits (B_local, 1, V_local) fp32, split on the
+        vocabulary as :meth:`forward` 's, and the cache: this step's K/V
+        rows written in place into the shard that holds their position,
+        ``pos + 1``."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
+        kv, pos = cache["layers"], cache["pos"]
+        b = tokens.shape[0]
+        mine = pos if pos.shape[0] == b else pos.narrow(0, self.dp_index * b, b)
+        s_local = kv["k"].shape[3]
+        local = mine - self.r * s_local  # shard-local; negative past this shard's start
+        table = self.use(blocks, ("embed", "table"), decode=True)
+        x = vocab_embed(table, tokens, self.vocab_lo, self.vocab_group)
+        rope, slots = rope_for(cfg, mine[:, None]), cache_slots(local, s_local)
+        split = self.tp is not None
+        for i in range(cfg.n_layers):
+            p = self._layer_params(blocks, i, decode=True)
+            heads = gqa_decode_heads(p.attn, cfg, rmsnorm(p.norm1, x, eps), kv["k"][i],
+                                     kv["v"][i], local, rope, slots,
+                                     gather=self._gather_qkv if split else None,
+                                     attend=self._attend_shard if split else None)
+            x = x + self._wo(p.attn.wo, heads)
+            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
+            del p, heads
+        final = _ns({"g": self.use(blocks, ("final_norm", "g"), decode=True)})
+        x = rmsnorm(final, x[:, -1:].contiguous(), eps)
+        return self._unembed(table, x), {"layers": kv, "pos": pos + 1}

@@ -359,7 +359,7 @@ def test_decode_attention_cpu_tensors_take_the_plain_version_at_any_group():
     q, k, v = torch.ones(1, 32, 8), torch.ones(1, 1, 10, 8), torch.ones(1, 1, 10, 8)
     dak.reset_counts()
     out = dak.decode_attention(q, k, v, torch.tensor([3], dtype=torch.int32))
-    assert dak.COUNTS == {"decode_attention": 0, "plain": 1}
+    assert dak.COUNTS == {"decode_attention": 0, "decode_attention_partial": 0, "plain": 1}
     assert torch.equal(out, torch.ones(1, 32, 8))
 
 

@@ -22,8 +22,8 @@ the count rules of K4-K7, on the CPU.
   collectives equal a hand count from the partitioned step's rules, the same
   at rank 0 and rank 255; counts linear in depth (4 layers less 2 equal
   twice one layer within 0.1 %); Qwen1.5-4B ``decode_32k`` at full size
-  written with the reference's keys, and DeepSeek-V3 ``train_4k`` not
-  fitting.
+  written with the reference's keys, partitioned and fitting, and
+  DeepSeek-V3 ``train_4k`` not fitting.
 """
 
 import json
@@ -235,6 +235,31 @@ def test_memory_tracker_peak_equals_a_hand_count(device):
     assert counts.flops == 0 and counts.collective_ops == {}
 
 
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_memory_tracker_counts_a_dtensor_gathers_output(device):
+    """A ``DTensor`` 's gather (a functional collective) returns new
+    storage: in a fake world of 4 ranks on a (2, 2) mesh, the whole of a
+    block split on both axes is live until it is freed; an in-place
+    collective into a tensor the step made adds nothing more."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import make_mesh
+
+    def step(d, y):
+        full = d.full_tensor()  # 64 x 32 fp32: 8,192 new
+        torch.distributed.all_reduce(y)  # in place on an argument: nothing new
+        return full.sum()
+
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        d = DTensor.from_local(torch.empty(32, 16, device=device), mesh, [Shard(0), Shard(1)],
+                               run_check=False)
+        _, counts = dryrun.count_step(step, (d, torch.zeros(8, device=device)), device=device)
+    assert counts.argument_bytes == 32 * 16 * 4 + 8 * 4
+    assert counts.temp_bytes >= 64 * 32 * 4
+    assert counts.collective_ops == {"all-gather": 2, "all-reduce": 1}
+
+
 # ---- meta against the CPU at 2 layers ------------------------------------------------
 
 
@@ -352,7 +377,10 @@ def test_full_size_cells_write_the_references_keys(cells, deepseek):
     assert cell["status"] == "ok", cell
     assert REFERENCE_KEYS | PORT_KEYS <= set(cell)
     assert not {"lower_s", "compile_s"} & set(cell)
-    assert cell["strategy"] == "gathered" and cell["rank"] == 0
+    # the dense decode step is partitioned: the cache's sequence stays on
+    # model, each layer is gathered on data in turn, and the cell fits
+    assert cell["strategy"] == "partitioned" and cell["attention"] == "sequence"
+    assert cell["rank"] == 0 and cell["fits"] is True
     assert cell["chips"] == 256 and cell["mesh"] == "pod16x16"
     assert cell["peak_bytes"] == cell["argument_bytes"] + cell["temp_bytes"]
     assert cell["hbm_bytes"] == dryrun.HBM_BYTES

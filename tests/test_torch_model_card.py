@@ -137,7 +137,7 @@ def test_decode_attention_kernel_matches_plain(card, b, h, hkv, t, hd, dtype):
         p = torch.tensor(pos, dtype=torch.int32, device=card)
         dak.reset_counts()
         got = dak.decode_attention(q, k, v, p)
-        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        assert dak.COUNTS == {"decode_attention": 1, "decode_attention_partial": 0, "plain": 0}
         _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
 
 
@@ -180,7 +180,7 @@ def test_decode_attention_split_kv_edges(card, b, h, hkv, t, hd, dtype):
         p = torch.tensor(pos, dtype=torch.int32, device=card)
         dak.reset_counts()
         got = dak.decode_attention(q, k, v, p)
-        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        assert dak.COUNTS == {"decode_attention": 1, "decode_attention_partial": 0, "plain": 0}
         _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
         assert int(dak._TICKETS[card.index or 0][: b * hkv].abs().sum()) == 0
 
@@ -493,7 +493,7 @@ def test_decode_attention_at_every_group_and_width(card, b, h, hkv, t, hd, dtype
         p = torch.tensor(pos, dtype=torch.int32, device=card)
         dak.reset_counts()
         got = dak.decode_attention(q, k, v, p)
-        assert dak.COUNTS == {"decode_attention": 1, "plain": 0}
+        assert dak.COUNTS == {"decode_attention": 1, "decode_attention_partial": 0, "plain": 0}
         _close(got, dak.decode_attention_plain(q, k, v, p), dtype, f"pos={pos}")
 
 

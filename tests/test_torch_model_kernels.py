@@ -109,7 +109,7 @@ def test_decode_attention_plain_matches_the_reference(b, h, hkv, t, hd, dtype):
     )
     dak.reset_counts()
     got = ops.decode_attention(qt, kt, vt, pt)
-    assert dak.COUNTS == {"decode_attention": 0, "plain": 1}
+    assert dak.COUNTS == {"decode_attention": 0, "decode_attention_partial": 0, "plain": 1}
     _check(got, ref_decode_attention(qj, kj, vj, pj).astype(jnp.float32), dtype, "pallas")
     _check(got, ref.decode_attention_ref(qj, kj, vj, pj).astype(jnp.float32), dtype, "ref")
 

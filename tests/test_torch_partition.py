@@ -4,11 +4,12 @@ the CPU.
 
 - With a group of one (or ``None``) every ``model``-axis operator is the
   identity, and the strategy rule sends exactly the dense decoder's
-  train and prefill steps to ``"partitioned"``.
+  train, prefill and decode steps to ``"partitioned"``.
 - On 4 ``gloo`` ranks (``tests/torch_parallel_ranks.py``, task
   ``partition``), a (1, 4) mesh's ``model`` group: ``copy_in``,
   ``reduce_out``, ``vocab_embed`` and ``vocab_xent`` (outputs and
-  gradients) against the plain ones in float32 within 1e-6.
+  gradients), and ``softmax_combine`` of K5's partials (an empty shard
+  among them), against the plain ones in float32 within 1e-6.
 - The partitioned train step on (2, 2) and (1, 4), 2 steps, against the
   port's single-device step within PR 25's tolerances (loss 1e-4,
   parameters 5e-4): heads that divide the ``model`` extent, heads that
@@ -28,7 +29,19 @@ the CPU.
 - The dry run in a fake (2, 2) world (``launch/dryrun.py``): a small
   dense train cell's partitioned peak lies below the gathered step's by
   at least the gathered parameters' bytes, and its collective calls
-  equal a hand count (``tests/torch_dryrun_cases.py``).
+  equal a hand count (``tests/torch_dryrun_cases.py``); the same for a
+  small dense decode cell.
+- The partitioned decode (``Partitioned.decode`` through
+  ``step_fn_for``'s step): a one-device prefill, its cache cut by
+  ``cache_sharding`` (the sequence on ``model``), its rows set back to
+  positions spread over the cache (writes landing on every rank, one row
+  crossing from a shard into the next), then 4 steps on (2, 2) and
+  (1, 4) in the 7 cases above: each rank's logits its rows' vocabulary
+  range of ``decode_step``'s within 1e-4, its cache blocks the one
+  device's (outside the written rows bit for bit); on (2, 2) the
+  reference's ``jax.jit(decode_step, in_shardings=(param_sharding,
+  batch_sharding, cache_sharding))`` within 1e-4; the partition factor
+  within 10 % of XLA's.
 """
 
 import subprocess
@@ -49,7 +62,8 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.convert import reference_leaf
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import prefill
+from repro_torch.kernels import decode_attention as dak
+from repro_torch.models import decode_step, prefill
 from repro_torch.parallel import partition
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.step import _sharded_train_step
@@ -66,7 +80,8 @@ import dataclasses, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
 from repro.configs import get_smoke_config
-from repro.parallel import batch_sharding, compat, param_sharding
+from repro.models import decode_step, prefill
+from repro.parallel import batch_sharding, cache_sharding, compat, param_sharding
 from repro.train import AdamWConfig, make_train_step, train_state_init
 from repro.train.optim import adamw_init
 
@@ -127,6 +142,29 @@ with compat.set_mesh(mesh):
 res["losses"] = np.asarray(losses)
 for path, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
     res["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+
+# the decode: one-device prefill, the rows set back, then the jitted
+# decode_step with the cache as cache_sharding places it
+dec = dict(np.load(out + "/decode.npz"))
+_, cache = prefill(params, cfg, {"tokens": jnp.asarray(dec["prompt"])},
+                   max_len=int(dec["length"]))
+cache["pos"] = jnp.asarray(dec["pos"])
+decode = lambda p, t, c: decode_step(p, cfg, t, c)
+tok = jnp.asarray(dec["tokens"][:, :1])
+res["decode_single"] = flops(jax.jit(decode).lower(params, tok, cache).compile())
+for shape in ((2, 2), (1, 4)):
+    mesh = mesh_of(shape)
+    with compat.set_mesh(mesh):
+        step = jax.jit(decode, in_shardings=(param_sharding(mesh, params),
+                                             batch_sharding(mesh, {"tokens": tok})["tokens"],
+                                             cache_sharding(mesh, cache)))
+        res[f"decode_{shape[0]}x{shape[1]}"] = flops(step.lower(params, tok, cache).compile())
+        if shape == (2, 2):
+            logits, c = [], cache
+            for i in range(dec["tokens"].shape[1]):
+                lg, c = step(params, jnp.asarray(dec["tokens"][:, i:i + 1]), c)
+                logits.append(np.asarray(lg))
+            res["decode_logits"] = np.stack(logits)
 np.savez(out + "/reference_partition.npz", **res)
 """
 
@@ -143,6 +181,9 @@ def _operator_inputs(rng) -> dict:
     logits = rng.normal(size=(2, 5, 16)).astype(np.float32) * 3
     targets = rng.integers(0, 16, (2, 5))
     targets[0, 3:] = -1
+    lse = (rng.normal(size=(4, 3, 4)) * 4).astype(np.float32)
+    lse[2] = -np.inf  # a rank whose shard holds no key of any row
+    lse[1, 0] = -np.inf
     return {"x": rng.normal(size=(6, 5)).astype(np.float32),
             "w": rng.normal(size=(4, 6, 5)).astype(np.float32),
             "xs": rng.normal(size=(4, 6, 5)).astype(np.float32),
@@ -150,7 +191,9 @@ def _operator_inputs(rng) -> dict:
             "tokens": rng.integers(0, 16, (2, 5)),
             "c": rng.normal(size=(2, 5, 3)).astype(np.float32),
             "logits": logits, "targets": targets,
-            "g": rng.normal(size=(2, 5)).astype(np.float32)}
+            "g": rng.normal(size=(2, 5)).astype(np.float32),
+            "att_out": rng.normal(size=(4, 3, 4, 8)).astype(np.float32),
+            "att_lse": lse}
 
 
 @pytest.fixture(scope="module")
@@ -164,6 +207,11 @@ def runs(tmp_path_factory):
                                      path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]})
     batch = ranks.step_batch("dense", ref_smoke_config("qwen1.5-4b").vocab)
     np.savez(out / "batch.npz", **{k: v.numpy().astype(np.int32) for k, v in batch.items()})
+    cfg = ranks.partition_config("dense_2x2")
+    prompt, pos, tokens = ranks.decode_inputs(cfg)
+    np.savez(out / "decode.npz", prompt=prompt["tokens"].numpy().astype(np.int32),
+             pos=pos.numpy(), tokens=tokens.numpy().astype(np.int32),
+             length=ranks.decode_len(cfg))
     reference = subprocess.Popen(
         [sys.executable, "-c",
          "import os\n"
@@ -205,14 +253,19 @@ def test_operators_are_the_identity_on_a_group_of_one():
     block = torch.randn(4, 2)
     steps = (partition.Step(None, 1, 0, 0, "avg"), partition.Step(None, 1, 0, None, "sum"))
     assert partition.use(block, steps) is block
+    out, lse = torch.randn(2, 3, 4), torch.randn(2, 3)
+    assert partition.softmax_combine(out, lse, None) is out
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_the_rule_partitions_the_dense_train_and_prefill_steps_only(arch):
+    """The dense decoder's train, prefill and (since the partitioned
+    decode) decode steps are partitioned; every other family's are
+    gathered."""
     cfg = get_config(arch)
     dense = cfg.block_pattern in ("dense", "vlm")
     for kind in ("train", "prefill", "decode"):
-        want = "partitioned" if dense and kind != "decode" else "gathered"
+        want = "partitioned" if dense else "gathered"
         assert partition.strategy(cfg, kind) == want
     if dense:  # the attention modes on the production meshes' model axis of 16
         heads = {"qwen2-72b", "qwen3-32b", "llava-next-mistral-7b"}
@@ -247,6 +300,7 @@ def test_model_axis_operators_equal_the_plain_ones(runs):
         close(got["embed_grad"], table.grad[r * 4:(r + 1) * 4])
         close(got["xent"], nll.detach())
         close(got["xent_grad"], logits.grad[..., r * 4:(r + 1) * 4])
+        close(got["combine"], dak.combine_partials(a["att_out"], a["att_lse"]))
 
 
 # ---- the partitioned train step and prefill ---------------------------------------
@@ -345,3 +399,123 @@ def test_dry_run_partitioned_cell_against_gathered_and_a_hand_count():
     assert part.peak_bytes <= full.peak_bytes - param_bytes
     assert part.collective_ops == dry_cases.partitioned_collectives(cfg, (2, 2))
     assert part.flops * 1.5 < full.flops
+
+
+def test_dry_run_partitioned_decode_cell_against_gathered_and_a_hand_count():
+    """A small dense decode cell (Qwen3-32B's width, 2 layers, 4 rows x 64
+    positions) in a fake (2, 2) world: the partitioned step's peak below
+    the gathered step's by at least the gathered parameters' bytes, its
+    collective calls the hand count, its FLOPs well under the gathered
+    step's, K5 launched in its partial mode once a layer."""
+    cfg = get_config("qwen3-32b").scaled(n_layers=2)
+    shape = ShapeSpec("small_decode", "decode", 64, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, part = dryrun.count_step(fn, args)
+        _, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, full = dryrun.count_step(specs._gathered_step(cfg, "decode", mesh), args)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in specs.param_specs(cfg).parameters())
+    assert part.peak_bytes <= full.peak_bytes - param_bytes
+    assert part.collective_ops == dry_cases.partitioned_decode_collectives(cfg, (2, 2))
+    assert part.flops * 1.5 < full.flops
+    assert part.kernels["decode_attention_partial"]["calls"] == cfg.n_layers
+    assert "decode_attention" not in part.kernels
+
+
+def test_partitioned_decode_refuses_a_cache_not_split_by_the_sequence():
+    """A cache of 63 positions on a (2, 2) mesh: ``cache_sharding`` puts its
+    KV heads on ``model`` (63 does not divide by 2), which the partitioned
+    decode does not take; it says so instead of attending wrongly."""
+    cfg = get_config("qwen3-32b").scaled(n_layers=2)
+    shape = ShapeSpec("odd_decode", "decode", 63, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        assert sh[2]["layers"]["k"] == (None, "data", "model", None, None)
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        with pytest.raises(ValueError, match="sequence on 'model'"):
+            dryrun.count_step(fn, args)
+
+
+# ---- the partitioned decode ------------------------------------------------------
+
+
+def _single_decode(cfg, count_flops: bool = False):
+    """``decode_step`` on one device from the cache the ranks start from:
+    each step's logits, the final cache, the first step's FLOPs."""
+    with set_backend(device="cpu"):
+        params = ranks.initial_state(cfg).params
+        prompt, pos, tokens = ranks.decode_inputs(cfg)
+        cache = ranks.single_prefill(params, cfg, prompt, pos)
+        logits, flops = [], None
+        for i in range(ranks.DECODE_STEPS):
+            counter = FlopCounterMode(display=False)
+            with counter:
+                out, cache = decode_step(params, cfg, tokens[:, i:i + 1], cache)
+            flops = flops or counter.get_total_flops()
+            logits.append(out)
+    return logits, cache, flops
+
+
+@pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
+def test_partitioned_decode_equals_the_single_device_decode(runs, name):
+    """Each rank's logits are its rows' vocabulary range of ``decode_step``'s
+    (float32, 1e-4) at every step; its K/V blocks are the one device's
+    blocks (the sequence on ``model``): the rows the steps wrote within
+    1e-5 (their projections' column blocks round otherwise), every other
+    position bit for bit, so each row was written into the shard that
+    holds its position and nowhere else."""
+    cfg = ranks.partition_config(name)
+    data, model = ranks.PARTITION_CASES[name][2]
+    want, cache, _ = _single_decode(cfg)
+    _, pos, _ = ranks.decode_inputs(cfg)
+    rows, vocab = len(pos) // data, cfg.vocab // model
+    length = cache["layers"]["k"].shape[3]
+    width = length // model
+    written = torch.zeros(len(pos), length, dtype=torch.bool)
+    for step in range(ranks.DECODE_STEPS):
+        written[torch.arange(len(pos)), pos.long() + step] = True
+    for r in range(4):
+        got = torch.load(runs / f"partition_decode_rank{r}.pt")[name]
+        d, m = divmod(r, model)
+        b, s = slice(d * rows, (d + 1) * rows), slice(m * width, (m + 1) * width)
+        assert len(got["logits"]) == ranks.DECODE_STEPS
+        for g, w in zip(got["logits"], want):
+            torch.testing.assert_close(g, w[b, :, m * vocab:(m + 1) * vocab], rtol=0, atol=1e-4)
+        mask = written[b, s][None, :, None, :, None].expand_as(got["k"])
+        for k in ("k", "v"):
+            block = cache["layers"][k][:, b, :, s]
+            torch.testing.assert_close(got[k], block, rtol=0, atol=1e-5)
+            assert torch.equal(got[k][~mask], block[~mask])
+        assert torch.equal(got["pos"], cache["pos"])
+
+
+def test_partitioned_decode_equals_the_references_sharded_decode(runs):
+    ref = dict(np.load(runs / "reference_partition.npz"))["decode_logits"]
+    rows, vocab = ref.shape[1] // 2, ref.shape[-1] // 2
+    for r in range(4):
+        got = torch.load(runs / f"partition_decode_rank{r}.pt")["reference_2x2"]["logits"]
+        d, m = divmod(r, 2)
+        for step, g in enumerate(got):
+            want = ref[step, d * rows:(d + 1) * rows, :, m * vocab:(m + 1) * vocab]
+            assert np.abs(g.numpy() - want).max() < 1e-4, (r, step)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_decode_partition_factor_is_the_references(runs, mesh):
+    """ranks x per-rank FLOPs / one device's FLOPs of a decode step: the
+    port's within 10 % of XLA's (the gathered step's: 2 on (2, 2), 4 on
+    (1, 4))."""
+    ref = dict(np.load(runs / "reference_partition.npz"))
+    name = f"dense_{mesh}"
+    _, _, single = _single_decode(ranks.partition_config(name), count_flops=True)
+    port = sum(torch.load(runs / f"partition_decode_rank{r}.pt")[name]["flops"]
+               for r in range(4)) / single
+    want = 4 * ref[f"decode_{mesh}"] / ref["decode_single"]
+    assert abs(port - want) <= FACTOR_TOL * want, (port, want)
+    assert port < 1.5

@@ -155,6 +155,41 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
     return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs}
 
 
+def partitioned_decode_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> dict:
+    """The collective calls of one partitioned decode step (no gradient:
+    forward only), counted by hand from ``parallel/partition.py``'s
+    docstring: each parameter, on a data axis that splits it, one
+    all-gather; on ``model``, per layer, one all-gather of the split
+    projections' rows, the softmax combine's two all-reduces (max; the
+    weighted sums), ``wo`` 's and the FFN's all-reduces where ``model``
+    splits them; once, the embedding's all-reduce."""
+    sizes = dict(zip(names, mesh_shape))
+    m = sizes["model"]
+    data = [a for a in names if a != "model" and sizes[a] > 1]
+    rules = param_sharding(AbstractMesh(tuple(mesh_shape), tuple(names)),
+                           FAMILIES[cfg.block_pattern](cfg, device="meta"))
+    ag = ar = 0
+    split = {}
+    stack = [((), rules)]
+    while stack:
+        path, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((path + (k,), v) for k, v in node.items())
+            continue
+        axes = {a for entry in node if entry
+                for a in ((entry,) if isinstance(entry, str) else entry)}
+        ag += sum(a in axes for a in data)
+        split[path] = "model" in axes
+    if m > 1:
+        layer = ("layers", "0")
+        qkv = any(split[layer + ("attn", n, "w")] for n in ("wq", "wk", "wv"))
+        ag += cfg.n_layers * qkv
+        ar += cfg.n_layers * (2 + split[layer + ("attn", "wo", "w")]
+                              + split[layer + ("ffn", "wo", "w")])
+        ar += split[("embed", "table")]
+    return {k: v for k, v in (("all-gather", ag), ("all-reduce", ar)) if v}
+
+
 def task_world() -> dict:
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Shard

@@ -31,12 +31,14 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_reference_params
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import prefill
 from repro_torch.models.ffn import MoE
 from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded
 from repro_torch.launch import specs
 from repro_torch.parallel import gather_state, set_mesh, shard, split_batch
 from repro_torch.parallel import partition
-from repro_torch.parallel.sharding import batch_sharding, local_block, param_sharding, shard_state
+from repro_torch.parallel.sharding import (batch_sharding, cache_sharding, local_block,
+                                          param_sharding, shard_state)
 from repro_torch.train import (AdamWConfig, TrainState, adamw_init, make_train_step,
                                train_state_init)
 from repro_torch.train.optim import param_tree
@@ -340,6 +342,83 @@ def _task_partition(out: str) -> None:
                os.path.join(out, f"partition_rank{rank}.pt"))
 
 
+# the partitioned decode's inputs (``tests/test_torch_partition.py``): each
+# case's prompt is prefilled on one device into a cache of
+# ``decode_len`` positions (the prompt and 4 more, a multiple of 4), whose
+# rows are then set back to positions spread over it (``decode_pos``), so
+# that the rows write into different ranks' shards, one crossing from a
+# shard into the next; DECODE_STEPS seeded tokens are fed in turn
+DECODE_STEPS = 4
+DECODE_POS = (7, 0, 3, 5, 2, 7, 4, 1)  # sevenths of the last start position
+
+
+def decode_len(cfg) -> int:
+    prompt = PREFILL_LEN + (cfg.n_patches if cfg.block_pattern == "vlm" else 0)
+    return -(-(prompt + DECODE_STEPS) // 4) * 4
+
+
+def decode_inputs(cfg) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """The prompt (``partition_batch``'s first PREFILL_LEN tokens, and the
+    VLM's patches), the rows' positions (B,) int32 and the tokens (B,
+    DECODE_STEPS) fed one a step."""
+    batch = partition_batch(cfg)
+    prompt = {k: v[:, :PREFILL_LEN] for k, v in batch.items() if k != "targets"}
+    if "patches" in batch:
+        prompt["patches"] = batch["patches"]
+    last = decode_len(cfg) - DECODE_STEPS
+    pos = torch.tensor([last * k // 7 for k in DECODE_POS], dtype=torch.int32)
+    rng = np.random.default_rng(11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (len(DECODE_POS), DECODE_STEPS)))
+    return prompt, pos, tokens
+
+
+def single_prefill(params, cfg, prompt: dict, pos: torch.Tensor) -> dict:
+    """The one-device cache the partitioned decode starts from."""
+    _, cache = prefill(params, cfg, prompt, max_len=decode_len(cfg))
+    cache["pos"] = pos.clone()
+    return cache
+
+
+def _decode_run(mesh, cfg, params, prompt, pos, tokens, count_flops: bool = False) -> dict:
+    """DECODE_STEPS partitioned decode steps (``step_fn_for``'s
+    ``_partitioned_decode``) from the one-device prefill's cache, cut by
+    ``cache_sharding``: each step's logits and the final cache blocks."""
+    cache = single_prefill(params, cfg, prompt, pos)
+    placed = shard_state(mesh, cache, cache_sharding(mesh, cache))
+    blocks = shard_state(mesh, param_tree(params), param_sharding(mesh, params))
+    step = specs._partitioned_decode(cfg, mesh)
+    logits, flops = [], None
+    for i in range(DECODE_STEPS):
+        tok = {"tokens": tokens[:, i:i + 1]}
+        tok = shard_state(mesh, tok, batch_sharding(mesh, tok))["tokens"]
+        counter = FlopCounterMode(display=False)
+        with counter if count_flops and i == 0 else contextlib.nullcontext():
+            out, placed = step(blocks, tok, placed)
+        if count_flops and i == 0:
+            flops = counter.get_total_flops()
+        logits.append(out)
+    return {"logits": logits, "k": placed["layers"]["k"].to_local(),
+            "v": placed["layers"]["v"].to_local(), "pos": placed["pos"].to_local(),
+            "flops": flops}
+
+
+def _task_partition_decode(out: str) -> None:
+    """The partitioned decode on every case (each rank saves its split
+    logits, its cache blocks and, for the dense cases, its first step's
+    FLOPs), and on (2, 2) from the reference's initial parameters."""
+    meshes: dict = {}
+    results: dict = {}
+    for name, (_, _, shape) in PARTITION_CASES.items():
+        mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
+        cfg = partition_config(name)
+        results[name] = _decode_run(mesh, cfg, initial_state(cfg).params, *decode_inputs(cfg),
+                                    count_flops=name.startswith("dense_"))
+    cfg = get_smoke_config("qwen1.5-4b")
+    results["reference_2x2"] = _decode_run(meshes[(2, 2)], cfg, reference_state(out, cfg).params,
+                                           *decode_inputs(cfg))
+    torch.save(results, os.path.join(out, f"partition_decode_rank{dist.get_rank()}.pt"))
+
+
 def _task_operators(out: str) -> None:
     """The model-axis operators on the (1, 4) mesh's ``model`` group, on
     the test's seeded inputs: each rank's outputs and gradients."""
@@ -365,6 +444,7 @@ def _task_operators(out: str) -> None:
     nll = partition.vocab_xent(logits, a["targets"], r * n, group)
     (nll * a["g"]).sum().backward()
     res["xent"], res["xent_grad"] = nll.detach(), logits.grad
+    res["combine"] = partition.softmax_combine(a["att_out"][r], a["att_lse"][r], group)
     torch.save(res, os.path.join(out, f"operators_rank{dist.get_rank()}.pt"))
 
 
@@ -408,7 +488,7 @@ def wait_all(procs: list, timeout: float = GROUP_TIMEOUT_S) -> None:
 TASKS = {
     "parallel": (_task_train_step, _task_moe, _task_compress, _task_elastic, _task_constrain),
     "launch": (_task_launch,),
-    "partition": (_task_operators, _task_partition),
+    "partition": (_task_operators, _task_partition, _task_partition_decode),
 }
 
 
