@@ -279,6 +279,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
     (8 rows x 2,048 positions a rank): FLOPs and collective calls on the
     card equal the ``meta`` count, the peak within 3 %, one K5 partial
     launch a layer over 2,048 positions;
+14p. partition MoE — the partitioned MoE and MLA + MoE steps (the experts
+    split on ``model`` and gathered one layer at a time on the data axes,
+    MLA split by heads, its latent cache by the sequence): on a (1, 1)
+    mesh in a world of one NCCL rank, Qwen3-MoE and DeepSeek-V3 (without
+    its MTP block) at full width, 1 layer, 2 x 512 prompts, the
+    partitioned prefill and 8 partitioned decode steps (greedy tokens on
+    each side) against ``prefill`` + ``decode_step`` bit for bit (tokens,
+    logits, caches), and for Qwen3-MoE one partitioned train step against
+    the single-device step within 1e-4 / 5e-4; K4 / K5 / K6 launches
+    equal, no plain call; then rank 0 of a fake (16, 16) world at both
+    models' full width, 2 layers (+ DeepSeek-V3's MTP block), a train step
+    on 16 x 4,096 of train_4k's rows and a decode step on decode_32k's
+    128 x 32,768: FLOPs and collective calls on the card equal the
+    ``meta`` count, the peak within 3 %, launches equal the meta calls;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -302,7 +316,8 @@ walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 ``slice11_phases`` line; 14e-14h's on the ``slice12_phases`` line;
 14i-14k's on the ``slice13_phases`` line; 14l's on the
 ``slice14_phases`` line; 14m's on the ``slice15_phases`` line; 14n's on
-the ``slice16_phases`` line; 14o's on the ``slice17_phases`` line), the
+the ``slice16_phases`` line; 14o's on the ``slice17_phases`` line; 14p's
+on the ``slice18_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's and
 14m's launches too; ``decode_attention_partial`` is K5's partial mode,
@@ -722,6 +737,17 @@ PARTITION_DECODE_FAKE = (2, 128, 32768)  # layers, and decode_32k's global batch
 K5_SHARD = (8, 64, 8, 2048, 128)  # B, H, Hkv, T, hd: Qwen3-32B decode_32k's block on (16, 16)
 K5_SHARDS = 16  # the model axis of pod16x16: one 32,768-row cache's shards
 K5_LSE_TOL = 1e-4  # |lse - plain lse| (natural log units), fp32 math on both sides
+SLICE18_BUDGET_S = 60  # partition_moe
+# the (1, 1) mesh's MoE runs: arch -> layers, batch, sequence (one layer:
+# a Qwen3-MoE layer's 128 experts are 4.8 GB in bf16, a DeepSeek-V3
+# layer's 256 are 22.5 GB, and the train step holds the state with its
+# fp32 gradients and the new state beside it)
+PARTITION_MOE_ONE_RANK = {"qwen3-moe-235b-a22b": (1, 2, 512), "deepseek-v3-671b": (1, 2, 512)}
+PARTITION_MOE_TRAINS = ("qwen3-moe-235b-a22b",)  # DeepSeek-V3 does not train on one card
+# the fake (16, 16) world's cells: 2 layers (+ DeepSeek-V3's MTP block);
+# train_4k's 256 rows cut to 16 (one a data rank) of 4,096; decode_32k's
+# 128 x 32,768 (8 rows x 2,048 positions a rank)
+PARTITION_MOE_FAKE = {"train": (2, 16, 4096), "decode": (2, 128, 32768)}
 EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locality")
 # the training example's two calls at its default 8 x 128 tokens a step:
 # 26 steps failing data host 3 at step 13, then resumed to 51 (the async
@@ -4990,6 +5016,290 @@ def slice17_phases(seed: int, card: str) -> tuple[dict, dict]:
     return counts, kernel
 
 
+# ---- slice 18: the partitioned MoE and MLA + MoE steps ----------------------------
+
+
+def _shared_blocks(mesh, tree: dict, specs: dict) -> dict:
+    """``DTensor`` s on a (1, 1) mesh placed by ``specs`` that share the
+    storage of ``tree`` 's tensors (each block is the whole tensor): the
+    partitioned and the single-device sides read the same weights, and no
+    copy of a 22.5 GB layer is made."""
+    from repro_torch.parallel.sharding import placements
+    from torch.distributed.tensor import DTensor
+    flat = dict(_tree_paths(specs))
+    out: dict = {}
+    for path, t in _tree_paths(tree):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = DTensor.from_local(t.detach(), mesh, placements(mesh, flat[path]),
+                                            run_check=False, shape=t.shape, stride=t.stride())
+    return out
+
+
+def _partition_moe_one_rank(seed: int, mesh, arch: str) -> dict:
+    """On a (1, 1) mesh, ``arch`` at full width (PARTITION_MOE_ONE_RANK's
+    cut; DeepSeek-V3 without its MTP block, which serving never runs):
+    the partitioned prefill and PARTITION_DECODE_STEPS partitioned decode
+    steps (``specs._partitioned_prefill`` / ``_partitioned_decode``, the
+    blocks sharing the model's storage), each side feeding its own greedy
+    tokens, against ``prefill`` + ``decode_step``: tokens, logits and
+    caches bit for bit (a ``model`` group of one runs every MoE shape and
+    operation ``moe_apply`` runs, and MLA's whole-cache ``mla_decode``);
+    for Qwen3-MoE one partitioned train step (remat on) against the
+    single-device step from one state, within PR 25's limits; K4 / K5 / K6
+    launches equal, no plain call.  The counts are set to 0 just before
+    each side's run and read just after."""
+    from repro_torch.launch import specs as launch_specs
+    from repro_torch.parallel.sharding import (batch_sharding, cache_sharding,
+                                               param_sharding)
+    from repro_torch.train.step import state_sharding
+    layers, b, s = PARTITION_MOE_ONE_RANK[arch]
+    n = PARTITION_DECODE_STEPS
+    cfg = get_config(arch).scaled(n_layers=layers, mtp_depth=0)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 320)
+    opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
+    state = train_state_init(gen, cfg, opt_cfg) if arch in PARTITION_MOE_TRAINS else None
+    params = state.params if state is not None else init_params(gen, cfg)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda", dtype=torch.int32)
+    _reset_model_counts()
+    want, cache = prefill(params, cfg, {"tokens": toks}, max_len=s + n)
+    start = {k: v.clone() for k, v in cache["layers"].items()}
+    want_tokens, want_logits = [], [want]
+    for _ in range(n):
+        nxt = want_logits[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        want_tokens.append(nxt)
+        logits, cache = decode_step(params, cfg, nxt, cache)
+        want_logits.append(logits)
+    torch.cuda.synchronize()
+    single = _model_counts()
+    tree = param_tree(params)
+    blocks = _shared_blocks(mesh, tree, param_sharding(mesh, params))
+    prompt = {"tokens": toks}
+    placed = _shared_blocks(mesh, prompt, batch_sharding(mesh, prompt))
+    _reset_model_counts()
+    got, pcache = launch_specs._partitioned_prefill(cfg, mesh)(blocks, placed)
+    prefill_equal = all(bool(torch.equal(pcache["layers"][k], start[k][..., :s, :]))
+                        if k in ("k", "v") else bool(torch.equal(pcache["layers"][k],
+                                                                 start[k][:, :, :s]))
+                        for k in start)
+    dcache = {"layers": start, "pos": pcache["pos"].clone()}
+    dplaced = _shared_blocks(mesh, dcache, cache_sharding(mesh, dcache))
+    step = launch_specs._partitioned_decode(cfg, mesh)
+    got_tokens, got_logits = [], [got]
+    for _ in range(n):
+        nxt = got_logits[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        got_tokens.append(nxt)
+        tok = _shared_blocks(mesh, {"tokens": nxt}, batch_sharding(mesh, {"tokens": nxt}))
+        logits, dplaced = step(blocks, tok["tokens"], dplaced)
+        got_logits.append(logits)
+    torch.cuda.synchronize()
+    part = _model_counts()
+    row = {
+        "arch": arch, "layers": layers, "batch": [b, s], "decode_steps": n,
+        "tokens_equal": all(bool(torch.equal(a, c)) for a, c in zip(got_tokens, want_tokens)),
+        "logits_bit_equal": all(bool(torch.equal(a, c))
+                                for a, c in zip(got_logits, want_logits)),
+        "logits_max_abs_err": max(float((a - c).abs().max())
+                                  for a, c in zip(got_logits, want_logits)),
+        "prefill_cache_bit_equal": prefill_equal,
+        "cache_bit_equal": all(bool(torch.equal(dplaced["layers"][k].to_local(),
+                                                cache["layers"][k])) for k in start),
+        "launches": {"partitioned": _launches(part), "single": _launches(single)},
+        "plain_calls": _plain_calls(part) + _plain_calls(single)}
+    counts = [part, single]
+    del blocks, dplaced, dcache, cache, start, got_logits, want_logits
+    ok = (row["tokens_equal"] and row["logits_bit_equal"] and prefill_equal
+          and row["cache_bit_equal"] and row["plain_calls"] == 0
+          and row["launches"]["partitioned"] == row["launches"]["single"])
+    if state is not None:
+        batch = {"tokens": toks, "targets": torch.roll(toks, -1, dims=1)}
+        sharded = _shared_blocks(mesh, state.tree(), state_sharding(mesh, state.tree()))
+        sides = {}
+        for side in ("partitioned", "single"):  # partitioned first: the single side
+            step_fn = make_train_step(cfg, opt_cfg, mesh=mesh if side == "partitioned"
+                                      else None)  # updates the shared weights in place
+            _reset_model_counts()
+            t0 = time.perf_counter()
+            st, metrics = step_fn(sharded if side == "partitioned" else state.as_dict(), batch)
+            loss = float(metrics["loss"])
+            wall = time.perf_counter() - t0
+            c = _model_counts()
+            counts.append(c)
+            out = (dict(_tree_paths(gather_state(st)["params"])) if side == "partitioned"
+                   else {tuple(k.split(".")): v.detach() for k, v in
+                         st["params"].named_parameters()})
+            sides[side] = {"loss": loss, "aux": float(metrics["aux"]), "params": out,
+                           "ms": wall * 1e3, "launches": _launches(c),
+                           "plain": _plain_calls(c)}
+            del st, step_fn
+            if side == "partitioned":
+                del sharded
+        pa, si = sides["partitioned"], sides["single"]
+        row["train"] = {"loss": [pa["loss"], si["loss"]], "aux": [pa["aux"], si["aux"]],
+                        "loss_distance": abs(pa["loss"] - si["loss"]),
+                        "param_distance": _max_diff(pa["params"], si["params"]),
+                        "step_ms": [pa["ms"], si["ms"]],
+                        "launches": {k: sides[k]["launches"] for k in sides},
+                        "plain_calls": pa["plain"] + si["plain"]}
+        tr = row["train"]
+        ok &= (tr["loss_distance"] <= PARALLEL_TOL["loss"]
+               and tr["param_distance"] <= PARALLEL_TOL["params"]
+               and tr["launches"]["partitioned"] == tr["launches"]["single"]
+               and tr["plain_calls"] == 0)
+        del sides, pa, si
+    row["ok"] = ok
+    del params, state
+    _free()
+    return {"row": row, "counts": counts}
+
+
+def _blocks_on_card(tree, seq: int):
+    """A step's arguments built on ``meta`` (this rank's ``DTensor`` blocks
+    of them) made real on the card: each block zeros, ``pos`` at the
+    cache's last position, as ``step_fn_for(device="cuda")`` would cut
+    them, without its whole-model copy (2 DeepSeek-V3 layers and the MTP
+    block are 69 GB in bf16)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        out = {k: _blocks_on_card(v, seq) for k, v in tree.items()}
+        if "pos" in out:
+            out["pos"].to_local().fill_(seq - 1)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_blocks_on_card(v, seq) for v in tree)
+    if isinstance(tree, DTensor):
+        local = torch.zeros(tree.to_local().shape, dtype=tree.dtype, device="cuda")
+        return DTensor.from_local(local, tree.device_mesh, tree.placements, run_check=False,
+                                  shape=tree.shape, stride=tree.stride())
+    if isinstance(tree, torch.Tensor):  # the train step's whole batch
+        return torch.zeros(tree.shape, dtype=tree.dtype, device="cuda")
+    return tree
+
+
+def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
+    """Rank 0 of a fake (16, 16) world at ``arch`` 's full width,
+    PARTITION_MOE_FAKE's cut: the partitioned ``kind`` step counted on
+    ``meta`` (a CPU mesh) and run on the card (a CUDA mesh), counted the
+    same way; FLOPs and collective calls equal, the meta peak within
+    PARTITION_PEAK_TOL of ``max_memory_allocated``, K4 / K5 / K6 launches
+    equal to the meta calls, no plain call.  The collectives return at
+    once, their outputs undefined: only shapes and counts are compared
+    (the MoE's routing indices are clamped, so undefined counts index
+    nothing outside its buffers).  The counts are set to 0 just before
+    the card's step and read just after it."""
+    layers, b, s = PARTITION_MOE_FAKE[kind]
+    cfg = get_config(arch).scaled(n_layers=layers)
+    shape = ShapeSpec(f"partition_moe_{kind}", kind, s, b)
+    opt_cfg = TrainAdamWConfig()
+    world = math.prod(PARTITION_FAKE_MESH)
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cpu")
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh,
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        out, meta = dry.count_step(fn, args)
+        del fn, args, out
+    gen = torch.Generator(device="cuda").manual_seed(seed + 321)
+    _free()
+    with dry.fake_world(world):
+        mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="meta",
+                               in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
+        args = _blocks_on_card(args, s)
+        _fill_step_args(kind, args, gen, cfg.vocab)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_model_counts()
+        t0 = time.perf_counter()
+        out, card = dry.count_step(fn, args, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _model_counts()
+        del fn, args, out
+    _free()
+    launches = _launches(counts)
+    launches["decode_attention_partial"] = counts["decode_attention"]["decode_attention_partial"]
+    calls = {k: v["calls"] for k, v in card.kernels.items()}
+    row = {"arch": arch, "kind": kind, "layers": layers, "mtp": bool(cfg.mtp_depth),
+           "batch": [b, s], "mesh": list(PARTITION_FAKE_MESH), "rank": 0,
+           "flops_meta": meta.flops, "flops_cuda": card.flops,
+           "peak_bytes_meta": meta.peak_bytes, "peak_bytes_cuda": peak,
+           "peak_ratio": meta.peak_bytes / peak,
+           "collective_ops_meta": meta.collective_ops, "collective_ops_cuda": card.collective_ops,
+           "collective_wire_bytes": card.collective_wire_bytes,
+           "kernel_calls_meta": {k: v["calls"] for k, v in meta.kernels.items()},
+           "launches": launches, "plain_calls": _plain_calls(counts), "wall_s": wall}
+    row["checks"] = {
+        "flops_equal": meta.flops == card.flops,
+        "peak_within_tol": abs(meta.peak_bytes / peak - 1) <= PARTITION_PEAK_TOL,
+        "collectives_equal": meta.collective_ops == card.collective_ops,
+        "launches_equal_meta_calls": all(launches[k] == calls.get(k, 0) == row[
+            "kernel_calls_meta"].get(k, 0) for k in ("rmsnorm", "flash_attention",
+                                                     "decode_attention",
+                                                     "decode_attention_partial")),
+        "no_plain_call": row["plain_calls"] == 0,
+    }
+    return {"row": row, "counts": counts}
+
+
+def phase_partition_moe(seed: int, card: str) -> dict:
+    """The partitioned MoE and MLA + MoE steps on the card
+    (``parallel/experts.py``, ``Partitioned``'s MoE and MLA paths): (a)
+    :func:`_partition_moe_one_rank` for Qwen3-MoE and DeepSeek-V3 in a
+    world of one NCCL rank; (b) where torch's ``fake`` backend takes CUDA
+    tensors (the slice-16 probe), :func:`_partition_moe_fake` for both
+    families' train and decode steps, else the refusal on a line of its
+    own.  Every check is made, the line emitted, and then a failure
+    raises.  Returns the launches of (a) and (b) in ``_model_counts``'
+    form."""
+    one = {}
+    with one_rank_world() as mesh:
+        for arch in PARTITION_MOE_ONE_RANK:
+            one[arch] = _partition_moe_one_rank(seed, mesh, arch)
+            print(f"partition_moe: {arch} on (1, 1): ok {one[arch]['row']['ok']}", flush=True)
+    _free()
+    refused = _partition_fake_probe()
+    fake = {}
+    if refused is None:
+        for arch in PARTITION_MOE_ONE_RANK:
+            for kind in PARTITION_MOE_FAKE:
+                fake[f"{arch}/{kind}"] = _partition_moe_fake(seed, arch, kind)
+    else:
+        print(f"partition_moe: the fake backend refuses CUDA tensors ({refused}); "
+              "the (1, 1) checks stand alone", flush=True)
+    emit({"phase": "partition_moe", "card": card,
+          "reduced": {"one_rank": {a: f"{v[0]} of {get_config(a).n_layers} layers, "
+                                   f"{v[1]} x {v[2]}" for a, v in PARTITION_MOE_ONE_RANK.items()},
+                      "fake_world": {k: f"{v[0]} layers, {v[1]} x {v[2]}"
+                                     for k, v in PARTITION_MOE_FAKE.items()}},
+          "world": "one NCCL rank on cuda:0, a (1, 1) (data, model) mesh",
+          "tolerance": {"train": PARALLEL_TOL, "prefill_decode": "bit for bit"},
+          "one_rank": {a: r["row"] for a, r in one.items()},
+          "fake_world": {k: r["row"] for k, r in fake.items()} if fake else {"refused": refused}})
+    ok = all(r["row"]["ok"] for r in one.values()) and all(
+        all(r["row"]["checks"].values()) for r in fake.values())
+    if not ok:
+        raise AssertionError(f"partition_moe failed: one rank {[r['row'] for r in one.values()]}"
+                             f", fake {[r['row'] for r in fake.values()]}")
+    counts_all = [c for r in one.values() for c in r["counts"]] + [r["counts"]
+                                                                   for r in fake.values()]
+    return {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
+            for k in counts_all[0]}
+
+
+def slice18_phases(seed: int, card: str) -> dict:
+    """The partitioned MoE steps; its wall on the ``slice18_phases`` line."""
+    t0 = time.perf_counter()
+    counts = phase_partition_moe(seed, card)
+    seconds = {"partition_moe": time.perf_counter() - t0}
+    emit({"phase": "slice18_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE18_BUDGET_S, "card": card})
+    return counts
+
+
 # ---- the MoE and MLA + MoE families: prefill and the handoff -------------------
 
 
@@ -5597,6 +5907,8 @@ def run(args: argparse.Namespace, pool) -> int:
     partition_counts = slice16_phases(args.seed, dev["nvidia_smi"])
     # this slice: the partitioned dense decode step
     decode_counts, k5_partial = slice17_phases(args.seed, dev["nvidia_smi"])
+    # this slice: the partitioned MoE and MLA + MoE steps
+    moe_partition_counts = slice18_phases(args.seed, dev["nvidia_smi"])
     for row in example_launches.values():
         launches["wf_fused"] += row["wf_fused"]
         rd_launches += row["rd_step"]
@@ -5676,7 +5988,8 @@ def run(args: argparse.Namespace, pool) -> int:
     # then each SSM model's serve and prefill paths
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
              vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
-             parallel_counts, *example_counts, partition_counts, decode_counts]
+             parallel_counts, *example_counts, partition_counts, decode_counts,
+             moe_partition_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}

@@ -18,13 +18,13 @@ ranks that exists in this process:
   mesh, its arguments this rank's blocks, the batch's rows split over
   the data axes; its strategy the family's
   (:func:`repro_torch.parallel.partition.strategy`): ``"partitioned"``
-  for the dense decoder's train, prefill and decode steps (each layer
-  gathered in turn, the projections and the vocabulary split on
-  ``model``; decode keeps the cache's sequence on ``model`` and combines
-  the shards' softmaxes; the cell records its ``attention`` mode too,
-  ``"sequence"`` for decode), ``"gathered"`` otherwise (the parameters
-  gathered whole once a step; :mod:`.specs`).  The per-device numbers
-  are rank 0's;
+  for the dense decoder's and the MoE families' train, prefill and decode
+  steps (each layer gathered in turn, the projections, the experts and
+  the vocabulary split on ``model``; decode keeps the cache's sequence on
+  ``model`` and combines the shards' softmaxes; the cell records its
+  ``attention`` mode too, ``"sequence"`` for decode), ``"gathered"``
+  otherwise (the parameters gathered whole once a step; :mod:`.specs`).
+  The per-device numbers are rank 0's;
 - **the counters** (:func:`count_step`), around one call:
   ``FlopCounterMode`` for ``flops_per_device``, plus the model kernels'
   own operation counts (K4-K7 count themselves inside
@@ -47,8 +47,8 @@ ranks that exists in this process:
   (arguments plus temp), ``hbm_bytes`` (an H100 80GB HBM3's
   ``total_memory``) and ``fits``.  A cell that does not fit is still
   ``"ok"`` with ``"fits": false``, as the reference compiles a cell
-  whatever its memory: e.g. DeepSeek-V3's gathered train step gathers
-  its 1.43 TB of bf16 parameters on every rank.
+  whatever its memory: e.g. DeepSeek-V3's partitioned train_4k step holds
+  its remat checkpoints and plain MLA attention beyond 80 GB.
 
 A cell's JSON has the reference's keys (``count_wall_s``, the wall time
 of the counted step, in place of ``lower_s`` / ``compile_s``) plus

@@ -27,17 +27,19 @@ maps one onto the other).
   ``cache_sharding`` blocks.  The strategy is the rule's
   (:func:`repro_torch.parallel.partition.strategy`):
 
-  - ``"partitioned"`` (the dense decoder's prefill and decode): each
-    layer's weights gathered on the data axes in turn, the projections
-    split on ``model``; the logits split on the vocabulary, as the
-    reference's ``logits_sharding`` pins them
+  - ``"partitioned"`` (the dense decoder's, ``moe`` 's and ``mla_moe`` 's
+    prefill and decode): each layer's weights gathered on the data axes
+    in turn, the projections (and an MoE's experts) split on ``model``;
+    the logits split on the vocabulary, as the reference's
+    ``logits_sharding`` pins them
     (:class:`repro_torch.parallel.partition.Partitioned`).  Prefill
     returns the last position's logits and the cache of the rank's KV
-    heads; decode takes the cache's blocks as they lie (the sequence on
-    ``model``, no shard gathered), attends over its shard through K5's
-    partial mode, combines the shards' softmaxes over ``model`` and
-    returns the logits and the cache, its blocks ``DTensor`` s placed as
-    they came (``pos + 1``);
+    heads (MLA: the whole latent); decode takes the cache's blocks as
+    they lie (the sequence on ``model``, no shard gathered), attends over
+    its shard (K5's partial mode; MLA's plain partial attention),
+    combines the shards' softmaxes over ``model`` and returns the logits
+    and the cache, its blocks ``DTensor`` s placed as they came
+    (``pos + 1``);
   - ``"gathered"`` (the other families' prefill and decode): built as the
     gathered train step is, the parameters gathered whole once a step,
     the rank's own cache rows gathered whole; then ``prefill`` /
@@ -177,7 +179,8 @@ def _partitioned_prefill(cfg: ModelConfig, mesh) -> Callable:
 
     def step(params: dict, batch: dict):
         blocks = {path: t.to_local() for path, t in _paths(params)}
-        return part.prefill(blocks, {k: v.to_local() for k, v in batch.items()})
+        split = any(isinstance(p, Shard) for p in batch["tokens"].placements)
+        return part.prefill(blocks, {k: v.to_local() for k, v in batch.items()}, split=split)
 
     return step
 
@@ -188,16 +191,18 @@ def _partitioned_decode(cfg: ModelConfig, mesh) -> Callable:
     partitioned (:meth:`repro_torch.parallel.partition.Partitioned.decode`):
     the logits (B_local, 1, V / model) split on the vocabulary, and the
     cache as ``DTensor`` s placed as the arguments were.  Refuses a cache
-    whose KV blocks do not hold the sequence on ``model`` (and the rows on
-    the data axes, or whole), or whose ``pos`` is not replicated."""
+    whose KV blocks (MLA: latent blocks) do not hold the sequence on
+    ``model`` (and the rows on the data axes, or whole), or whose ``pos``
+    is not replicated."""
     part = Partitioned(cfg, mesh)
 
     def placed_as_taken(path: tuple, x: DTensor) -> bool:
+        seq = 2 if path[-1] in ("c_kv", "k_rope") else 3  # (L, B, S, r) / (L, B, Hkv, S, hd)
         for axis, n, p in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
             if path[-1] == "pos":
                 ok = isinstance(p, Replicate)
             elif axis == "model":
-                ok = p == Shard(3) or (n == 1 and isinstance(p, Replicate))
+                ok = p == Shard(seq) or (n == 1 and isinstance(p, Replicate))
             else:
                 ok = p in (Shard(1), Replicate())
             if not ok:
@@ -209,8 +214,8 @@ def _partitioned_decode(cfg: ModelConfig, mesh) -> Callable:
             if not placed_as_taken(path, x):
                 raise ValueError(
                     f"partitioned decode: cache leaf {'/'.join(path)} placed {x.placements}; "
-                    "it takes the KV blocks with the sequence on 'model' and the rows on "
-                    "the data axes, pos replicated")
+                    "it takes the KV (or latent) blocks with the sequence on 'model' and the "
+                    "rows on the data axes, pos replicated")
         blocks = {path: t.to_local() for path, t in _paths(params)}
         local = _map_paths(lambda path, x: x.to_local(), cache)
         logits, out = part.decode(blocks, tokens.to_local(), local)

@@ -276,13 +276,17 @@ def mla_init_(p: MLA, generator: torch.Generator) -> None:
         dense_init_(proj, generator)
 
 
-def _mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope):
+def _mla_qkv(p: MLA, cfg: ModelConfig, x: torch.Tensor, rope: Rope, gather=None):
     """q_nope (B, S, H, nope), q_rope (B, S, H, rope), c_kv (B, S, r),
     k_rope (B, S, rope).  The low-rank norms take the reference's default
-    eps (1e-6), not ``cfg.norm_eps``."""
+    eps (1e-6), not ``cfg.norm_eps``.  ``gather`` (q,) -> (q,), where
+    given, makes ``wq_b`` 's column block whole before it is cut into
+    heads (the partitioned decode's, as :func:`_project_qkv` 's)."""
     m = cfg.mla
     b, s, _ = x.shape
     q = dense(p.wq_b, rmsnorm(p.q_a_norm, dense(p.wq_a, x)))
+    if gather is not None:
+        (q,) = gather(q)
     q = q.reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     kv_a = dense(p.wkv_a, x)

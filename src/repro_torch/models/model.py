@@ -58,7 +58,7 @@ experts' capacity, as the reference's.  Where the reference's
 ``no_drop``, an ambient mesh (:func:`repro_torch.parallel.set_mesh`) with
 a ``model`` axis whose extent divides the expert count
 (:func:`repro_torch.models.moe_sharded.moe_apply_sharded`).  Otherwise it
-takes ``moe_apply``, over the whole batch: where the sharded train step
+takes ``moe_apply``, over the whole batch: where the gathered train step
 has split the batch over the data axes, the shards' tokens are gathered
 first (:func:`~repro_torch.models.moe_sharded.moe_apply_global`), so the
 capacity is the global batch's, as under the reference's global arrays.

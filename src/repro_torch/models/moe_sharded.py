@@ -20,9 +20,12 @@ rank (SPMD, plain tensors):
      the shared expert after the merge.
 
 The reference gathers each rank's expert slice over the data axes inside
-``shard_map``.  The port's sharded train step (:mod:`repro_torch.train.
+``shard_map``.  The port's gathered train step (:mod:`repro_torch.train.
 step`) gathers every parameter at the start of the step, so a rank's
-expert slice is a view of the gathered tensors here.
+expert slice is a view of the gathered tensors here; the partitioned
+step, which the rule picks for the MoE families, runs the same body on
+the slice its per-layer gather gives
+(:mod:`repro_torch.parallel.experts`).
 
 Gradients, under the sharded step's conventions (the data axes average
 their ranks' gradients; every rank of the ``model`` axis must end with

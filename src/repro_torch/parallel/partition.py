@@ -1,5 +1,6 @@
-"""The partitioned strategy: the dense decoder's train, prefill and decode
-steps split over the mesh as XLA's SPMD partitioner splits the reference's.
+"""The partitioned strategy: the dense decoder's and the MoE families'
+train, prefill and decode steps split over the mesh as XLA's SPMD
+partitioner splits the reference's.
 
 The reference jits its step with ``in_shardings=param_sharding(...)``,
 pins the hidden state to ``(dp, None, None)`` at block boundaries and the
@@ -7,9 +8,11 @@ logits to ``(dp, None, "model")``, and runs its layers under ``lax.scan``
 with ``jax.checkpoint``; XLA then gathers each layer's FSDP blocks inside
 the scan body and splits every projection's work over ``model``.  This
 module is the port's counterpart, written SPMD on ``torch.distributed``
-for the families :func:`strategy` sends here (``dense`` and ``vlm``'s
-dense decoder); the others keep the ``"gathered"`` strategy
-(``train/step.py``, ``launch/specs.py``), which gathers the whole model.
+for the (family, kind) pairs :func:`strategy` sends here
+(:data:`PARTITIONED_STEPS`: ``dense``, ``vlm``'s dense decoder, ``moe``
+and ``mla_moe``, each train, prefill and decode); the others keep the
+``"gathered"`` strategy (``train/step.py``, ``launch/specs.py``), which
+gathers the whole model.
 
 Operators over the ``model`` group (each the identity for a group of one
 or ``None``):
@@ -23,10 +26,11 @@ or ``None``):
   target's logit from the rank that holds it; its backward needs no
   collective;
 - :func:`softmax_combine` — the ranks' partial attention over their
-  shards of a cache split by the sequence (K5's partial mode: each
-  head's normalised output and log-sum-exp) made whole: the log-sum-exps'
-  max all-reduced, then the outputs' and the weights' sums in one
-  all-reduce; no backward (decode runs under ``no_grad``).
+  shards of a cache split by the sequence (K5's partial mode, or MLA's
+  plain partial attention: each head's normalised output and
+  log-sum-exp) made whole: the log-sum-exps' max all-reduced, then the
+  outputs' and the weights' sums in one all-reduce; no backward (decode
+  runs under ``no_grad``).
 
 The per-layer gather (:func:`use`): a parameter's local ``DTensor`` block
 becomes the tensor the rank computes with by a chain of
@@ -43,22 +47,37 @@ full-model gather remains.
 Layouts on a rank: the hidden state (B_local, S, d) whole on ``model``;
 ``wq/wk/wv`` (and biases) column-parallel, ``wo`` row-parallel then
 :func:`reduce_out`, both FFN halves likewise; the embedding table and the
-logits split on the vocabulary.  Attention in train and prefill takes one
-of two modes (:func:`attention_mode`):
+logits split on the vocabulary.  An MoE layer's FFN
+(:func:`repro_torch.parallel.experts.moe_partitioned`) takes the rank's
+``E/m`` experts, gathered on the data axes only, and the router gathered
+there and used whole (its gradient summed over ``model``: each rank's
+combine weights cover its own experts); the shared expert is split as a
+dense FFN, and the routed and shared outputs meet in one
+:func:`reduce_out`.  Attention in train and prefill takes one of two
+modes (:func:`attention_mode`):
 
 - ``"heads"`` where ``n_heads`` divides by the ``model`` extent and the
   KV heads split evenly over it or it over them: the rank attends over
   its ``n_heads / m`` query heads with the KV heads they use, under a
   per-rank config (``dataclasses.replace(cfg, n_heads=..., n_kv_heads=...)``),
-  so the model functions (``gqa_prefill``, ``swiglu``) run unchanged on
-  local widths.  Where KV heads are fewer than ``m`` (8 on 16), ``wk/wv``
-  are gathered over ``model`` and the rank takes the head its queries
-  use; their gradients are reduce-scattered back (summed: two ranks
-  share a head);
-- ``"replicated"`` otherwise (qwen1.5-4b's 20 heads on 16): the four
-  projections gathered over ``model``, attention computed whole on every
-  ``model`` rank, their gradients sliced back; FFN and vocabulary stay
-  split.
+  so the model functions (``gqa_prefill``, ``mla_prefill``, ``swiglu``)
+  run unchanged on local widths.  Where KV heads are fewer than ``m`` (8
+  on 16), ``wk/wv`` are gathered over ``model`` and the rank takes the
+  head its queries use; their gradients are reduce-scattered back
+  (summed: two ranks share a head).  MLA's low-rank path (``wq_a``,
+  ``q_a_norm``, ``wkv_a``, ``kv_a_norm``, the rotated ``k_rope``) runs
+  whole on every ``model`` rank, its gradients summed over ``model``;
+  the rank's column blocks of ``wq_b`` / ``wkv_b`` give its heads' ``q``,
+  ``k_nope`` and ``v``;
+- ``"replicated"`` otherwise (qwen1.5-4b's 20 heads on 16): the
+  projections ``model`` splits gathered over it, attention computed
+  whole on every ``model`` rank, their gradients sliced back; FFN and
+  vocabulary stay split.
+
+The train step's loss adds the MoE aux loss (the global batch's Switch
+loss under ``"gspmd"``) and DeepSeek's MTP head: its block runs as one
+more partitioned layer, ``mtp/proj`` gathered on the data axes and used
+whole, its logits split on the vocabulary.
 
 Decode (:meth:`Partitioned.decode`) takes the reference's
 ``cache_sharding`` blocks as they lie: the rows on the data axes, the
@@ -66,20 +85,27 @@ sequence on ``model`` (rank ``r`` holds positions ``[r S/m, (r+1) S/m)``),
 ``pos`` replicated.  It needs no attention mode: every rank attends all
 H heads over its own positions.  Each layer's weights are gathered on the
 data axes only; a rank projects its column block of ``wq/wk/wv`` (and
-biases) and the blocks' one-token rows are all-gathered over ``model`` in
-one call (a block ``_fit`` left whole is used whole).  RoPE and the
-per-head norms run on the whole rows.  The new K/V row is written by the
-masked write at the shard-local position ``pos - r S/m`` (nothing where it
-falls outside the shard), K5's partial mode attends over the shard, and
-:func:`softmax_combine` makes the heads whole; then ``wo`` row-parallel on
-the rank's column slice, the FFN and the vocabulary as in train.  With a
-``model`` group of one it launches K5's whole-cache mode and is
+biases; MLA's ``wq_b``) and the blocks' one-token rows are all-gathered
+over ``model`` in one call (a block ``_fit`` left whole is used whole).
+RoPE and the per-head norms run on the whole rows.  The new K/V (MLA:
+latent) row is written by the masked write at the shard-local position
+``pos - r S/m`` (nothing where it falls outside the shard); K5's partial
+mode attends over the shard (MLA: ``wkv_b`` gathered over ``model`` for
+the layer expands the shard's latent rows to every head, and a plain
+partial attention returns each head's output and log-sum-exp, ``-inf``
+where the shard holds no key), and :func:`softmax_combine` makes the
+heads whole; then ``wo`` row-parallel on the rank's column slice, the FFN
+(an MoE's per-token ``no_drop`` form over the rank's experts) and the
+vocabulary as in train.  With a ``model`` group of one it launches K5's
+whole-cache mode (MLA: ``mla_decode`` over the whole cache) and is
 ``models.decode_step`` bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 import types
 from typing import Any
 
@@ -89,17 +115,20 @@ from torch.distributed.tensor import Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
-from ..models.attention import cache_slots, gqa_decode_heads, gqa_prefill, rope_for
+from ..models.attention import (_mla_qkv, cache_slots, gqa_decode_heads, gqa_prefill,
+                                mla_decode, mla_prefill, rope_for, write_latent_rows)
 from ..models.config import ModelConfig
 from ..models.ffn import swiglu
 from ..models.layers import dense, rmsnorm
-from ..models.model import FAMILIES
+from ..models.model import FAMILIES, _zero_aux
+from .experts import moe_partitioned
 from .sharding import (_spec_leaves, data_shard, fsdp_axes, mesh_sizes, param_sharding,
                        placements)
 
 __all__ = [
     "GATHERED",
     "PARTITIONED",
+    "PARTITIONED_STEPS",
     "Partitioned",
     "Step",
     "attention_mode",
@@ -114,17 +143,17 @@ __all__ = [
 
 GATHERED = "gathered"
 PARTITIONED = "partitioned"
-PARTITIONED_FAMILIES = ("dense", "vlm")
-PARTITIONED_KINDS = ("train", "prefill", "decode")
+_KINDS = ("train", "prefill", "decode")
+# the step kinds partitioned, per family; the rest are gathered
+PARTITIONED_STEPS = {"dense": _KINDS, "vlm": _KINDS, "moe": _KINDS, "mla_moe": _KINDS}
 
 
 def strategy(cfg: ModelConfig, kind: str) -> str:
-    """The sharded step's strategy for a family and step kind: the dense
-    decoder's train, prefill and decode steps are partitioned; every
-    other family's steps are gathered."""
-    if cfg.block_pattern in PARTITIONED_FAMILIES and kind in PARTITIONED_KINDS:
-        return PARTITIONED
-    return GATHERED
+    """The sharded step's strategy for a family and step kind, by
+    :data:`PARTITIONED_STEPS`: the dense decoder's and the MoE families'
+    train, prefill and decode steps are partitioned; every other family's
+    steps are gathered."""
+    return PARTITIONED if kind in PARTITIONED_STEPS.get(cfg.block_pattern, ()) else GATHERED
 
 
 def attention_mode(cfg: ModelConfig, m: int) -> str:
@@ -333,18 +362,24 @@ def _ns(tree: dict) -> types.SimpleNamespace:
 
 
 _KV = (("attn", "wk", "w"), ("attn", "wk", "b"), ("attn", "wv", "w"), ("attn", "wv", "b"))
+# MLA's low-rank path, computed whole on every model rank in heads mode
+_LOW_RANK = ("q_norm", "k_norm", "wq_a", "q_a_norm", "wkv_a", "kv_a_norm")
+_MTP = ("mtp", "block")
 
 
 class Partitioned:
-    """One rank's partitioned dense decoder on ``mesh`` (module docstring).
+    """One rank's partitioned decoder on ``mesh`` (module docstring).
 
     Its methods take ``blocks``, a dict from a parameter's path (a tuple of
     names, as ``param_tree`` nests them) to this rank's local block (a
     plain tensor, the ``DTensor`` 's ``to_local()``): :meth:`forward` gives
-    the logits split on the vocabulary, :meth:`xent` their per-token
-    cross-entropy, :meth:`prefill` the last position's split logits and a
-    cache of the rank's KV heads, :meth:`decode` one step over the rank's
-    ``cache_sharding`` blocks."""
+    the logits split on the vocabulary, the aux loss and the MTP head's
+    split logits, :meth:`xent` their per-token cross-entropy,
+    :meth:`prefill` the last position's split logits and a cache of the
+    rank's KV heads (MLA: the whole latent), :meth:`decode` one step over
+    the rank's ``cache_sharding`` blocks.  ``split`` says whether the
+    batch's rows are split over the data axes (else every rank holds them
+    all): the MoE's global capacity counts the shards' tokens only then."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         if strategy(cfg, "train") != PARTITIONED:
@@ -353,6 +388,7 @@ class Partitioned:
         sizes = mesh_sizes(mesh)
         self.m, self.r = sizes["model"], mesh.get_local_rank("model")
         self.tp = mesh.get_group("model") if self.m > 1 else None
+        self.mla = cfg.block_pattern == "mla_moe"
         self.attention = attention_mode(cfg, self.m)
         self.local_cfg = cfg
         self.kv = None  # the KV heads' columns this rank takes from the whole wk / wv
@@ -361,41 +397,55 @@ class Partitioned:
             hkv_l = max(1, cfg.n_kv_heads // self.m)
             self.local_cfg = dataclasses.replace(cfg, n_heads=h_l, n_kv_heads=hkv_l,
                                                  head_dim=cfg.head_dim_)
-            if cfg.n_kv_heads % self.m:
+            if cfg.n_kv_heads % self.m and not self.mla:
                 head = self.r // (self.m // cfg.n_kv_heads)
                 self.kv = slice(head * cfg.head_dim_, (head + 1) * cfg.head_dim_)
         self.dp_index = data_shard(mesh)[1]
+        self.data_axes = tuple((mesh.get_group(a), sizes[a]) for a in fsdp_axes(mesh)
+                               if sizes[a] > 1)
         skeleton = FAMILIES[cfg.block_pattern](cfg, device="meta")
         specs = _spec_leaves(param_sharding(mesh, skeleton))
-        self.steps = {path: self._steps(mesh, path, placements(mesh, spec))
-                      for path, spec in specs.items()}
-        # decode's: the data axes only (model-split projections used as blocks)
-        self.decode_steps = {path: self._steps(mesh, path, placements(mesh, spec), model=False)
-                             for path, spec in specs.items()}
         on_model = mesh.mesh_dim_names.index("model")
 
         def on_model_split(*path: str) -> bool:
             return isinstance(placements(mesh, specs[path])[on_model], Shard)
 
+        ffn, attn = ("layers", "0", "ffn"), ("layers", "0", "attn")
+        self.moe = bool(cfg.moe.n_experts)
+        # the routed experts split on model (a rank holds E/m of them), and
+        # the dense FFN's or the shared expert's halves
+        self.experts_split = self.moe and on_model_split(*ffn, "experts", "wi_gate")
+        self.e_loc = cfg.moe.n_experts // self.m if self.experts_split else cfg.moe.n_experts
+        ffn_wo = ffn + (("shared",) if self.moe else ()) + ("wo", "w")  # absent: no shared
+        self.ffn_split = ffn_wo in specs and on_model_split(*ffn_wo)
+        self.steps = {path: self._steps(mesh, path, placements(mesh, spec))
+                      for path, spec in specs.items()}
+        # decode's: the data axes only (model-split projections used as blocks)
+        self.decode_steps = {path: self._steps(mesh, path, placements(mesh, spec), model=False)
+                             for path, spec in specs.items()}
         split_vocab = on_model_split("embed", "table")
         self.vocab_group = self.tp if split_vocab else None
         self.vocab_lo = self.r * cfg.vocab // self.m if split_vocab else 0
-        self.ffn_split = on_model_split("layers", "0", "ffn", "wo", "w")
-        attn = ("layers", "0", "attn")
-        self.qkv_split = tuple(on_model_split(*attn, n, "w") for n in ("wq", "wk", "wv"))
+        q_names = ("wq_b",) if self.mla else ("wq", "wk", "wv")
+        self.qkv_split = tuple(on_model_split(*attn, n, "w") for n in q_names)
         self.wo_split = on_model_split(*attn, "wo", "w")
+        self.wkv_b = (Step(self.tp, self.m, self.r, 1, None)
+                      if self.mla and on_model_split(*attn, "wkv_b", "w") else None)
 
     def _model_grad(self, path: tuple, sharded: bool) -> str | None:
         """What the backward does over ``model`` for a parameter (module
-        docstring): heads-mode ``wk/wv`` taken whole and sliced, and the
-        per-head norms, have partial gradients (summed); replicated-mode
+        docstring): heads-mode ``wk/wv`` taken whole and sliced, the
+        per-head norms, MLA's low-rank path and, where the experts split,
+        the router have partial gradients (summed); replicated-mode
         attention weights are taken whole, their gradients sliced."""
         tail = path[2:]
+        if tail[:2] == ("ffn", "router"):
+            return "sum" if self.experts_split else None
         if tail[:1] != ("attn",):
             return None
         if self.attention == "replicated":
             return "slice" if sharded else None
-        if tail[1] in ("q_norm", "k_norm"):
+        if tail[1] in _LOW_RANK:
             return "sum"
         if tail in _KV and self.kv is not None:
             return "sum"
@@ -431,8 +481,9 @@ class Partitioned:
     def use(self, blocks: dict, path: tuple, decode: bool = False) -> torch.Tensor:
         return use(blocks[path], (self.decode_steps if decode else self.steps)[path])
 
-    def _layer_params(self, blocks: dict, i: int, decode: bool = False) -> types.SimpleNamespace:
-        prefix = ("layers", str(i))
+    def _layer_params(self, blocks: dict, prefix: tuple,
+                      decode: bool = False) -> types.SimpleNamespace:
+        """The layer at ``prefix`` (``("layers", i)`` or the MTP block's)."""
         tree: dict = {}
         for path in self.steps:
             if path[:2] != prefix:
@@ -450,22 +501,46 @@ class Partitioned:
 
     def _attend(self, a, h: torch.Tensor, rope):
         """Attention of one layer: ``(out, k, v)``, k and v the rank's KV
-        heads as ``(B, Hkv_local, S, hd)``."""
+        heads as ``(B, Hkv_local, S, hd)`` (MLA: ``c_kv`` and ``k_rope``
+        whole)."""
+        fn = mla_prefill if self.mla else gqa_prefill
         if self.attention == "replicated":
-            return gqa_prefill(a, self.cfg, h, rope)
-        out, k, v = gqa_prefill(a, self.local_cfg, copy_in(h, self.tp), rope)
+            return fn(a, self.cfg, h, rope)
+        out, k, v = fn(a, self.local_cfg, copy_in(h, self.tp), rope)
         return reduce_out(out, self.tp), k, v
 
-    def _ffn(self, f, h: torch.Tensor) -> torch.Tensor:
-        if not self.ffn_split:
-            return swiglu(f, h)
-        return reduce_out(swiglu(f, copy_in(h, self.tp)), self.tp)
+    def _ffn(self, f, h: torch.Tensor, *, split: bool, no_drop: bool = False):
+        """The FFN of one layer: ``(y, aux)``.  The parts ``model`` splits
+        take ``copy_in`` 's input and meet in one :func:`reduce_out`; a part
+        it leaves whole is added after."""
+        if not self.moe:
+            y = swiglu(f, copy_in(h, self.tp) if self.ffn_split else h)
+            return (reduce_out(y, self.tp) if self.ffn_split else y), _zero_aux(h)
+        xin = copy_in(h, self.tp) if self.experts_split or self.ffn_split else h
+        y, aux = moe_partitioned(
+            f, self.cfg, xin if self.experts_split else h, first=self.r * self.e_loc
+            if self.experts_split else 0, e_loc=self.e_loc, m=self.m if self.experts_split else 1,
+            data=self.data_axes if split else (), index=self.dp_index, no_drop=no_drop)
+        parts: dict = {True: [], False: []}
+        parts[self.experts_split].append(y)
+        if hasattr(f, "shared"):
+            parts[self.ffn_split].append(swiglu(f.shared, xin if self.ffn_split else h))
+        out = [reduce_out(functools.reduce(operator.add, parts[True]), self.tp)] \
+            if parts[True] else []
+        return functools.reduce(operator.add, out + parts[False]), aux
 
-    def _layer(self, blocks: dict, i: int, x: torch.Tensor, rope) -> torch.Tensor:
-        p = self._layer_params(blocks, i)
+    def _layer(self, blocks: dict, prefix: tuple, x: torch.Tensor, rope, split: bool):
+        p = self._layer_params(blocks, prefix)
         eps = self.cfg.norm_eps
         x = x + self._attend(p.attn, rmsnorm(p.norm1, x, eps), rope)[0]
-        return x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
+        y, aux = self._ffn(p.ffn, rmsnorm(p.norm2, x, eps), split=split)
+        return x + y, aux
+
+    def _run(self, blocks: dict, prefix: tuple, x: torch.Tensor, rope, remat: bool,
+             split: bool):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(self._layer, blocks, prefix, x, rope, split, use_reentrant=False)
+        return self._layer(blocks, prefix, x, rope, split)
 
     def _embed_inputs(self, table: torch.Tensor, batch: dict):
         """As ``models.model._embed_inputs``, the lookup split on the
@@ -479,51 +554,74 @@ class Partitioned:
     def _unembed(self, table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return (copy_in(x, self.vocab_group) @ table.T).float()
 
-    def forward(self, blocks: dict, batch: dict, *, remat: bool = True) -> torch.Tensor:
-        """``forward_train``'s logits (B_local, S, V_local) fp32, this rank's
-        vocabulary entries ``[vocab_lo, vocab_lo + V_local)``; ``remat``
-        recomputes each layer, its gathers included, in the backward."""
+    def forward(self, blocks: dict, batch: dict, *, remat: bool = True, split: bool = True):
+        """``forward_train`` partitioned: ``(logits, aux, mtp_logits | None)``,
+        the logits (B_local, S, V_local) fp32 this rank's vocabulary
+        entries ``[vocab_lo, vocab_lo + V_local)`` (the MTP head's likewise,
+        over S - 1 positions), aux the MoE loss summed over layers;
+        ``remat`` recomputes each layer, its gathers included, in the
+        backward."""
         cfg = self.cfg
         table = self.use(blocks, ("embed", "table"))
         x, positions = self._embed_inputs(table, batch)
         rope = rope_for(cfg, positions)
+        aux = _zero_aux(x)
         for i in range(cfg.n_layers):
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(self._layer, blocks, i, x, rope, use_reentrant=False)
-            else:
-                x = self._layer(blocks, i, x, rope)
+            x, a = self._run(blocks, ("layers", str(i)), x, rope, remat, split)
+            aux = aux + a
         x = rmsnorm(_ns({"g": self.use(blocks, ("final_norm", "g"))}), x, cfg.norm_eps)
         if cfg.block_pattern == "vlm" and "patches" in batch:
             x = x[:, batch["patches"].shape[1]:]
-        return self._unembed(table, x)
+        logits = self._unembed(table, x)
+        if not (cfg.mtp_depth and ("mtp", "proj", "w") in blocks):
+            return logits, aux, None
+        # MTP: token t+2 from (hidden_t, embed_{t+1}); its aux is not counted
+        emb = vocab_embed(table, batch["tokens"], self.vocab_lo, self.vocab_group)
+        h = torch.cat([x[:, :-1], emb[:, 1:]], dim=-1) @ self.use(blocks, ("mtp", "proj", "w"))
+        h, _ = self._run(blocks, _MTP, h, rope_for(cfg, positions[:, :-1]), remat, split)
+        h = rmsnorm(_ns({"g": self.use(blocks, ("mtp", "norm", "g"))}), h, cfg.norm_eps)
+        return logits, aux, self._unembed(table, h)
 
     def xent(self, logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
         """Per-token cross-entropy of :meth:`forward`'s logits (0 at padding)."""
         return vocab_xent(logits, targets, self.vocab_lo, self.vocab_group)
 
     @torch.no_grad()
-    def prefill(self, blocks: dict, batch: dict, *, max_len: int | None = None):
+    def prefill(self, blocks: dict, batch: dict, *, max_len: int | None = None,
+                split: bool = True):
         """``models.prefill`` partitioned: the last position's logits (B, 1,
         V_local) fp32, split on the vocabulary as :meth:`forward` 's, and
         the cache of this rank's KV heads, ``{"layers": {"k", "v"} (L, B,
-        Hkv_local, S_max, hd), "pos"}``; each layer's weights gathered in
-        turn and freed."""
+        Hkv_local, S_max, hd), "pos"}`` (MLA: the whole latent, ``{"c_kv",
+        "k_rope"} (L, B, S_max, r)``); each layer's weights gathered in turn
+        and freed."""
         cfg = self.cfg
         table = self.use(blocks, ("embed", "table"))
         x, positions = self._embed_inputs(table, batch)
         b, s, _ = x.shape
         rope = rope_for(cfg, positions)
-        hkv = cfg.n_kv_heads if self.attention == "replicated" else self.local_cfg.n_kv_heads
-        shape = (cfg.n_layers, b, hkv, max(s, max_len or 0), cfg.head_dim_)
-        kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
+        length = max(s, max_len or 0)
+        if self.mla:
+            ml = cfg.mla
+            kv = {"c_kv": x.new_zeros((cfg.n_layers, b, length, ml.kv_lora_rank)),
+                  "k_rope": x.new_zeros((cfg.n_layers, b, length, ml.qk_rope_head_dim))}
+        else:
+            hkv = (cfg.n_kv_heads if self.attention == "replicated"
+                   else self.local_cfg.n_kv_heads)
+            shape = (cfg.n_layers, b, hkv, length, cfg.head_dim_)
+            kv = {"k": x.new_zeros(shape), "v": x.new_zeros(shape)}
         eps = cfg.norm_eps
         for i in range(cfg.n_layers):
-            p = self._layer_params(blocks, i)
+            p = self._layer_params(blocks, ("layers", str(i)))
             h, k, v = self._attend(p.attn, rmsnorm(p.norm1, x, eps), rope)
-            kv["k"][i, :, :, :s] = k
-            kv["v"][i, :, :, :s] = v
+            if self.mla:
+                kv["c_kv"][i, :, :s] = k
+                kv["k_rope"][i, :, :s] = v
+            else:
+                kv["k"][i, :, :, :s] = k
+                kv["v"][i, :, :, :s] = v
             x = x + h
-            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
+            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps), split=split)[0]
             del p, h, k, v
         final = _ns({"g": self.use(blocks, ("final_norm", "g"))})
         x = rmsnorm(final, x[:, -1:].contiguous(), eps)
@@ -532,10 +630,9 @@ class Partitioned:
 
     # -- decode --
 
-    def _gather_qkv(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    def _gather_qkv(self, *rows: torch.Tensor):
         """The projections' one-token rows made whole: the column blocks
         ``model`` splits all-gathered in one call, rank-major."""
-        rows = (q, k, v)
         split = [t for t, c in zip(rows, self.qkv_split) if c]
         if not split:
             return rows
@@ -570,35 +667,66 @@ class Partitioned:
         n = wo.w.shape[0]
         return reduce_out(dense(wo, x[..., self.r * n:(self.r + 1) * n]), self.tp)
 
+    def _mla_decode(self, a, h: torch.Tensor, cache_c: torch.Tensor, cache_r: torch.Tensor,
+                    local: torch.Tensor, rope, slots) -> torch.Tensor:
+        """MLA's one-token step over this rank's shard of the latent cache
+        (B, S/m, r) at shard-local positions ``local`` (module docstring);
+        ``mla_decode`` over the whole cache with a ``model`` group of one."""
+        cfg = self.cfg
+        if self.tp is None:
+            return mla_decode(a, cfg, h, cache_c, cache_r, local, rope, slots)
+        ml, nh, b = cfg.mla, cfg.n_heads, h.shape[0]
+        qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+        q_nope, q_rope, c_new, r_new = _mla_qkv(a, cfg, h, rope, gather=self._gather_qkv)
+        write_latent_rows(cache_c, c_new[:, 0], slots)
+        write_latent_rows(cache_r, r_new[:, 0], slots)
+        wkv_b = a.wkv_b.w if self.wkv_b is None else _all_gather(a.wkv_b.w, self.wkv_b)
+        t = cache_c.shape[1]
+        k_nope, v = (cache_c @ wkv_b).reshape(b, t, nh, ml.qk_nope_head_dim + ml.v_head_dim) \
+            .split([ml.qk_nope_head_dim, ml.v_head_dim], dim=-1)
+        logits = (torch.einsum("bsnh,btnh->bnst", q_nope, k_nope)
+                  + torch.einsum("bsnh,bth->bnst", q_rope, cache_r)).float()[:, :, 0]
+        logits.mul_(qk ** -0.5)
+        valid = (torch.arange(t, device=h.device)[None, :] <= local[:, None])[:, None]
+        logits.masked_fill_(~valid, float("-inf"))
+        lse = torch.logsumexp(logits, dim=-1)  # (B, H); -inf where the shard has no key
+        probs = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
+        out = torch.einsum("bnt,btnh->bnh", probs, v.float())
+        return self._wo(a.wo, softmax_combine(out, lse, self.tp).to(h.dtype))
+
     @torch.no_grad()
     def decode(self, blocks: dict, tokens: torch.Tensor, cache: dict):
         """``models.decode_step`` partitioned (module docstring).  ``tokens``
         (B_local, 1), this rank's rows; ``cache`` this rank's
         ``cache_sharding`` blocks, ``{"layers": {"k", "v"} (L, B_local, Hkv,
-        S_max / m, hd), the sequence on model, "pos" (B,) replicated}``.
-        Returns the logits (B_local, 1, V_local) fp32, split on the
-        vocabulary as :meth:`forward` 's, and the cache: this step's K/V
-        rows written in place into the shard that holds their position,
-        ``pos + 1``."""
+        S_max / m, hd) (MLA: {"c_kv", "k_rope"} (L, B_local, S_max / m, r)),
+        the sequence on model, "pos" (B,) replicated}``.  Returns the logits
+        (B_local, 1, V_local) fp32, split on the vocabulary as
+        :meth:`forward` 's, and the cache: this step's rows written in
+        place into the shard that holds their position, ``pos + 1``."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         kv, pos = cache["layers"], cache["pos"]
         b = tokens.shape[0]
         mine = pos if pos.shape[0] == b else pos.narrow(0, self.dp_index * b, b)
-        s_local = kv["k"].shape[3]
+        s_local = kv["c_kv"].shape[2] if self.mla else kv["k"].shape[3]
         local = mine - self.r * s_local  # shard-local; negative past this shard's start
         table = self.use(blocks, ("embed", "table"), decode=True)
         x = vocab_embed(table, tokens, self.vocab_lo, self.vocab_group)
         rope, slots = rope_for(cfg, mine[:, None]), cache_slots(local, s_local)
         split = self.tp is not None
         for i in range(cfg.n_layers):
-            p = self._layer_params(blocks, i, decode=True)
-            heads = gqa_decode_heads(p.attn, cfg, rmsnorm(p.norm1, x, eps), kv["k"][i],
-                                     kv["v"][i], local, rope, slots,
-                                     gather=self._gather_qkv if split else None,
-                                     attend=self._attend_shard if split else None)
-            x = x + self._wo(p.attn.wo, heads)
-            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps))
-            del p, heads
+            p = self._layer_params(blocks, ("layers", str(i)), decode=True)
+            h = rmsnorm(p.norm1, x, eps)
+            if self.mla:
+                x = x + self._mla_decode(p.attn, h, kv["c_kv"][i], kv["k_rope"][i], local,
+                                         rope, slots)
+            else:
+                heads = gqa_decode_heads(p.attn, cfg, h, kv["k"][i], kv["v"][i], local, rope,
+                                         slots, gather=self._gather_qkv if split else None,
+                                         attend=self._attend_shard if split else None)
+                x = x + self._wo(p.attn.wo, heads)
+            x = x + self._ffn(p.ffn, rmsnorm(p.norm2, x, eps), split=False, no_drop=True)[0]
+            del p, h
         final = _ns({"g": self.use(blocks, ("final_norm", "g"), decode=True)})
         x = rmsnorm(final, x[:, -1:].contiguous(), eps)
         return self._unembed(table, x), {"layers": kv, "pos": pos + 1}

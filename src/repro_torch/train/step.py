@@ -26,15 +26,19 @@ held by several ranks counts once) and ``adamw_update`` runs on the
 blocks.  The rule of :func:`repro_torch.parallel.partition.strategy`
 picks how the rest is done:
 
-- ``"partitioned"`` (the dense decoder: ``dense``, ``vlm``), as XLA
-  partitions the reference's step: each layer's weights gathered on the
-  data axes inside the recomputed layer (their gradients reduce-scattered
-  back in its backward, so each arrives at its block reduced), the
-  projections split on ``model`` (attention by heads, or replicated on
-  ``model`` where the heads do not split), the logits and the
-  cross-entropy split on the vocabulary, as the reference's
-  ``logits_sharding`` pins them (:mod:`repro_torch.parallel.partition`);
-- ``"gathered"`` (the other families): the full parameters gathered
+- ``"partitioned"`` (the dense decoder, ``dense`` and ``vlm``, and the
+  MoE families, ``moe`` and ``mla_moe``), as XLA partitions the
+  reference's step: each layer's weights gathered on the data axes inside
+  the recomputed layer (their gradients reduce-scattered back in its
+  backward, so each arrives at its block reduced), the projections split
+  on ``model`` (attention by heads, or replicated on ``model`` where the
+  heads do not split; an MoE's experts ``E/m`` a rank, dispatched with
+  the global batch's capacity: :mod:`repro_torch.parallel.experts`), the
+  logits and the cross-entropies split on the vocabulary, as the
+  reference's ``logits_sharding`` pins them; the loss adds the MoE aux
+  loss and the MTP head's cross-entropy (:mod:`repro_torch.parallel.
+  partition`);
+- ``"gathered"`` (Mamba2, Zamba2, Whisper): the full parameters gathered
   once a step into a model on plain tensors (the peak holds them, their
   fp32 gradients and this rank's blocks of the state), each rank's whole
   forward and backward on its rows, and each gradient reduced to its
@@ -43,11 +47,12 @@ picks how the rest is done:
   expert-parallel MoE, whose ranks each hold their slice's gradient:
   summed).
 
-An MoE under the default ``"gspmd"`` dispatch routes the whole batch with
-its global capacity (the data shards' tokens gathered: :func:`repro_torch.
-models.moe_sharded.moe_apply_global`); under ``"shard_map"`` it takes the
-expert-parallel dispatch, whose capacity is per data shard, as the
-reference's.
+Called directly on an MoE (the rule no longer sends one there), the
+gathered step routes the whole batch under the default ``"gspmd"``
+dispatch with its global capacity (the data shards' tokens gathered:
+:func:`repro_torch.models.moe_sharded.moe_apply_global`); under
+``"shard_map"`` it takes the expert-parallel dispatch, whose capacity is
+per data shard, as the reference's.
 """
 
 from __future__ import annotations
@@ -348,12 +353,16 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: in
 
 def _partitioned_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches: int,
                             remat: bool, mesh) -> Callable:
-    """The dense decoder's step partitioned as the reference's GSPMD step
+    """The step partitioned as the reference's GSPMD step
     (:mod:`repro_torch.parallel.partition`): the state and the batch as
     :func:`_sharded_train_step` takes them; each layer's weights gathered
-    on the data axes inside the recomputed layer, the projections split
-    on ``model``, the logits and the cross-entropy split on the
-    vocabulary.  Each gradient arrives at its block reduced (the
+    on the data axes inside the recomputed layer, the projections (and an
+    MoE's experts) split on ``model``, the logits and the cross-entropies
+    split on the vocabulary.  The loss is :func:`loss_fn` 's: the
+    cross-entropy, the MoE aux loss (its value the global batch's, its
+    gradient this data shard's share, so it is scaled with the
+    cross-entropies) and ``MTP_WEIGHT`` times the MTP head's
+    cross-entropy.  Each gradient arrives at its block reduced (the
     per-layer gather's backward), so no reduction remains at the step's
     end; the norm and AdamW run on the blocks as the gathered step's."""
     _need_group()
@@ -371,16 +380,23 @@ def _partitioned_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, microbatches
         for i in range(microbatches):
             mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
             count = (mb["targets"] >= 0).sum().clamp(min=1)
+            mtp_count = (mb["targets"][:, 1:] >= 0).sum().clamp(min=1)
             if split:
                 mb = {k: v[dp_index * local:(dp_index + 1) * local] for k, v in mb.items()}
-            nll = part.xent(part.forward(blocks, mb, remat=remat), mb["targets"])
-            ce = nll.sum() / count
-            grads = torch.autograd.grad(scale * ce, list(blocks.values()), allow_unused=True)
+            logits, aux, mtp_logits = part.forward(blocks, mb, remat=remat, split=split)
+            ce = part.xent(logits, mb["targets"]).sum() / count
+            loss = ce + aux
+            m = {"ce": ce.detach(), "aux": aux.detach()}
+            if mtp_logits is not None:
+                mtp_ce = part.xent(mtp_logits, mb["targets"][:, 1:]).sum() / mtp_count
+                loss = loss + MTP_WEIGHT * mtp_ce
+                m["mtp_ce"] = mtp_ce.detach()
+            grads = torch.autograd.grad(scale * loss, list(blocks.values()), allow_unused=True)
             grads = {path: (torch.zeros_like(b) if g is None else g).float()
                      for (path, b), g in zip(blocks.items(), grads)}
             total = grads if total is None else {k: total[k] + g for k, g in grads.items()}
-            ce = ce.detach()
-            metrics.append({"ce": ce, "aux": torch.zeros_like(ce), "loss": ce})
+            m["loss"] = loss.detach()
+            metrics.append(m)
         grads = _map_paths(lambda path, t: total[path] / microbatches, params)
         metrics = _global_ce(metrics, split, mesh, dp)
         new, opt_metrics = _update(opt_cfg, mesh, grads, params, opt)

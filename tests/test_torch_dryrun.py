@@ -390,5 +390,8 @@ def test_full_size_cells_write_the_references_keys(cells, deepseek):
     assert written == cell
     ds = deepseek
     assert ds["status"] == "ok" and ds["fits"] is False
-    # the gathered bf16 parameters alone pass the card's memory
-    assert ds["temp_bytes"] > 2 * 671e9 > dryrun.HBM_BYTES
+    # partitioned since the MoE slice: no rank gathers the 1.34 TB of bf16
+    # parameters, but the remat checkpoints and the plain MLA attention
+    # still pass the card's memory
+    assert ds["strategy"] == "partitioned" and ds["attention"] == "heads"
+    assert dryrun.HBM_BYTES < ds["peak_bytes"] < 2 * 671e9 / 8

@@ -44,6 +44,8 @@ the CPU.
   within 10 % of XLA's.
 """
 
+import dataclasses
+import json
 import subprocess
 import sys
 import textwrap
@@ -64,6 +66,7 @@ from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.kernels import decode_attention as dak
 from repro_torch.models import decode_step, prefill
+from repro_torch.models.ffn import drop_counts, reset_drop_counts
 from repro_torch.parallel import partition
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.step import _sharded_train_step
@@ -129,7 +132,7 @@ for name, heads in (("dense", None), ("odd_heads", 5)):
         res[f"{name}_{shape[0]}x{shape[1]}"] = flops(c)
 
 cfg = get_smoke_config("qwen1.5-4b")
-params = unflatten(dict(np.load(out + "/ref_init.npz")))
+params = unflatten(dict(np.load(out + "/ref_init_dense_2x2.npz")))
 state = {"params": params, "opt": adamw_init(opt, params)}
 mesh = mesh_of((2, 2))
 losses = []
@@ -168,6 +171,95 @@ for shape in ((2, 2), (1, 4)):
 np.savez(out + "/reference_partition.npz", **res)
 """
 
+# the MoE cases' reference side, one subprocess a family: for each case
+# the train and decode steps' FLOPs on one device and on its mesh (the
+# partition factor) and, for a case held against the reference, 2 train
+# steps and 4 decode steps on (2, 2) from its initial parameters
+REFERENCE_MOE = """
+import dataclasses, json, sys
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+from repro.configs import get_smoke_config
+from repro.models import decode_step, init_params, prefill
+from repro.parallel import batch_sharding, cache_sharding, compat, param_sharding
+from repro.train import AdamWConfig, make_train_step, train_state_init
+from repro.train.optim import adamw_init
+
+out, cases = sys.argv[1], json.loads(sys.argv[2])
+opt = AdamWConfig(lr=1e-2, warmup_steps=1, eps=1.0, moment_dtype="float32")
+
+def unflatten(arrays):
+    tree = {}
+    for key, v in arrays.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = jnp.asarray(v)
+    return tree
+
+def flops(compiled):
+    ca = compiled.cost_analysis()
+    return float((ca[0] if isinstance(ca, list) else ca)["flops"])
+
+for name, case in cases.items():
+    dispatch, cf, coef, *experts = case["moe"]
+    cfg = get_smoke_config(case["arch"])
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch=dispatch, capacity_factor=cf, router_aux_coef=coef))
+    mesh = jax.make_mesh(tuple(case["mesh"]), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    batch = {k: jnp.asarray(v) for k, v in np.load(f"{out}/batch_{name}.npz").items()}
+    dec = dict(np.load(f"{out}/decode_{name}.npz"))
+    res = {}
+    abstract = jax.eval_shape(lambda k: train_state_init(k, cfg, opt).as_dict(),
+                              jax.random.PRNGKey(0))
+
+    def sharded(state):
+        st = {"params": param_sharding(mesh, state["params"]),
+              "opt": {"m": param_sharding(mesh, state["opt"]["m"]),
+                      "v": param_sharding(mesh, state["opt"]["v"]),
+                      "step": NamedSharding(mesh, P())}}
+        return jax.jit(make_train_step(cfg, opt), in_shardings=(st, batch_sharding(mesh, batch)))
+
+    res["train_single"] = flops(jax.jit(make_train_step(cfg, opt)).lower(abstract, batch).compile())
+    with compat.set_mesh(mesh):
+        res["train_mesh"] = flops(sharded(abstract).lower(abstract, batch).compile())
+    params = (unflatten(dict(np.load(f"{out}/ref_init_{name}.npz"))) if case["reference"]
+              else init_params(jax.random.PRNGKey(0), cfg))
+    _, cache = prefill(params, cfg, {"tokens": jnp.asarray(dec["prompt"])},
+                       max_len=int(dec["length"]))
+    cache["pos"] = jnp.asarray(dec["pos"])
+    decode = lambda p, t, c: decode_step(p, cfg, t, c)
+    tok = jnp.asarray(dec["tokens"][:, :1])
+    res["decode_single"] = flops(jax.jit(decode).lower(params, tok, cache).compile())
+    with compat.set_mesh(mesh):
+        step = jax.jit(decode, in_shardings=(param_sharding(mesh, params),
+                                             batch_sharding(mesh, {"tokens": tok})["tokens"],
+                                             cache_sharding(mesh, cache)))
+        res["decode_mesh"] = flops(step.lower(params, tok, cache).compile())
+        if case["reference"]:
+            logits, c = [], cache
+            for i in range(dec["tokens"].shape[1]):
+                lg, c = step(params, jnp.asarray(dec["tokens"][:, i:i + 1]), c)
+                logits.append(np.asarray(lg))
+            res["decode_logits"] = np.stack(logits)
+    if case["reference"]:  # the state built outside the mesh's scope, as the dense case's
+        state = {"params": params, "opt": adamw_init(opt, params)}
+        losses = []
+        with compat.set_mesh(mesh):
+            train = sharded(state)
+            for _ in range(2):
+                state, m = train(state, batch)
+                state = jax.tree.map(np.asarray, state)
+                losses.append(float(m["loss"]))
+        res["losses"] = np.asarray(losses)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(state["params"])[0]:
+            res["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
+    np.savez(f"{out}/reference_{name}.npz", **res)
+"""
+MOE_FACTOR_CASES = [c for c in ranks.FACTOR_CASES if not c.startswith("dense_")]
+MOE_REFERENCE_CASES = [c for c in ranks.REFERENCE_CASES if not c.startswith("dense_")]
+
 
 def _flat(tree, prefix=()):
     if isinstance(tree, dict):
@@ -175,6 +267,42 @@ def _flat(tree, prefix=()):
             yield from _flat(v, prefix + (k,))
     else:
         yield prefix, tree
+
+
+def _reference_process(out, script: str, *args: str) -> subprocess.Popen:
+    """The reference's side in a subprocess on a 4-device CPU mesh."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import os\n"
+         'os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"\n'
+         + textwrap.dedent(script), str(out), *args],
+        env=ranks.subprocess_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _save_reference_inputs(out, name: str) -> dict:
+    """A case's reference-side inputs: its initial parameters (for a case
+    held against the reference), batch and decode inputs; the case's
+    entry for ``REFERENCE_MOE``."""
+    arch, _, mesh, moe = ranks.PARTITION_CASES[name]
+    cfg = ranks.partition_config(name)
+    if name in ranks.REFERENCE_CASES:
+        ref_cfg = dataclasses.replace(ref_smoke_config(arch), n_heads=cfg.n_heads,
+                                      n_kv_heads=cfg.n_kv_heads)
+        if moe is not None:
+            ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(
+                ref_cfg.moe, n_experts=cfg.moe.n_experts))
+        tree = ref_init_params(jax.random.PRNGKey(0), ref_cfg)
+        np.savez(out / f"ref_init_{name}.npz",
+                 **{"/".join(p.key for p in path): np.asarray(leaf)
+                    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]})
+    batch = ranks.partition_batch(cfg)
+    np.savez(out / f"batch_{name}.npz", **{k: v.numpy().astype(np.int32) for k, v in batch.items()})
+    prompt, pos, tokens = ranks.decode_inputs(cfg)
+    np.savez(out / f"decode_{name}.npz", prompt=prompt["tokens"].numpy().astype(np.int32),
+             pos=pos.numpy(), tokens=tokens.numpy().astype(np.int32),
+             length=ranks.decode_len(cfg))
+    return {"arch": arch, "mesh": list(mesh), "moe": list(moe) if moe else None,
+            "reference": name in ranks.REFERENCE_CASES}
 
 
 def _operator_inputs(rng) -> dict:
@@ -202,23 +330,17 @@ def runs(tmp_path_factory):
     started together."""
     out = tmp_path_factory.mktemp("partition")
     np.savez(out / "operators.npz", **_operator_inputs(np.random.default_rng(31)))
-    tree = ref_init_params(jax.random.PRNGKey(0), ref_smoke_config("qwen1.5-4b"))
-    np.savez(out / "ref_init.npz", **{"/".join(p.key for p in path): np.asarray(leaf) for
-                                     path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]})
+    moe = {name: _save_reference_inputs(out, name)
+           for name in dict.fromkeys(ranks.REFERENCE_CASES + ranks.FACTOR_CASES)}
     batch = ranks.step_batch("dense", ref_smoke_config("qwen1.5-4b").vocab)
     np.savez(out / "batch.npz", **{k: v.numpy().astype(np.int32) for k, v in batch.items()})
-    cfg = ranks.partition_config("dense_2x2")
-    prompt, pos, tokens = ranks.decode_inputs(cfg)
-    np.savez(out / "decode.npz", prompt=prompt["tokens"].numpy().astype(np.int32),
-             pos=pos.numpy(), tokens=tokens.numpy().astype(np.int32),
-             length=ranks.decode_len(cfg))
-    reference = subprocess.Popen(
-        [sys.executable, "-c",
-         "import os\n"
-         'os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"\n'
-         + textwrap.dedent(REFERENCE), str(out)],
-        env=ranks.subprocess_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    ranks.wait_all([*ranks.start_ranks("partition", 4, out), reference])
+    (out / "decode.npz").write_bytes((out / "decode_dense_2x2.npz").read_bytes())
+    families = {}
+    for name in MOE_FACTOR_CASES:
+        families.setdefault(moe[name]["arch"], {})[name] = moe[name]
+    references = [_reference_process(out, REFERENCE)] + [
+        _reference_process(out, REFERENCE_MOE, json.dumps(cases)) for cases in families.values()]
+    ranks.wait_all([*ranks.start_ranks("partition", 4, out), *references])
     return out
 
 
@@ -259,16 +381,17 @@ def test_operators_are_the_identity_on_a_group_of_one():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_the_rule_partitions_the_dense_train_and_prefill_steps_only(arch):
-    """The dense decoder's train, prefill and (since the partitioned
-    decode) decode steps are partitioned; every other family's are
-    gathered."""
+    """The dense decoder's and (since the partitioned MoE) the MoE and MLA
+    + MoE families' train, prefill and decode steps are partitioned;
+    Mamba2's, Zamba2's and Whisper's are gathered."""
     cfg = get_config(arch)
-    dense = cfg.block_pattern in ("dense", "vlm")
+    split = cfg.block_pattern in ("dense", "vlm", "moe", "mla_moe")
     for kind in ("train", "prefill", "decode"):
-        want = "partitioned" if dense else "gathered"
+        want = "partitioned" if split else "gathered"
         assert partition.strategy(cfg, kind) == want
-    if dense:  # the attention modes on the production meshes' model axis of 16
-        heads = {"qwen2-72b", "qwen3-32b", "llava-next-mistral-7b"}
+    if split:  # the attention modes on the production meshes' model axis of 16
+        heads = {"qwen2-72b", "qwen3-32b", "llava-next-mistral-7b", "qwen3-moe-235b-a22b",
+                 "deepseek-v3-671b"}
         assert partition.attention_mode(cfg, 16) == ("heads" if arch in heads else "replicated")
     else:
         with pytest.raises(ValueError, match="not partitioned"):
@@ -333,6 +456,7 @@ def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(ru
         logits, cache = prefill(ranks.initial_state(cfg).params, cfg, prompt)
     rows, vocab = logits.shape[0] // data, cfg.vocab // model
     heads = (partition.attention_mode(cfg, model) == "heads")
+    mla = cfg.block_pattern == "mla_moe"
     for r in range(4):
         got = torch.load(runs / f"partition_rank{r}.pt")["prefill"][name]
         d, m = divmod(r, model)
@@ -341,19 +465,21 @@ def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(ru
         torch.testing.assert_close(got["logits"], logits[b, :, m * vocab:(m + 1) * vocab],
                                    rtol=0, atol=1e-5)
         kv = slice(None)
-        if heads:  # the KV heads this rank's query heads use
+        if heads and not mla:  # the KV heads this rank's query heads use
             per = cfg.n_kv_heads // model or 1
             first = m * cfg.n_kv_heads // model if cfg.n_kv_heads >= model else (
                 m // (model // cfg.n_kv_heads))
             kv = slice(first, first + per)
-        for k in ("k", "v"):
-            torch.testing.assert_close(got[k], cache["layers"][k][:, b, kv], rtol=0, atol=1e-5)
+        assert set(got) - {"logits", "pos", "attention", "drops"} == set(cache["layers"])
+        for k, want in cache["layers"].items():  # MLA's latent: the rank's rows, whole
+            torch.testing.assert_close(got[k], want[:, b] if mla else want[:, b, kv],
+                                       rtol=0, atol=1e-5)
         assert torch.equal(got["pos"], cache["pos"][b])
 
 
 def test_partitioned_step_equals_the_references_sharded_step(runs):
     ref = dict(np.load(runs / "reference_partition.npz"))
-    got = torch.load(runs / "partition_rank0.pt")["reference_2x2"]
+    got = torch.load(runs / "partition_rank0.pt")["reference/dense_2x2"]
     losses = [m["loss"] for m in got["metrics"]]
     assert np.abs(np.asarray(losses) - ref["losses"]).max() < LOSS_TOL
     for path, t in _flat(got["params"]):
@@ -475,7 +601,8 @@ def test_partitioned_decode_equals_the_single_device_decode(runs, name):
     want, cache, _ = _single_decode(cfg)
     _, pos, _ = ranks.decode_inputs(cfg)
     rows, vocab = len(pos) // data, cfg.vocab // model
-    length = cache["layers"]["k"].shape[3]
+    seq = 2 if cfg.block_pattern == "mla_moe" else 3  # MLA's (L, B, S, r); (L, B, Hkv, S, hd)
+    length = next(iter(cache["layers"].values())).shape[seq]
     width = length // model
     written = torch.zeros(len(pos), length, dtype=torch.bool)
     for step in range(ranks.DECODE_STEPS):
@@ -487,9 +614,10 @@ def test_partitioned_decode_equals_the_single_device_decode(runs, name):
         assert len(got["logits"]) == ranks.DECODE_STEPS
         for g, w in zip(got["logits"], want):
             torch.testing.assert_close(g, w[b, :, m * vocab:(m + 1) * vocab], rtol=0, atol=1e-4)
-        mask = written[b, s][None, :, None, :, None].expand_as(got["k"])
-        for k in ("k", "v"):
-            block = cache["layers"][k][:, b, :, s]
+        for k, full in cache["layers"].items():
+            block = full[:, b, :, s] if seq == 3 else full[:, b, s]
+            shape = (1, rows) + ((1, width, 1) if seq == 3 else (width, 1))
+            mask = written[b, s].reshape(shape).expand_as(got[k])
             torch.testing.assert_close(got[k], block, rtol=0, atol=1e-5)
             assert torch.equal(got[k][~mask], block[~mask])
         assert torch.equal(got["pos"], cache["pos"])
@@ -499,7 +627,7 @@ def test_partitioned_decode_equals_the_references_sharded_decode(runs):
     ref = dict(np.load(runs / "reference_partition.npz"))["decode_logits"]
     rows, vocab = ref.shape[1] // 2, ref.shape[-1] // 2
     for r in range(4):
-        got = torch.load(runs / f"partition_decode_rank{r}.pt")["reference_2x2"]["logits"]
+        got = torch.load(runs / f"partition_decode_rank{r}.pt")["reference/dense_2x2"]["logits"]
         d, m = divmod(r, 2)
         for step, g in enumerate(got):
             want = ref[step, d * rows:(d + 1) * rows, :, m * vocab:(m + 1) * vocab]
@@ -519,3 +647,135 @@ def test_decode_partition_factor_is_the_references(runs, mesh):
     want = 4 * ref[f"decode_{mesh}"] / ref["decode_single"]
     assert abs(port - want) <= FACTOR_TOL * want, (port, want)
     assert port < 1.5
+
+
+# ---- the MoE and MLA + MoE families ----------------------------------------------
+
+
+def _ranks_flops(runs, name: str, decode: bool) -> float:
+    """The 4 ranks' FLOPs of a case's first step, summed."""
+    if decode:
+        return sum(torch.load(runs / f"partition_decode_rank{r}.pt")[name]["flops"]
+                   for r in range(4))
+    return sum(torch.load(runs / f"partition_rank{r}.pt")["flops"][name] for r in range(4))
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", MOE_FACTOR_CASES)
+def test_moe_partition_factor_is_the_references(runs, name, kind):
+    """ranks x per-rank FLOPs / one device's FLOPs of a train or decode
+    step of the MoE families: the port's within 10 % of XLA's, or below
+    it (the gathered step routed the global batch on every rank)."""
+    ref = dict(np.load(runs / f"reference_{name}.npz"))
+    cfg = ranks.partition_config(name)
+    if kind == "train":
+        _, _, single = _single_device(cfg, ranks.partition_batch(cfg), steps=1)
+    else:
+        _, _, single = _single_decode(cfg, count_flops=True)
+    port = _ranks_flops(runs, name, kind == "decode") / single
+    want = 4 * ref[f"{kind}_mesh"] / ref[f"{kind}_single"]
+    print(f"{name} {kind}: port {port:.4f}, XLA {want:.4f}")  # reprolint: disable=R008 the factors PERF.md records (pytest -s)
+    assert port <= (1 + FACTOR_TOL) * want, (port, want)
+
+
+@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
+def test_moe_partitioned_step_equals_the_references_sharded_step(runs, name):
+    """The MoE (drops at capacity factor 1.1, aux) and MLA + MoE (aux,
+    MTP) partitioned train steps from the reference's initial parameters
+    against the reference's jitted sharded step on (2, 2): losses within
+    1e-4, parameters within 5e-4."""
+    ref = dict(np.load(runs / f"reference_{name}.npz"))
+    got = torch.load(runs / "partition_rank0.pt")[f"reference/{name}"]
+    losses = [m["loss"] for m in got["metrics"]]
+    assert np.abs(np.asarray(losses) - ref["losses"]).max() < LOSS_TOL
+    for path, t in _flat(got["params"]):
+        key, index = reference_leaf(".".join(path))
+        want = ref["param/" + "/".join(key)]
+        want = want if index is None else want[index]
+        assert np.abs(t.numpy() - want).max() < PARAM_TOL, path
+
+
+@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
+def test_moe_partitioned_decode_equals_the_references_sharded_decode(runs, name):
+    ref = dict(np.load(runs / f"reference_{name}.npz"))["decode_logits"]
+    rows, vocab = ref.shape[1] // 2, ref.shape[-1] // 2
+    for r in range(4):
+        got = torch.load(runs / f"partition_decode_rank{r}.pt")[f"reference/{name}"]["logits"]
+        d, m = divmod(r, 2)
+        for step, g in enumerate(got):
+            want = ref[step, d * rows:(d + 1) * rows, :, m * vocab:(m + 1) * vocab]
+            assert np.abs(g.numpy() - want).max() < 1e-4, (r, step)
+
+
+@pytest.mark.parametrize("name", ["moe_2x2", "moe_1x4", "mla_moe_2x2"])
+def test_partitioned_prefill_counts_each_assignment_once(runs, name):
+    """``drop_counts`` over the partitioned prefill: each rank counts its
+    data shard's assignments once (whichever ``model`` rank runs their
+    expert), so one ``model`` column's ranks add up to the one device's
+    routed and dropped counts (moe_2x2 drops at capacity factor 1.1)."""
+    cfg = ranks.partition_config(name)
+    data, model = ranks.PARTITION_CASES[name][2]
+    prompt = {"tokens": ranks.partition_batch(cfg)["tokens"][:, :ranks.PREFILL_LEN]}
+    reset_drop_counts()
+    with set_backend(device="cpu"):
+        prefill(ranks.initial_state(cfg).params, cfg, prompt)
+    want = drop_counts()
+    got = [torch.load(runs / f"partition_rank{r}.pt")["prefill"][name]["drops"]
+           for r in range(4)]
+    for m in range(model):
+        column = [got[d * model + m] for d in range(data)]
+        assert {k: sum(c[k] for c in column) for k in want} == want
+    if name == "moe_2x2":
+        assert 0 < want["dropped"] < want["routed"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dry_run_partitioned_moe_cell_against_gathered_and_a_hand_count(arch, kind):
+    """A small cell of each MoE family at full width, 2 layers (+ the MTP
+    block), 4 rows x 64 positions, in a fake (2, 2) world: the partitioned
+    step's peak below the gathered step's by at least the gathered
+    parameters' bytes, its collective calls the hand count
+    (``tests/torch_dryrun_cases.py``), its FLOPs well under the gathered
+    step's."""
+    cfg = get_config(arch).scaled(n_layers=2)
+    shape = ShapeSpec(f"small_{kind}", kind, 64, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, part = dryrun.count_step(fn, args)
+        gathered = (_sharded_train_step(cfg, opt, 1, True, mesh) if kind == "train"
+                    else specs._gathered_step(cfg, "decode", mesh))
+        _, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, full = dryrun.count_step(gathered, args)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in specs.param_specs(cfg).parameters())
+    assert part.peak_bytes <= full.peak_bytes - param_bytes
+    hand = (dry_cases.partitioned_collectives if kind == "train"
+            else dry_cases.partitioned_decode_collectives)
+    assert part.collective_ops == hand(cfg, (2, 2))
+    assert part.flops * 1.5 < full.flops
+
+
+def test_partitioned_decode_refuses_a_latent_cache_not_split_by_the_sequence():
+    """DeepSeek-V3's latent cache of 63 positions on a (2, 2) mesh:
+    ``cache_sharding`` puts its latent width on ``model`` (63 does not
+    divide by 2), which the partitioned decode does not take; a cache of
+    64 positions (the sequence on ``model``, ``Shard(2)``) it takes."""
+    cfg = get_config("deepseek-v3-671b").scaled(n_layers=1)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        for length in (63, 64):
+            shape = ShapeSpec("latent_decode", "decode", length, 4)
+            sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+            fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+            if length == 63:
+                assert sh[2]["layers"]["c_kv"] == (None, "data", None, "model")
+                with pytest.raises(ValueError, match="sequence on 'model'"):
+                    dryrun.count_step(fn, args)
+            else:
+                assert sh[2]["layers"]["c_kv"] == (None, "data", "model", None)
+                dryrun.count_step(fn, args)

@@ -115,14 +115,28 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
       input all-reduce and its output all-reduce in both passes;
     - once: the embedding's and the unembedding's all-reduces, the
       cross-entropy's three (max, sum, the target's logit), its sum over
-      each data axis, and the global norm's over every mesh axis."""
+      each data axis, and the global norm's over every mesh axis.
+
+    The MoE families (``parallel/experts.py``), the experts split on
+    ``model``: the router's gradient all-reduced over ``model``; MLA by
+    heads: its low-rank path's four parameters' likewise; per MoE layer
+    and data axis, under ``"gspmd"``, the shards' counts all-gathered and
+    the tokens' buffer reduce-scattered, the outputs all-gathered and the
+    aux loss's probability sums all-reduced, each in both passes, and the
+    two buffers' backward (an all-gather, a reduce-scatter).  DeepSeek's
+    MTP head: its block one more recomputed layer, ``mtp/proj`` and
+    ``mtp/norm`` gathered once, the second embedding lookup, the second
+    unembedding and cross-entropy, and its sum over each data axis."""
     sizes = dict(zip(names, mesh_shape))
     m = sizes["model"]
     data = [a for a in names if a != "model" and sizes[a] > 1]
     heads = cfg.n_heads % m == 0 and (cfg.n_kv_heads % m == 0 or m % cfg.n_kv_heads == 0)
-    kv_whole = heads and cfg.n_kv_heads % m != 0
+    kv_whole = heads and cfg.n_kv_heads % m != 0 and cfg.block_pattern != "mla_moe"
     rules = param_sharding(AbstractMesh(tuple(mesh_shape), tuple(names)),
                            FAMILIES[cfg.block_pattern](cfg, device="meta"))
+    experts_split = bool(cfg.moe.n_experts) and cfg.moe.n_experts % m == 0
+    mtp = cfg.block_pattern == "mla_moe" and cfg.mtp_depth > 0
+    blocks = cfg.n_layers + mtp
     ag = rs = ar = 0
     stack = [((), rules)]
     while stack:
@@ -132,17 +146,19 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
             continue
         axes = {a for entry in node if entry
                 for a in ((entry,) if isinstance(entry, str) else entry)}
-        passes = 2 if path[0] == "layers" else 1
+        passes = 2 if path[0] == "layers" or path[:2] == ("mtp", "block") else 1
         for a in data:
             if a in axes:
                 ag, rs = ag + passes, rs + 1
             else:
                 ar += 1
+        if m > 1 and experts_split and path[-2] == "router":
+            ar += 1
         if m == 1 or "attn" not in path:
             continue
         if not heads:
             ag += passes if "model" in axes else 0
-        elif path[-2] in ("q_norm", "k_norm"):
+        elif path[-2] in ("q_norm", "k_norm", "wq_a", "q_a_norm", "wkv_a", "kv_a_norm"):
             ar += 1
         elif kv_whole and path[-2] in ("wk", "wv"):
             if "model" in axes:
@@ -150,8 +166,12 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
             else:
                 ar += 1
     if m > 1:
-        ar += cfg.n_layers * (2 + (3 if heads else 0)) + 1 + 1 + 3
-    ar += len(data) + len(names)
+        ar += blocks * (2 + (3 if heads else 0)) + (1 + 1 + 3) * (1 + mtp)
+    if cfg.moe.n_experts and cfg.moe.dispatch == "gspmd":
+        ag += blocks * 5 * len(data)
+        rs += blocks * 3 * len(data)
+        ar += blocks * 2 * len(data)
+    ar += len(data) * (1 + mtp) + len(names)
     return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs}
 
 
@@ -178,14 +198,21 @@ def partitioned_decode_collectives(cfg, mesh_shape: tuple, names=("data", "model
             continue
         axes = {a for entry in node if entry
                 for a in ((entry,) if isinstance(entry, str) else entry)}
-        ag += sum(a in axes for a in data)
+        if path[0] != "mtp":  # decode never runs the MTP head
+            ag += sum(a in axes for a in data)
         split[path] = "model" in axes
     if m > 1:
+        # the MoE layers' outputs (the routed experts' and the shared
+        # expert's) meet in one all-reduce; MLA gathers its query rows and
+        # wkv_b over model
         layer = ("layers", "0")
-        qkv = any(split[layer + ("attn", n, "w")] for n in ("wq", "wk", "wv"))
-        ag += cfg.n_layers * qkv
-        ar += cfg.n_layers * (2 + split[layer + ("attn", "wo", "w")]
-                              + split[layer + ("ffn", "wo", "w")])
+        mla = cfg.block_pattern == "mla_moe"
+        rows = ("wq_b",) if mla else ("wq", "wk", "wv")
+        qkv = any(split[layer + ("attn", n, "w")] for n in rows)
+        ffn = (split[layer + ("ffn", "experts", "wi_gate")] if cfg.moe.n_experts
+               else split[layer + ("ffn", "wo", "w")])
+        ag += cfg.n_layers * (qkv + (mla and split[layer + ("attn", "wkv_b", "w")]))
+        ar += cfg.n_layers * (2 + split[layer + ("attn", "wo", "w")] + ffn)
         ar += split[("embed", "table")]
     return {k: v for k, v in (("all-gather", ag), ("all-reduce", ar)) if v}
 

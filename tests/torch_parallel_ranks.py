@@ -32,7 +32,7 @@ from repro_torch.convert import from_reference_params
 from repro_torch.launch import train as launch
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import prefill
-from repro_torch.models.ffn import MoE
+from repro_torch.models.ffn import MoE, drop_counts, reset_drop_counts
 from repro_torch.models.moe_sharded import moe_apply_sharded, moe_route_sharded
 from repro_torch.launch import specs
 from repro_torch.parallel import gather_state, set_mesh, shard, split_batch
@@ -244,28 +244,46 @@ def _task_launch(out: str) -> None:
 
 
 # the partitioned step's cases (``tests/test_torch_partition.py``): smoke
-# arch, n_heads = n_kv_heads override (None: the smoke config's), mesh.
+# arch, n_heads = n_kv_heads override (None: the smoke config's), mesh and
+# the MoE's (dispatch, capacity factor, aux coefficient[, experts]).
 # qwen1.5-4b's 4 heads divide both model extents; 5 heads divide neither
 # (attention replicated on model); qwen2.5-32b's 2 KV heads on 4 are
 # shared by two ranks each; qwen3-32b adds the per-head norms; llava the
-# patch prefix
+# patch prefix.  The MoE cases: Qwen3-MoE's 2 KV heads on 4 shared, its
+# experts split on model; under "gspmd" at capacity factor 1.1 the global
+# capacity (35 of 128 tokens x 2) drops assignments and does not divide
+# the 2 data shards (rows padded); 5 experts divide neither the data
+# extent nor the model extent (experts whole on model); "shard_map" at
+# (1, 4); DeepSeek-V3's MLA by heads (2 on 2, 1 on 4), its shared expert
+# and the MTP head
 PARTITION_CASES = {
-    "dense_2x2": ("qwen1.5-4b", None, (2, 2)),
-    "dense_1x4": ("qwen1.5-4b", None, (1, 4)),
-    "odd_heads_2x2": ("qwen1.5-4b", 5, (2, 2)),
-    "odd_heads_1x4": ("qwen1.5-4b", 5, (1, 4)),
-    "shared_kv_1x4": ("qwen2.5-32b", None, (1, 4)),
-    "qk_norm_1x4": ("qwen3-32b", None, (1, 4)),
-    "vlm_2x2": ("llava-next-mistral-7b", None, (2, 2)),
+    "dense_2x2": ("qwen1.5-4b", None, (2, 2), None),
+    "dense_1x4": ("qwen1.5-4b", None, (1, 4), None),
+    "odd_heads_2x2": ("qwen1.5-4b", 5, (2, 2), None),
+    "odd_heads_1x4": ("qwen1.5-4b", 5, (1, 4), None),
+    "shared_kv_1x4": ("qwen2.5-32b", None, (1, 4), None),
+    "qk_norm_1x4": ("qwen3-32b", None, (1, 4), None),
+    "vlm_2x2": ("llava-next-mistral-7b", None, (2, 2), None),
+    "moe_2x2": ("qwen3-moe-235b-a22b", None, (2, 2), ("gspmd", 1.1, 0.001)),
+    "moe_1x4": ("qwen3-moe-235b-a22b", None, (1, 4), ("gspmd", 1.0, 0.001)),
+    "odd_experts_2x2": ("qwen3-moe-235b-a22b", None, (2, 2), ("gspmd", 1.0, 0.001, 5)),
+    "moe_shard_map_1x4": ("qwen3-moe-235b-a22b", None, (1, 4), ("shard_map", 4.0, 0.001)),
+    "mla_moe_2x2": ("deepseek-v3-671b", None, (2, 2), ("gspmd", 1.0, 0.001)),
+    "mla_moe_1x4": ("deepseek-v3-671b", None, (1, 4), ("gspmd", 1.0, 0.001)),
 }
 PREFILL_LEN = 12
 
 
 def partition_config(name: str):
-    arch, heads = PARTITION_CASES[name][:2]
+    arch, heads, _, moe = PARTITION_CASES[name]
     cfg = get_smoke_config(arch)
     if heads is not None:
         cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    if moe is not None:
+        dispatch, cf, coef, *experts = moe
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch, capacity_factor=cf, router_aux_coef=coef,
+            n_experts=experts[0] if experts else cfg.moe.n_experts))
     return cfg
 
 
@@ -280,10 +298,10 @@ def partition_batch(cfg) -> dict:
     return batch
 
 
-def reference_state(out: str, cfg):
-    """The reference's initial parameters (``ref_init.npz``, written by the
+def reference_state(out: str, cfg, name: str = "ref_init"):
+    """The reference's initial parameters (``{name}.npz``, written by the
     test) in the port's model, and zero moments."""
-    arrays = dict(np.load(os.path.join(out, "ref_init.npz")))
+    arrays = dict(np.load(os.path.join(out, f"{name}.npz")))
     tree: dict = {}
     for key, value in arrays.items():
         node = tree
@@ -309,15 +327,21 @@ def _train_run(mesh, cfg, state, batch, count_flops: bool) -> dict:
     return {"metrics": metrics, "params": gather_state(placed)["params"], "flops": flops}
 
 
+# the cases held against the reference's jitted sharded steps on (2, 2),
+# each from the reference's initial parameters (``ref_init_{case}.npz``)
+REFERENCE_CASES = ("dense_2x2", "moe_2x2", "mla_moe_2x2")
+
+
 def _task_partition(out: str) -> None:
     """The partitioned train step on every case, 2 steps (rank 0 saves the
     gathered state and each rank its first step's FLOPs); the partitioned
-    prefill (each rank saves its split logits and KV heads); the same step
-    from the reference's initial parameters on (2, 2)."""
+    prefill (each rank saves its split logits and its cache: KV heads, or
+    MLA's latent); the same step from the reference's initial parameters
+    on (2, 2)."""
     meshes: dict = {}
     results: dict = {"flops": {}, "prefill": {}}
     rank = dist.get_rank()
-    for name, (_, _, shape) in PARTITION_CASES.items():
+    for name, (_, _, shape, _) in PARTITION_CASES.items():
         mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
         cfg = partition_config(name)
         batch = partition_batch(cfg)
@@ -330,13 +354,16 @@ def _task_partition(out: str) -> None:
         if "patches" in batch:
             prompt["patches"] = batch["patches"]
         placed = shard_state(mesh, prompt, batch_sharding(mesh, prompt))
+        reset_drop_counts()
         logits, cache = specs._partitioned_prefill(cfg, mesh)(params, placed)
-        results["prefill"][name] = {"logits": logits, "k": cache["layers"]["k"],
-                                    "v": cache["layers"]["v"], "pos": cache["pos"],
-                                    "attention": partition.attention_mode(cfg, mesh.shape[1])}
-    cfg = get_smoke_config("qwen1.5-4b")
-    results["reference_2x2"] = _train_run(meshes[(2, 2)], cfg, reference_state(out, cfg),
-                                          step_batch("dense", cfg.vocab), count_flops=False)
+        results["prefill"][name] = {"logits": logits, "pos": cache["pos"], **cache["layers"],
+                                    "attention": partition.attention_mode(cfg, mesh.shape[1]),
+                                    "drops": drop_counts()}
+    for name in REFERENCE_CASES:
+        cfg = partition_config(name)
+        results[f"reference/{name}"] = _train_run(
+            meshes[(2, 2)], cfg, reference_state(out, cfg, f"ref_init_{name}"),
+            partition_batch(cfg), count_flops=False)
     torch.save(results if rank == 0 else {"flops": results["flops"],
                                           "prefill": results["prefill"]},
                os.path.join(out, f"partition_rank{rank}.pt"))
@@ -350,6 +377,8 @@ def _task_partition(out: str) -> None:
 # shard into the next; DECODE_STEPS seeded tokens are fed in turn
 DECODE_STEPS = 4
 DECODE_POS = (7, 0, 3, 5, 2, 7, 4, 1)  # sevenths of the last start position
+# the cases whose partition factor is held against XLA's, on both meshes
+FACTOR_CASES = ("dense_2x2", "dense_1x4", "moe_2x2", "moe_1x4", "mla_moe_2x2", "mla_moe_1x4")
 
 
 def decode_len(cfg) -> int:
@@ -397,9 +426,8 @@ def _decode_run(mesh, cfg, params, prompt, pos, tokens, count_flops: bool = Fals
         if count_flops and i == 0:
             flops = counter.get_total_flops()
         logits.append(out)
-    return {"logits": logits, "k": placed["layers"]["k"].to_local(),
-            "v": placed["layers"]["v"].to_local(), "pos": placed["pos"].to_local(),
-            "flops": flops}
+    return {"logits": logits, "pos": placed["pos"].to_local(), "flops": flops,
+            **{k: v.to_local() for k, v in placed["layers"].items()}}
 
 
 def _task_partition_decode(out: str) -> None:
@@ -408,14 +436,16 @@ def _task_partition_decode(out: str) -> None:
     FLOPs), and on (2, 2) from the reference's initial parameters."""
     meshes: dict = {}
     results: dict = {}
-    for name, (_, _, shape) in PARTITION_CASES.items():
+    for name, (_, _, shape, _) in PARTITION_CASES.items():
         mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
         cfg = partition_config(name)
         results[name] = _decode_run(mesh, cfg, initial_state(cfg).params, *decode_inputs(cfg),
-                                    count_flops=name.startswith("dense_"))
-    cfg = get_smoke_config("qwen1.5-4b")
-    results["reference_2x2"] = _decode_run(meshes[(2, 2)], cfg, reference_state(out, cfg).params,
-                                           *decode_inputs(cfg))
+                                    count_flops=name in FACTOR_CASES)
+    for name in REFERENCE_CASES:
+        cfg = partition_config(name)
+        results[f"reference/{name}"] = _decode_run(
+            meshes[(2, 2)], cfg, reference_state(out, cfg, f"ref_init_{name}").params,
+            *decode_inputs(cfg))
     torch.save(results, os.path.join(out, f"partition_decode_rank{dist.get_rank()}.pt"))
 
 
