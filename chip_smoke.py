@@ -19,10 +19,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    K in {1, 8}, B in {1, 8}, M in {2, 4096, 32768};
 4. rd kernel — the RD step kernel (one iteration of device RD's
    deletion or dedup loop per launch) against its plain iteration in
-   lockstep, every buffer bit for bit after every iteration: on the main
-   path's first job and on edge cases (ties, no candidates, quota past
-   the total, int32 extremes, a free-slot shortage, rows 33-64 ids wide,
-   the server and slot ceilings);
+   lockstep, every buffer bit for bit after every iteration (the plain
+   iteration and the comparisons replayed as one CUDA graph a loop): on
+   the main path's first job and on edge cases (ties, no candidates,
+   quota past the total, int32 extremes, a free-slot shortage, rows 33-64
+   ids wide, the server and slot ceilings);
 5. main path — the online scheduler (``SchedulingEngine`` with
    ``wf_torch``) on a bursty trace at 4096 servers under ``fifo`` (the
    burst chain) and ``ocwf-acc`` (the first 300 of its 1000 jobs), each
@@ -235,7 +236,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
     ``total_memory``;
 14m. examples — the four ``examples_torch`` scripts (the reference's
     ``examples/*.py`` entry points), each through its ``main`` on the card
-    and again with ``--device cpu``, its output captured: quickstart (NLIP,
+    and again with ``--device cpu`` (in the host worker, started after 6c
+    and run beside the card's phases), its output captured: quickstart (NLIP,
     OBTA, WF through ``wf_torch``, RD through ``rd_torch``, RD+, then a
     40-job trace FIFO vs OCWF-ACC), fault tolerance (a 60-job trace
     healthy, with two failures, with two stragglers) and the serving
@@ -293,6 +295,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
     on 16 x 4,096 of train_4k's rows and a decode step on decode_32k's
     128 x 32,768: FLOPs and collective calls on the card equal the
     ``meta`` count, the peak within 3 %, launches equal the meta calls;
+14q. partition SSM — the partitioned Mamba2 and Zamba2 steps (the SSD
+    heads split on ``model`` where they divide it, else the mixer whole
+    there; Zamba2's shared block by the dense rules; the decode's state
+    whole on ``model``, its K/V blocks as ``cache_sharding`` lays them
+    out): on a (1, 1) mesh in a world of one NCCL rank, Zamba2-2.7B at
+    full width, 6 layers (one super-block), and Mamba2-130M at full width
+    and depth, 2 x 512 prompts, the partitioned prefill, 8 decode steps
+    and one train step against the single-device path bit for bit, K4 /
+    K5 / K6 / K7 launches equal, no plain call; then rank 0 of a fake (16,
+    16) world at Zamba2-2.7B's width, 6 layers: a train step on 16 x
+    4,096 of train_4k's rows, a decode step on decode_32k's 128 x 32,768
+    (the sequence on ``model``) and one on long_500k's 1 x 524,288 (the
+    sequence on ``data``, the KV heads on ``model``): FLOPs and collective
+    calls on the card equal the ``meta`` count, the peak within 3 %,
+    launches equal the meta calls;
 15. timings — CUDA-event times of K1/K2 and their plain versions (10 live
     lanes a row); the fused kernel's device time per call and per group
     step on the main path's first 50 single-job calls and first 10
@@ -317,16 +334,16 @@ walls are on the ``moe_phases`` line; 7a, 14c and 14d's on the
 14i-14k's on the ``slice13_phases`` line; 14l's on the
 ``slice14_phases`` line; 14m's on the ``slice15_phases`` line; 14n's on
 the ``slice16_phases`` line; 14o's on the ``slice17_phases`` line; 14p's
-on the ``slice18_phases`` line), the
+on the ``slice18_phases`` line; 14q's on the ``slice19_phases`` line), the
 ``kernels``
 summary line (the ``wf_fused`` and ``rd_step`` rows count 6a-6g's and
 14m's launches too; ``decode_attention_partial`` is K5's partial mode,
 its launches 14o's), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Each phase's line carries ``t_s``,
 the seconds since the start.  The host-only references of 5 (the host
-``wf`` schedules) and 6c (OBTA, NLIP, the host ``rd``) run in one worker
-process beside the card's phases, which is stopped however the run
-ends.  The script needs a CUDA device and the repository's ``src/``
+``wf`` schedules), 6c (OBTA, NLIP, the host ``rd``) and 14m (the
+examples' CPU side) run in one worker process beside the card's phases,
+which is stopped however the run ends.  The script needs a CUDA device and the repository's ``src/``
 beside it.
 """
 
@@ -748,6 +765,18 @@ PARTITION_MOE_TRAINS = ("qwen3-moe-235b-a22b",)  # DeepSeek-V3 does not train on
 # train_4k's 256 rows cut to 16 (one a data rank) of 4,096; decode_32k's
 # 128 x 32,768 (8 rows x 2,048 positions a rank)
 PARTITION_MOE_FAKE = {"train": (2, 16, 4096), "decode": (2, 128, 32768)}
+SLICE19_BUDGET_S = 45  # partition_ssm
+# the (1, 1) mesh's SSM runs: arch -> layers (None: all), batch, sequence;
+# Zamba2-2.7B cut to one super-block (its shared block and 6 Mamba2 layers)
+PARTITION_SSM_ONE_RANK = {"zamba2-2.7b": (6, 2, 512), "mamba2-130m": (None, 2, 512)}
+# the fake (16, 16) world's Zamba2-2.7B cells, 6 layers: train_4k's 256 rows
+# cut to 16 (one a data rank) of 4,096; decode_32k's 128 x 32,768 (8 rows x
+# 2,048 positions a rank, the sequence on model); long_500k's 1 x 524,288
+# (the row whole, the sequence on data: 32,768 positions and 2 KV heads a rank)
+PARTITION_SSM_ARCH = "zamba2-2.7b"
+PARTITION_SSM_FAKE = {"train_4k": ("train", 6, 256 // 16, 4096),
+                      "decode_32k": ("decode", 6, 128, 32768),
+                      "long_500k": ("decode", 6, 1, 524288)}
 EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locality")
 # the training example's two calls at its default 8 x 128 tokens a step:
 # 26 steps failing data host 3 at step 13, then resumed to 51 (the async
@@ -755,6 +784,7 @@ EXAMPLES = ("quickstart", "fault_tolerance", "serve_moe_balanced", "train_locali
 EXAMPLE_CALLS = {"train_locality": (["--steps", "26", "--fail-host", "3"],
                                     ["--steps", "51", "--compress"])}
 EXAMPLE_LOSS_TOL = 1e-3  # card against CPU, float32, at each printed step
+EXAMPLE_CPU_THREADS = 2  # the host worker's threads for the examples' CPU side
 DRYRUN_ARCHS = {"qwen1.5-4b": 2, "mamba2-130m": 2}  # arch: layers (full width)
 DRYRUN_BATCH = (2, 1024)  # sequences, tokens (decode: one token against a 1024-row cache)
 DRYRUN_TIMED = 3  # timed runs of each step after the counted one; the median is kept
@@ -1268,29 +1298,60 @@ def rd_lockstep(st, past_exit: int = 2) -> int:
     """Run both RD loops on ``st`` with the step kernel and the plain
     iteration on a clone, comparing every buffer (spare row and lane
     included) after each iteration, then ``past_exit`` more iterations of
-    each loop; returns the iterations, and raises on any difference."""
+    each loop; returns the iterations, and raises on any difference.  The
+    plain iteration and the comparisons (per buffer, the first iteration
+    that differed, read once at the end) run as one CUDA graph for each
+    loop, captured at this geometry: a replay is the plain version's ~700
+    operations without their launches from the host, and counts as one
+    call of it."""
     shadow = st.clone()
+    names = list(st.buffers())
+    dev = st.stop.device
+    first = torch.full((len(names),), -1, dtype=torch.int64, device=dev)
+    at = torch.zeros((), dtype=torch.int64, device=dev)  # the iteration a replay checks
+
+    def plain(dedup: bool) -> None:
+        rdk.rd_step_plain(shadow, dedup)
+        other = shadow.buffers()
+        differs = torch.stack([torch.ne(buf, other[k]).any()
+                               for k, buf in st.buffers().items()])
+        first.copy_(torch.where((first < 0) & differs, at, first))
+        at.add_(1)
+
+    calls = rdk.COUNTS["plain"]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a throwaway copy, as capture wants
+        scratch = st.clone()
+        for dedup in (False, True):
+            rdk.rd_step_plain(scratch, dedup)
+    torch.cuda.current_stream().wait_stream(side)
+    del scratch
+    graphs = {}
+    for dedup in (False, True):
+        graphs[dedup] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[dedup]):
+            plain(dedup)
+    rdk.COUNTS["plain"] = calls  # the warm-up's and the captures' calls ran nothing
     n = [0]
 
     def step(state, dedup):
         rdk.rd_step(state, dedup)
-        rdk.rd_step_plain(shadow, dedup)
-        torch.cuda.synchronize()
-        for name, buf in state.buffers().items():
-            other = shadow.buffers()[name]
-            if not torch.equal(buf, other):
-                err = int((buf.long() - other.long()).abs().max())
-                raise AssertionError(
-                    f"rd_step disagrees with its plain iteration: {name} after "
-                    f"iteration {n[0]} (dedup={dedup}, C={state.c_slots}, "
-                    f"A={state.row_ids}, M={state.m_servers}), max_abs_err={err}"
-                )
+        graphs[dedup].replay()
+        rdk.COUNTS["plain"] += 1
         n[0] += 1
 
     rd_torch.run_rd(st, step)
     for _ in range(past_exit):
         for dedup in (False, True):
             step(st, dedup)
+    bad = {name: i for name, i in zip(names, first.tolist()) if i >= 0}
+    if bad or int(at) != n[0]:
+        name = min(bad, key=bad.get) if bad else None
+        raise AssertionError(
+            f"rd_step disagrees with its plain iteration: {name} after iteration "
+            f"{bad.get(name)} (C={st.c_slots}, A={st.row_ids}, M={st.m_servers}); "
+            f"first differing iteration by buffer: {bad}; {int(at)} of {n[0]} checked")
     return n[0]
 
 
@@ -3739,6 +3800,11 @@ def _launches(counts: dict) -> dict:
             "tensor_core": counts["flash_attention"]["tensor_core"]}
 
 
+def _launches_k4_k7(counts: dict) -> dict:
+    """:func:`_launches` and K7's."""
+    return {**_launches(counts), "ssd_scan": counts["ssd_scan"]["ssd_scan"]}
+
+
 def _plain_calls(counts: dict) -> int:
     return sum(counts[k]["plain"] for k in ("rmsnorm", "decode_attention", "flash_attention",
                                             "ssd_scan"))
@@ -4407,17 +4473,65 @@ def _example(name: str) -> dict:
     return runpy.run_path(str(ROOT / "examples_torch" / f"{name}.py"))
 
 
-def _run_example(name: str, argv: list[str], **inject) -> tuple[list[str], float]:
-    """``examples_torch/<name>.py``'s ``main(argv, **inject)``: its printed
-    lines and its wall."""
+def _run_example(name: str, argv: list[str], dev: str, **inject) -> tuple[list[str], float]:
+    """``examples_torch/<name>.py``'s ``main(argv + --device dev, **inject)``:
+    its printed lines and its wall (the card's work synchronised)."""
     main = _example(name)["main"]
     out = io.StringIO()
-    torch.cuda.synchronize()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    sync()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        main(argv, **inject)
-    torch.cuda.synchronize()
+        main([*argv, "--device", dev], **inject)
+    sync()
     return out.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def _example_cpu_params(name: str):
+    """The weights, drawn once on the CPU from a seed, of an example that
+    takes them on both sides (serving, training), else None."""
+    if name == "serve_moe_balanced":
+        cfg = get_smoke_config("qwen1.5-4b")
+    elif name == "train_locality":
+        cfg = _example("train_locality")["model_config"]("mamba2-130m")
+    else:
+        return None
+    with set_backend(device="cpu"):
+        return init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def _example_side(name: str, dev: str, cpu_params, ckpt: str | None) -> tuple[list, list]:
+    """One example's calls (EXAMPLE_CALLS) on ``dev``: its printed lines
+    (the checkpoint folder written ``CKPT``) and each call's seconds; the
+    training example's calls in a checkpoint folder of the side's own
+    under ``ckpt``."""
+    lines, seconds = [], []
+    folder = os.path.join(ckpt, dev) if ckpt is not None else None
+    for argv in EXAMPLE_CALLS.get(name, ([],)):
+        if folder is not None:
+            argv = [*argv, "--ckpt-dir", folder]
+        inject = {}
+        if cpu_params is not None:
+            inject["params"] = (cpu_params if dev == "cpu"
+                                else copy.deepcopy(cpu_params).to(dev))
+        out, wall = _run_example(name, argv, dev, **inject)
+        lines += [line.replace(folder, "CKPT") if folder else line for line in out]
+        seconds.append(wall)
+    return lines, seconds
+
+
+def examples_cpu_half() -> dict:
+    """The four examples' CPU side (``--device cpu``), run in the host
+    worker beside the card's phases on EXAMPLE_CPU_THREADS threads: each
+    one's printed lines and seconds, and the whole side's wall."""
+    torch.set_num_threads(EXAMPLE_CPU_THREADS)
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            out[name] = _example_side(name, "cpu", _example_cpu_params(name),
+                                      tmp if name == "train_locality" else None)
+    return {"examples": out, "wall_s": time.perf_counter() - t0}
 
 
 def _example_launches() -> dict:
@@ -4441,38 +4555,12 @@ def _example_steps(lines: list[str]) -> list[tuple[int, int]]:
             for line in lines if line.startswith("step ")]
 
 
-def _example_pair(name: str, cpu_params, ckpt: str | None = None) -> dict:
-    """One example on the card (launches counted), then on the CPU, from
-    the same weights where it takes them; the training example's two calls
-    each side, in a checkpoint folder of each side's own under ``ckpt``."""
-    calls = EXAMPLE_CALLS.get(name, ([],))
-    row = {"output": {}, "seconds": {}}
-    for dev in ("cuda", "cpu"):
-        _reset_launches()
-        _reset_model_counts()
-        lines, seconds = [], []
-        folder = os.path.join(ckpt, dev) if ckpt is not None else None
-        for argv in calls:
-            if folder is not None:
-                argv = [*argv, "--ckpt-dir", folder]
-            inject = {}
-            if cpu_params is not None:
-                inject["params"] = (cpu_params if dev == "cpu"
-                                    else copy.deepcopy(cpu_params).to(dev))
-            out, wall = _run_example(name, [*argv, "--device", dev], **inject)
-            lines += [line.replace(folder, "CKPT") if folder else line for line in out]
-            seconds.append(wall)
-        row["output"][dev] = lines
-        row["seconds"][dev] = seconds
-        if dev == "cuda":
-            row["launches"], row["counts"] = _example_launches(), _model_counts()
-    return row
-
-
-def phase_examples(card: str) -> tuple[dict, list]:
+def phase_examples(card: str, cpu_half) -> tuple[dict, list]:
     """The four ``examples_torch`` scripts, each through its ``main`` on the
-    card and then with ``--device cpu`` (the plain versions), its output
-    captured.  Quickstart, fault tolerance and the serving example (its
+    card and with ``--device cpu`` (the plain versions; ``cpu_half``, the
+    host worker's pending :func:`examples_cpu_half`, started beside the
+    earlier phases), its output captured.  Quickstart, fault tolerance and
+    the serving example (its
     weights drawn once on the CPU, a copy on the card) print the same
     text on both.  The training example's two calls (EXAMPLE_CALLS, from
     one set of seeded weights; a data host failed, the async save at 50,
@@ -4486,21 +4574,25 @@ def phase_examples(card: str) -> tuple[dict, list]:
     example, K4 and K7 in training; no K1/K2 launch, no plain call, no
     host RD re-run.  Returns the card runs' launches by example and their
     counts in ``_model_counts``' form."""
-    # the examples whose weights are drawn once on the CPU for both sides
-    models = {"serve_moe_balanced": get_smoke_config("qwen1.5-4b"),
-              "train_locality": _example("train_locality")["model_config"]("mamba2-130m")}
     rows = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in EXAMPLES:
             t0 = time.perf_counter()
-            cpu_params = None
-            if name in models:
-                with set_backend(device="cpu"):
-                    cpu_params = init_params(torch.Generator().manual_seed(0), models[name])
-            row = _example_pair(name, cpu_params, tmp if name == "train_locality" else None)
-            row["wall_s"] = time.perf_counter() - t0
-            rows[name] = row
+            _reset_launches()
+            _reset_model_counts()
+            lines, seconds = _example_side(name, "cuda", _example_cpu_params(name),
+                                           tmp if name == "train_locality" else None)
+            rows[name] = {"output": {"cuda": lines}, "seconds": {"cuda": seconds},
+                          "launches": _example_launches(), "counts": _model_counts(),
+                          "wall_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    cpu = cpu_half.get()
+    waited = time.perf_counter() - t0
+    for name, row in rows.items():
+        row["output"]["cpu"], row["seconds"]["cpu"] = cpu["examples"][name]
     emit({"phase": "examples", "card": card, "loss_tol": EXAMPLE_LOSS_TOL,
+          "cpu_half": {"wall_s": cpu["wall_s"], "waited_s": waited,
+                       "threads": EXAMPLE_CPU_THREADS},
           "examples": {name: {"output": r["output"]["cuda"], "seconds": r["seconds"],
                               "wall_s": r["wall_s"], "launches": r["launches"]}
                        for name, r in rows.items()}})
@@ -4531,10 +4623,10 @@ def phase_examples(card: str) -> tuple[dict, list]:
             [r["counts"] for r in rows.values()])
 
 
-def slice15_phases(card: str) -> tuple[dict, list]:
+def slice15_phases(card: str, cpu_half) -> tuple[dict, list]:
     """The examples phase; its wall on the ``slice15_phases`` line."""
     t0 = time.perf_counter()
-    out = phase_examples(card)
+    out = phase_examples(card, cpu_half)
     seconds = {"examples": time.perf_counter() - t0}
     emit({"phase": "slice15_phases", "seconds": seconds, "total_s": sum(seconds.values()),
           "budget_s": SLICE15_BUDGET_S, "card": card})
@@ -5037,34 +5129,44 @@ def _shared_blocks(mesh, tree: dict, specs: dict) -> dict:
     return out
 
 
-def _partition_moe_one_rank(seed: int, mesh, arch: str) -> dict:
-    """On a (1, 1) mesh, ``arch`` at full width (PARTITION_MOE_ONE_RANK's
-    cut; DeepSeek-V3 without its MTP block, which serving never runs):
-    the partitioned prefill and PARTITION_DECODE_STEPS partitioned decode
-    steps (``specs._partitioned_prefill`` / ``_partitioned_decode``, the
-    blocks sharing the model's storage), each side feeding its own greedy
-    tokens, against ``prefill`` + ``decode_step``: tokens, logits and
-    caches bit for bit (a ``model`` group of one runs every MoE shape and
-    operation ``moe_apply`` runs, and MLA's whole-cache ``mla_decode``);
-    for Qwen3-MoE one partitioned train step (remat on) against the
-    single-device step from one state, within PR 25's limits; K4 / K5 / K6
-    launches equal, no plain call.  The counts are set to 0 just before
-    each side's run and read just after."""
+def _cache_prefix(path: tuple, t: torch.Tensor, s: int) -> torch.Tensor:
+    """A cache leaf's first ``s`` positions (a K/V leaf (L, B, H, S, hd),
+    MLA's (L, B, S, r)); a Mamba2 state whole."""
+    if path[-1] in ("k", "v"):
+        return t[..., :s, :]
+    return t[:, :, :s] if path[-1] in ("c_kv", "k_rope") else t
+
+
+def _tree_clone(tree: dict) -> dict:
+    return {k: _tree_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _partition_one_rank(seed: int, mesh, arch: str, cfg, b: int, s: int,
+                        train: bool) -> dict:
+    """On a (1, 1) mesh, ``cfg`` (``arch`` at full width, its depth cut by
+    the caller): the partitioned prefill and PARTITION_DECODE_STEPS
+    partitioned decode steps (``specs._partitioned_prefill`` /
+    ``_partitioned_decode``, the blocks sharing the model's storage), each
+    side feeding its own greedy tokens, against ``prefill`` +
+    ``decode_step``: tokens, logits and caches bit for bit (a ``model``
+    group of one runs every shape and operation the one device runs); with
+    ``train``, one partitioned train step (remat on) against the
+    single-device step from one state, within PR 25's limits; K4 / K5 /
+    K6 / K7 launches equal, no plain call.  The counts are set to 0 just
+    before each side's run and read just after."""
     from repro_torch.launch import specs as launch_specs
     from repro_torch.parallel.sharding import (batch_sharding, cache_sharding,
                                                param_sharding)
     from repro_torch.train.step import state_sharding
-    layers, b, s = PARTITION_MOE_ONE_RANK[arch]
     n = PARTITION_DECODE_STEPS
-    cfg = get_config(arch).scaled(n_layers=layers, mtp_depth=0)
     gen = torch.Generator(device="cuda").manual_seed(seed + 320)
     opt_cfg = TrainAdamWConfig(**TRAIN_OPT)
-    state = train_state_init(gen, cfg, opt_cfg) if arch in PARTITION_MOE_TRAINS else None
+    state = train_state_init(gen, cfg, opt_cfg) if train else None
     params = state.params if state is not None else init_params(gen, cfg)
     toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device="cuda", dtype=torch.int32)
     _reset_model_counts()
     want, cache = prefill(params, cfg, {"tokens": toks}, max_len=s + n)
-    start = {k: v.clone() for k, v in cache["layers"].items()}
+    start = _tree_clone(cache["layers"])
     want_tokens, want_logits = [], [want]
     for _ in range(n):
         nxt = want_logits[-1][:, -1].argmax(-1, keepdim=True).to(torch.int32)
@@ -5079,10 +5181,9 @@ def _partition_moe_one_rank(seed: int, mesh, arch: str) -> dict:
     placed = _shared_blocks(mesh, prompt, batch_sharding(mesh, prompt))
     _reset_model_counts()
     got, pcache = launch_specs._partitioned_prefill(cfg, mesh)(blocks, placed)
-    prefill_equal = all(bool(torch.equal(pcache["layers"][k], start[k][..., :s, :]))
-                        if k in ("k", "v") else bool(torch.equal(pcache["layers"][k],
-                                                                 start[k][:, :, :s]))
-                        for k in start)
+    begun = dict(_tree_paths(start))
+    prefill_equal = all(bool(torch.equal(t, _cache_prefix(path, begun[path], s)))
+                        for path, t in _tree_paths(pcache["layers"]))
     dcache = {"layers": start, "pos": pcache["pos"].clone()}
     dplaced = _shared_blocks(mesh, dcache, cache_sharding(mesh, dcache))
     step = launch_specs._partitioned_decode(cfg, mesh)
@@ -5095,20 +5196,21 @@ def _partition_moe_one_rank(seed: int, mesh, arch: str) -> dict:
         got_logits.append(logits)
     torch.cuda.synchronize()
     part = _model_counts()
+    final = dict(_tree_paths(cache["layers"]))
     row = {
-        "arch": arch, "layers": layers, "batch": [b, s], "decode_steps": n,
+        "arch": arch, "layers": cfg.n_layers, "batch": [b, s], "decode_steps": n,
         "tokens_equal": all(bool(torch.equal(a, c)) for a, c in zip(got_tokens, want_tokens)),
         "logits_bit_equal": all(bool(torch.equal(a, c))
                                 for a, c in zip(got_logits, want_logits)),
         "logits_max_abs_err": max(float((a - c).abs().max())
                                   for a, c in zip(got_logits, want_logits)),
         "prefill_cache_bit_equal": prefill_equal,
-        "cache_bit_equal": all(bool(torch.equal(dplaced["layers"][k].to_local(),
-                                                cache["layers"][k])) for k in start),
-        "launches": {"partitioned": _launches(part), "single": _launches(single)},
+        "cache_bit_equal": all(bool(torch.equal(t.to_local(), final[path]))
+                               for path, t in _tree_paths(dplaced["layers"])),
+        "launches": {"partitioned": _launches_k4_k7(part), "single": _launches_k4_k7(single)},
         "plain_calls": _plain_calls(part) + _plain_calls(single)}
     counts = [part, single]
-    del blocks, dplaced, dcache, cache, start, got_logits, want_logits
+    del blocks, dplaced, dcache, cache, start, begun, final, got_logits, want_logits
     ok = (row["tokens_equal"] and row["logits_bit_equal"] and prefill_equal
           and row["cache_bit_equal"] and row["plain_calls"] == 0
           and row["launches"]["partitioned"] == row["launches"]["single"])
@@ -5130,7 +5232,7 @@ def _partition_moe_one_rank(seed: int, mesh, arch: str) -> dict:
                    else {tuple(k.split(".")): v.detach() for k, v in
                          st["params"].named_parameters()})
             sides[side] = {"loss": loss, "aux": float(metrics["aux"]), "params": out,
-                           "ms": wall * 1e3, "launches": _launches(c),
+                           "ms": wall * 1e3, "launches": _launches_k4_k7(c),
                            "plain": _plain_calls(c)}
             del st, step_fn
             if side == "partitioned":
@@ -5177,21 +5279,18 @@ def _blocks_on_card(tree, seq: int):
     return tree
 
 
-def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
-    """Rank 0 of a fake (16, 16) world at ``arch`` 's full width,
-    PARTITION_MOE_FAKE's cut: the partitioned ``kind`` step counted on
-    ``meta`` (a CPU mesh) and run on the card (a CUDA mesh), counted the
-    same way; FLOPs and collective calls equal, the meta peak within
-    PARTITION_PEAK_TOL of ``max_memory_allocated``, K4 / K5 / K6 launches
+def _partition_fake_cell(seed: int, arch: str, cfg, shape: ShapeSpec) -> dict:
+    """Rank 0 of a fake (16, 16) world at ``cfg`` (``arch``'s full width):
+    the partitioned step of ``shape`` counted on ``meta`` (a CPU mesh) and
+    run on the card (a CUDA mesh), counted the same way; FLOPs and
+    collective calls equal, the meta peak within PARTITION_PEAK_TOL of
+    ``max_memory_allocated``, K4 / K5 (both modes) / K6 / K7 launches
     equal to the meta calls, no plain call.  The collectives return at
     once, their outputs undefined: only shapes and counts are compared
     (the MoE's routing indices are clamped, so undefined counts index
     nothing outside its buffers).  The counts are set to 0 just before
     the card's step and read just after it."""
-    layers, b, s = PARTITION_MOE_FAKE[kind]
-    cfg = get_config(arch).scaled(n_layers=layers)
-    shape = ShapeSpec(f"partition_moe_{kind}", kind, s, b)
-    opt_cfg = TrainAdamWConfig()
+    s, opt_cfg = shape.seq_len, TrainAdamWConfig()
     world = math.prod(PARTITION_FAKE_MESH)
     with dry.fake_world(world):
         mesh = make_mesh(PARTITION_FAKE_MESH, ("data", "model"), "cpu")
@@ -5208,7 +5307,7 @@ def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
         fn, args = step_fn_for(cfg, shape, opt_cfg, mesh=mesh, device="meta",
                                in_shardings=dry.shardings_for(mesh, cfg, shape, opt_cfg))
         args = _blocks_on_card(args, s)
-        _fill_step_args(kind, args, gen, cfg.vocab)
+        _fill_step_args(shape.kind, args, gen, cfg.vocab)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_model_counts()
@@ -5220,11 +5319,11 @@ def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
         counts = _model_counts()
         del fn, args, out
     _free()
-    launches = _launches(counts)
+    launches = _launches_k4_k7(counts)
     launches["decode_attention_partial"] = counts["decode_attention"]["decode_attention_partial"]
     calls = {k: v["calls"] for k, v in card.kernels.items()}
-    row = {"arch": arch, "kind": kind, "layers": layers, "mtp": bool(cfg.mtp_depth),
-           "batch": [b, s], "mesh": list(PARTITION_FAKE_MESH), "rank": 0,
+    row = {"arch": arch, "kind": shape.kind, "layers": cfg.n_layers, "mtp": bool(cfg.mtp_depth),
+           "batch": [shape.global_batch, s], "mesh": list(PARTITION_FAKE_MESH), "rank": 0,
            "flops_meta": meta.flops, "flops_cuda": card.flops,
            "peak_bytes_meta": meta.peak_bytes, "peak_bytes_cuda": peak,
            "peak_ratio": meta.peak_bytes / peak,
@@ -5239,7 +5338,7 @@ def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
         "launches_equal_meta_calls": all(launches[k] == calls.get(k, 0) == row[
             "kernel_calls_meta"].get(k, 0) for k in ("rmsnorm", "flash_attention",
                                                      "decode_attention",
-                                                     "decode_attention_partial")),
+                                                     "decode_attention_partial", "ssd_scan")),
         "no_plain_call": row["plain_calls"] == 0,
     }
     return {"row": row, "counts": counts}
@@ -5248,25 +5347,33 @@ def _partition_moe_fake(seed: int, arch: str, kind: str) -> dict:
 def phase_partition_moe(seed: int, card: str) -> dict:
     """The partitioned MoE and MLA + MoE steps on the card
     (``parallel/experts.py``, ``Partitioned``'s MoE and MLA paths): (a)
-    :func:`_partition_moe_one_rank` for Qwen3-MoE and DeepSeek-V3 in a
-    world of one NCCL rank; (b) where torch's ``fake`` backend takes CUDA
-    tensors (the slice-16 probe), :func:`_partition_moe_fake` for both
-    families' train and decode steps, else the refusal on a line of its
+    :func:`_partition_one_rank` for Qwen3-MoE and DeepSeek-V3 at
+    PARTITION_MOE_ONE_RANK's cut in a world of one NCCL rank (a ``model``
+    group of one runs every MoE shape and operation ``moe_apply`` runs,
+    and MLA's whole-cache ``mla_decode``); (b) where torch's ``fake``
+    backend takes CUDA tensors (the slice-16 probe),
+    :func:`_partition_fake_cell` for both families' train and decode
+    steps at PARTITION_MOE_FAKE's cut, else the refusal on a line of its
     own.  Every check is made, the line emitted, and then a failure
     raises.  Returns the launches of (a) and (b) in ``_model_counts``'
     form."""
     one = {}
     with one_rank_world() as mesh:
-        for arch in PARTITION_MOE_ONE_RANK:
-            one[arch] = _partition_moe_one_rank(seed, mesh, arch)
+        for arch, (layers, b, s) in PARTITION_MOE_ONE_RANK.items():
+            # DeepSeek-V3 without its MTP block, which serving never runs
+            cfg = get_config(arch).scaled(n_layers=layers, mtp_depth=0)
+            one[arch] = _partition_one_rank(seed, mesh, arch, cfg, b, s,
+                                            train=arch in PARTITION_MOE_TRAINS)
             print(f"partition_moe: {arch} on (1, 1): ok {one[arch]['row']['ok']}", flush=True)
     _free()
     refused = _partition_fake_probe()
     fake = {}
     if refused is None:
         for arch in PARTITION_MOE_ONE_RANK:
-            for kind in PARTITION_MOE_FAKE:
-                fake[f"{arch}/{kind}"] = _partition_moe_fake(seed, arch, kind)
+            for kind, (layers, b, s) in PARTITION_MOE_FAKE.items():
+                fake[f"{arch}/{kind}"] = _partition_fake_cell(
+                    seed, arch, get_config(arch).scaled(n_layers=layers),
+                    ShapeSpec(f"partition_moe_{kind}", kind, s, b))
     else:
         print(f"partition_moe: the fake backend refuses CUDA tensors ({refused}); "
               "the (1, 1) checks stand alone", flush=True)
@@ -5297,6 +5404,68 @@ def slice18_phases(seed: int, card: str) -> dict:
     seconds = {"partition_moe": time.perf_counter() - t0}
     emit({"phase": "slice18_phases", "seconds": seconds, "total_s": sum(seconds.values()),
           "budget_s": SLICE18_BUDGET_S, "card": card})
+    return counts
+
+
+def phase_partition_ssm(seed: int, card: str) -> dict:
+    """The partitioned Mamba2 and Zamba2 steps on the card
+    (``parallel/ssm.py``, ``Partitioned`` 's Mamba2 layers, Zamba2's shared
+    block and the decode's K/V layouts): (a) :func:`_partition_one_rank`
+    for Zamba2-2.7B (one super-block) and Mamba2-130M (all 24 layers),
+    prefill, decode and a train step each, in a world of one NCCL rank;
+    (b) where torch's ``fake`` backend takes CUDA tensors (the slice-16
+    probe), :func:`_partition_fake_cell` for Zamba2-2.7B's train_4k,
+    decode_32k (the sequence on ``model``) and long_500k (the sequence on
+    ``data``, the KV heads on ``model``) blocks, else the refusal on a
+    line of its own.  Every check is made, the line emitted, and then a
+    failure raises.  Returns the launches of (a) and (b) in
+    ``_model_counts``' form."""
+    one = {}
+    with one_rank_world() as mesh:
+        for arch, (layers, b, s) in PARTITION_SSM_ONE_RANK.items():
+            cfg = get_config(arch).scaled(n_layers=layers or get_config(arch).n_layers)
+            one[arch] = _partition_one_rank(seed + 10, mesh, arch, cfg, b, s, train=True)
+            print(f"partition_ssm: {arch} on (1, 1): ok {one[arch]['row']['ok']}", flush=True)
+    _free()
+    refused = _partition_fake_probe()
+    fake = {}
+    if refused is None:
+        for name, (kind, layers, b, s) in PARTITION_SSM_FAKE.items():
+            cfg = get_config(PARTITION_SSM_ARCH).scaled(n_layers=layers)
+            fake[name] = _partition_fake_cell(seed + 10, PARTITION_SSM_ARCH, cfg,
+                                              ShapeSpec(f"partition_ssm_{name}", kind, s, b))
+    else:
+        print(f"partition_ssm: the fake backend refuses CUDA tensors ({refused}); "
+              "the (1, 1) checks stand alone", flush=True)
+    full = {a: get_config(a).n_layers for a in PARTITION_SSM_ONE_RANK}
+    emit({"phase": "partition_ssm", "card": card,
+          "reduced": {"one_rank": {a: f"{v[0] or full[a]} of {full[a]} layers, {v[1]} x {v[2]}"
+                                   for a, v in PARTITION_SSM_ONE_RANK.items()},
+                      "fake_world": {k: f"{v[1]} of {full[PARTITION_SSM_ARCH]} layers, "
+                                     f"{v[2]} x {v[3]}" for k, v in PARTITION_SSM_FAKE.items()}},
+          "world": "one NCCL rank on cuda:0, a (1, 1) (data, model) mesh",
+          "tolerance": {"train": PARALLEL_TOL, "prefill_decode": "bit for bit"},
+          "one_rank": {a: r["row"] for a, r in one.items()},
+          "fake_world": {k: r["row"] for k, r in fake.items()} if fake else {"refused": refused}})
+    ok = all(r["row"]["ok"] for r in one.values()) and all(
+        all(r["row"]["checks"].values()) for r in fake.values())
+    if not ok:
+        raise AssertionError(f"partition_ssm failed: one rank {[r['row'] for r in one.values()]}"
+                             f", fake {[r['row'] for r in fake.values()]}")
+    counts_all = [c for r in one.values() for c in r["counts"]] + [r["counts"]
+                                                                   for r in fake.values()]
+    return {k: {c: sum(x[k][c] for x in counts_all) for c in counts_all[0][k]}
+            for k in counts_all[0]}
+
+
+def slice19_phases(seed: int, card: str) -> dict:
+    """The partitioned Mamba2 and Zamba2 steps; its wall on the
+    ``slice19_phases`` line."""
+    t0 = time.perf_counter()
+    counts = phase_partition_ssm(seed, card)
+    seconds = {"partition_ssm": time.perf_counter() - t0}
+    emit({"phase": "slice19_phases", "seconds": seconds, "total_s": sum(seconds.values()),
+          "budget_s": SLICE19_BUDGET_S, "card": card})
     return counts
 
 
@@ -5795,6 +5964,8 @@ def run(args: argparse.Namespace, pool) -> int:
     seconds["faults_online"] = time.perf_counter() - t0 - sum(seconds.values())
     exact = phase_exact(jobs, plane, pool)
     seconds["exact"] = time.perf_counter() - t0 - sum(seconds.values())
+    # the examples' CPU side runs in the (now idle) host worker meanwhile
+    examples_cpu = pool.apply_async(examples_cpu_half)
     plane_serve = phase_plane_serve(args.seed, jobs)
     seconds["plane_serve"] = time.perf_counter() - t0 - sum(seconds.values())
     emit({"phase": "control_plane_phases", "seconds": seconds,
@@ -5902,13 +6073,15 @@ def run(args: argparse.Namespace, pool) -> int:
     # this slice: the dry run's counts against real steps
     slice14_phases(args.seed, dev["nvidia_smi"])
     # this slice: the reference's four example entry points
-    example_launches, example_counts = slice15_phases(dev["nvidia_smi"])
+    example_launches, example_counts = slice15_phases(dev["nvidia_smi"], examples_cpu)
     # this slice: the partitioned dense train and prefill steps
     partition_counts = slice16_phases(args.seed, dev["nvidia_smi"])
     # this slice: the partitioned dense decode step
     decode_counts, k5_partial = slice17_phases(args.seed, dev["nvidia_smi"])
     # this slice: the partitioned MoE and MLA + MoE steps
     moe_partition_counts = slice18_phases(args.seed, dev["nvidia_smi"])
+    # this slice: the partitioned Mamba2 and Zamba2 steps
+    ssm_partition_counts = slice19_phases(args.seed, dev["nvidia_smi"])
     for row in example_launches.values():
         launches["wf_fused"] += row["wf_fused"]
         rd_launches += row["rd_step"]
@@ -5989,7 +6162,7 @@ def run(args: argparse.Namespace, pool) -> int:
     paths = [serve_counts, prefill_counts, *ssm_counts, plane_serve["counts"], *moe_counts,
              vlm_counts, train["counts"], encdec_counts, encdec_train_counts, launch_counts,
              parallel_counts, *example_counts, partition_counts, decode_counts,
-             moe_partition_counts]
+             moe_partition_counts, ssm_partition_counts]
     worst_model = {k: max(v, ssm_worst.get(k, 0.0), widths["max_abs_err"].get(k, 0.0),
                           encdec_widths["max_abs_err"].get(k, 0.0))
                    for k, v in model_worst.items()}

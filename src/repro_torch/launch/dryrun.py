@@ -18,11 +18,12 @@ ranks that exists in this process:
   mesh, its arguments this rank's blocks, the batch's rows split over
   the data axes; its strategy the family's
   (:func:`repro_torch.parallel.partition.strategy`): ``"partitioned"``
-  for the dense decoder's and the MoE families' train, prefill and decode
-  steps (each layer gathered in turn, the projections, the experts and
-  the vocabulary split on ``model``; decode keeps the cache's sequence on
-  ``model`` and combines the shards' softmaxes; the cell records its
-  ``attention`` mode too, ``"sequence"`` for decode), ``"gathered"``
+  for every family's train, prefill and decode steps but Whisper's (each
+  layer gathered in turn, the projections, the experts, the SSD heads and
+  the vocabulary split on ``model``; decode takes the cache's blocks as
+  they lie, e.g. the sequence on ``model`` with the shards' softmaxes
+  combined; the cell records its ``attention`` mode too, for decode the
+  K/V layout, and its Mamba2 layers' ``ssm`` mode), ``"gathered"``
   otherwise (the parameters gathered whole once a step; :mod:`.specs`).
   The per-device numbers are rank 0's;
 - **the counters** (:func:`count_step`), around one call:
@@ -52,7 +53,7 @@ ranks that exists in this process:
 
 A cell's JSON has the reference's keys (``count_wall_s``, the wall time
 of the counted step, in place of ``lower_s`` / ``compile_s``) plus
-``strategy`` (and, where partitioned, ``attention``), ``peak_bytes``,
+``strategy`` (and, where partitioned, ``attention`` and ``ssm``), ``peak_bytes``,
 ``hbm_bytes``, ``fits`` and ``rank``.  An
 exception marks the cell ``"error"`` with its message and the sweep goes
 on; the run exits 1 if any cell erred.  Skipped cells carry the
@@ -87,11 +88,14 @@ from ..configs.shapes import SHAPES, ShapeSpec, applicable, get_shape
 from ..kernels import _tensors as kernel_counts
 from ..models.config import ModelConfig
 from ..obs.clock import perf_counter
-from ..parallel.sharding import batch_sharding, cache_sharding, param_sharding
+from ..parallel.sharding import (AbstractMesh, batch_sharding, cache_sharding, param_sharding,
+                                 placements)
+from ..parallel.ssm import ssm_mode
 from ..train import AdamWConfig, TrainState
 from ..train.step import state_sharding
 from .mesh import make_production_mesh
-from ..parallel.partition import PARTITIONED, attention_mode, strategy
+from ..parallel.partition import (PARTITIONED, attention_mode, decode_strategy, kv_layout,
+                                  strategy)
 from .specs import cache_specs, input_specs, param_specs, state_specs, step_fn_for
 
 __all__ = [
@@ -335,6 +339,33 @@ def count_cell(cfg: ModelConfig, shape: ShapeSpec, *, multi_pod: bool,
     return counts
 
 
+def _partition_keys(cfg: ModelConfig, shape: ShapeSpec, multi_pod: bool) -> dict:
+    """The cell's ``strategy`` and, where partitioned, its ``attention``
+    (decode: the cache's K/V layout, ``KVLayout.name``; else the mode on
+    the production meshes' ``model`` axis) and, for the Mamba2 layers,
+    ``ssm`` (their mode there)."""
+    if shape.kind != "decode":
+        rule = strategy(cfg, shape.kind)
+    else:
+        mesh = AbstractMesh((2, 16, 16) if multi_pod else (16, 16),
+                            ("pod", "data", "model") if multi_pod else ("data", "model"))
+        cache = cache_sharding(mesh, cache_specs(cfg, shape.global_batch, shape.seq_len))
+        rule = decode_strategy(cfg, mesh, cache)
+    keys = {"strategy": rule}
+    if rule != PARTITIONED:
+        return keys
+    if cfg.block_pattern != "mamba2":
+        keys["attention"] = attention_mode(cfg, 16)
+        if shape.kind == "decode" and cfg.block_pattern != "mla_moe":
+            kv = cache["layers"]["attn"] if cfg.block_pattern == "zamba2" else cache["layers"]
+            keys["attention"] = kv_layout(mesh, placements(mesh, kv["k"])).name
+        elif shape.kind == "decode":
+            keys["attention"] = "sequence"
+    if cfg.block_pattern in ("mamba2", "zamba2"):
+        keys["ssm"] = ssm_mode(cfg, 16)
+    return keys
+
+
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:
     """Rank 0's counts of one cell, written to ``out_dir`` as JSON
     (module docstring)."""
@@ -351,12 +382,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str) -> dict:
     t0 = perf_counter()
     try:
         c = count_cell(cfg, shape, multi_pod=multi_pod)
-        cell.update(status="ok", strategy=strategy(cfg, shape.kind))
-        if cell["strategy"] == PARTITIONED:
-            # decode: every rank attends all heads over its positions; else the
-            # mode on the production meshes' model axis
-            cell["attention"] = ("sequence" if shape.kind == "decode"
-                                 else attention_mode(cfg, 16))
+        cell.update(status="ok", **_partition_keys(cfg, shape, multi_pod))
         cell.update(
             rank=0,
             count_wall_s=round(perf_counter() - t0, 2),

@@ -27,20 +27,25 @@ maps one onto the other).
   ``cache_sharding`` blocks.  The strategy is the rule's
   (:func:`repro_torch.parallel.partition.strategy`):
 
-  - ``"partitioned"`` (the dense decoder's, ``moe`` 's and ``mla_moe`` 's
-    prefill and decode): each layer's weights gathered on the data axes
-    in turn, the projections (and an MoE's experts) split on ``model``;
-    the logits split on the vocabulary, as the reference's
+  - ``"partitioned"`` (every family's prefill and decode but Whisper's):
+    each layer's weights gathered on the data axes in turn, the
+    projections (an MoE's experts, a Mamba2 mixer's SSD heads) split on
+    ``model``; the logits split on the vocabulary, as the reference's
     ``logits_sharding`` pins them
     (:class:`repro_torch.parallel.partition.Partitioned`).  Prefill
     returns the last position's logits and the cache of the rank's KV
-    heads (MLA: the whole latent); decode takes the cache's blocks as
-    they lie (the sequence on ``model``, no shard gathered), attends over
-    its shard (K5's partial mode; MLA's plain partial attention),
-    combines the shards' softmaxes over ``model`` and returns the logits
-    and the cache, its blocks ``DTensor`` s placed as they came
-    (``pos + 1``);
-  - ``"gathered"`` (the other families' prefill and decode): built as the
+    heads (MLA: the whole latent; Mamba2: its heads' state); decode takes
+    the cache's blocks as they lie, no shard gathered, in the K/V layout
+    their placements say (the sequence on ``model``: K5's partial mode,
+    MLA's plain partial attention, the shards' softmaxes combined over
+    ``model``; the KV heads on ``model``, the sequence whole or on
+    ``data``: K5 over the rank's heads, combined over ``data`` where it
+    splits the sequence), a Mamba2 state whole on ``model``, and returns
+    the logits and the cache, its blocks ``DTensor`` s placed as they
+    came (``pos + 1``);
+  - ``"gathered"`` (Whisper's prefill and decode, and a decode whose
+    cache holds its K/V head_dim on ``model``:
+    :func:`repro_torch.parallel.partition.decode_strategy`): built as the
     gathered train step is, the parameters gathered whole once a step,
     the rank's own cache rows gathered whole; then ``prefill`` /
     ``decode_step`` on plain tensors under the ambient mesh, the batch
@@ -62,7 +67,8 @@ from ..models import decode_step, init_decode_cache, prefill
 from ..models.config import ModelConfig
 from ..models.model import FAMILIES, LM, check_family
 from ..parallel.constrain import set_mesh, split_batch
-from ..parallel.partition import PARTITIONED, Partitioned, strategy
+from ..parallel.partition import (PARTITIONED, KVLayout, Partitioned, decode_strategy,
+                                  kv_layout, strategy)
 from ..parallel.sharding import data_shard, fsdp_axes, shard_state
 from ..train import AdamWConfig, TrainState, adamw_init, make_train_step
 from ..train.optim import param_tree
@@ -162,7 +168,9 @@ def step_fn_for(cfg: ModelConfig, shape: ShapeSpec, opt_cfg: AdamWConfig, *, mes
     blocks = [shard_state(mesh, tree, spec) for tree, spec in zip(trees, in_shardings)]
     if shape.kind == "decode":
         blocks[1] = blocks[1]["tokens"]
-    if strategy(cfg, shape.kind) == PARTITIONED:
+    rule = (decode_strategy(cfg, mesh, in_shardings[2]) if shape.kind == "decode"
+            else strategy(cfg, shape.kind))
+    if rule == PARTITIONED:
         make = _partitioned_prefill if shape.kind == "prefill" else _partitioned_decode
         return make(cfg, mesh), tuple(blocks)
     return _gathered_step(cfg, shape.kind, mesh), tuple(blocks)
@@ -190,35 +198,44 @@ def _partitioned_decode(cfg: ModelConfig, mesh) -> Callable:
     rows of the tokens and ``cache_sharding`` blocks of the cache,
     partitioned (:meth:`repro_torch.parallel.partition.Partitioned.decode`):
     the logits (B_local, 1, V / model) split on the vocabulary, and the
-    cache as ``DTensor`` s placed as the arguments were.  Refuses a cache
-    whose KV blocks (MLA: latent blocks) do not hold the sequence on
-    ``model`` (and the rows on the data axes, or whole), or whose ``pos``
-    is not replicated."""
+    cache as ``DTensor`` s placed as the arguments were.  It takes the K/V
+    blocks in every :class:`~repro_torch.parallel.partition.KVLayout`
+    (read from their placements), MLA's latent blocks with the sequence on
+    ``model``, a Mamba2 state with the rows on the data axes (or whole)
+    and whole on ``model``, ``pos`` replicated; it refuses any other
+    placement."""
     part = Partitioned(cfg, mesh)
 
-    def placed_as_taken(path: tuple, x: DTensor) -> bool:
-        seq = 2 if path[-1] in ("c_kv", "k_rope") else 3  # (L, B, S, r) / (L, B, Hkv, S, hd)
+    def taken(path: tuple, x: DTensor) -> bool:
+        if path[-1] in ("k", "v"):
+            return kv_layout(mesh, x.placements) is not None
         for axis, n, p in zip(mesh.mesh_dim_names, mesh.shape, x.placements):
             if path[-1] == "pos":
                 ok = isinstance(p, Replicate)
-            elif axis == "model":
-                ok = p == Shard(seq) or (n == 1 and isinstance(p, Replicate))
-            else:
+            elif axis != "model":
                 ok = p in (Shard(1), Replicate())
+            elif path[-1] in ("c_kv", "k_rope"):  # (L, B, S, r)
+                ok = p == Shard(2) or (n == 1 and isinstance(p, Replicate))
+            else:  # a Mamba2 state (L, B, ...)
+                ok = isinstance(p, Replicate)
             if not ok:
                 return False
         return True
 
     def step(params: dict, tokens: DTensor, cache: dict):
+        layout = KVLayout()
         for path, x in _paths(cache):
-            if not placed_as_taken(path, x):
+            if not taken(path, x):
                 raise ValueError(
                     f"partitioned decode: cache leaf {'/'.join(path)} placed {x.placements}; "
-                    "it takes the KV (or latent) blocks with the sequence on 'model' and the "
-                    "rows on the data axes, pos replicated")
+                    "it takes the K/V blocks as cache_sharding lays them out, MLA's latent "
+                    "blocks with the sequence on 'model', a Mamba2 state whole on 'model', "
+                    "each with the rows on the data axes, pos replicated")
+            if path[-1] == "k":
+                layout = kv_layout(mesh, x.placements)
         blocks = {path: t.to_local() for path, t in _paths(params)}
         local = _map_paths(lambda path, x: x.to_local(), cache)
-        logits, out = part.decode(blocks, tokens.to_local(), local)
+        logits, out = part.decode(blocks, tokens.to_local(), local, layout)
         return logits, _map_paths(
             lambda path, x, new: DTensor.from_local(new, mesh, x.placements, run_check=False,
                                                     shape=x.shape, stride=x.stride()),

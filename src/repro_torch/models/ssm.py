@@ -7,6 +7,14 @@ single-token decode (:func:`mamba2_decode`) is the O(1) recurrence on
 (conv_state, ssm_state).  The gated norm goes through the RMSNorm kernel
 (K4).  Parameters live in :class:`Mamba2`, named as the reference's
 tree; ``A_log``, ``D`` and ``dt_bias`` stay float32.
+
+Each entry point is its mixer (:func:`mamba2_mix`,
+:func:`mamba2_decode_mix`: the gated, normalised ``y`` before
+``out_proj``) and then ``out_proj``.  A mixer reads its widths from its
+weights (``norm_g``: d_in, ``A_log``: heads, ``conv_w``: the state
+width), so the partitioned strategy (:mod:`repro_torch.parallel.ssm`)
+runs it unchanged on a rank's heads, with its own gated norm (``norm``)
+and, in decode, the projection's column blocks made whole (``gather``).
 """
 
 from __future__ import annotations
@@ -23,7 +31,9 @@ __all__ = [
     "Mamba2",
     "mamba2_apply",
     "mamba2_decode",
+    "mamba2_decode_mix",
     "mamba2_init_",
+    "mamba2_mix",
     "mamba2_init_state",
     "ssd_chunked",
 ]
@@ -110,29 +120,37 @@ def _conv_causal(seq: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return out + b[None, None, :]
 
 
-def _split_proj(p: Mamba2, cfg: ModelConfig, u: torch.Tensor):
-    d_in, _, _, st = _dims(cfg)
-    zxbcdt = dense(p.in_proj, u)
+def _widths(p: Mamba2) -> tuple[int, int, int, int]:
+    """``(d_in, heads, head_dim, state_dim)`` of the mixer's weights."""
+    d_in, nh = p.norm_g.shape[0], p.A_log.shape[0]
+    return d_in, nh, d_in // nh, (p.conv_w.shape[1] - d_in) // 2
+
+
+def _split_proj(zxbcdt: torch.Tensor, d_in: int, st: int):
     return torch.split(zxbcdt, [d_in, d_in + 2 * st, zxbcdt.shape[-1] - 2 * d_in - 2 * st],
                        dim=-1)
 
 
-def _gate_norm_out(p: Mamba2, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``y`` (fp32, with the D skip) → model dtype, gated by silu(z), the
-    gated norm (K4), the output projection."""
+def _gate_norm(g: torch.Tensor, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+               norm=None) -> torch.Tensor:
+    """``y`` (fp32, with the D skip) → model dtype, gated by silu(z), then
+    the gated norm with weight ``g``: K4, or ``norm(y, g, eps)`` where
+    given."""
     y = y.to(z.dtype) * F.silu(z)
-    y = ops.rmsnorm_fused(y, p.norm_g, eps=cfg.norm_eps)
-    return y @ p.out_proj
+    if norm is None:
+        return ops.rmsnorm_fused(y, g, eps=cfg.norm_eps)
+    return norm(y, g, cfg.norm_eps)
 
 
-def mamba2_apply(
-    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State | None = None
+def mamba2_mix(
+    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State | None = None, *, norm=None
 ) -> tuple[torch.Tensor, State]:
-    """Full-sequence forward; returns (y, (conv_state, ssm_state))."""
-    d_in, nh, hd, st = _dims(cfg)
+    """:func:`mamba2_apply` up to ``out_proj``: the gated, normalised ``y``
+    (B, S, d_in) and (conv_state, ssm_state)."""
+    d_in, nh, hd, st = _widths(p)
     width = cfg.ssm.conv_width
     b, s, _ = u.shape
-    z, xbc, dt_raw = _split_proj(p, cfg, u)
+    z, xbc, dt_raw = _split_proj(dense(p.in_proj, u), d_in, st)
     if state is not None:
         conv_full = torch.cat([state[0], xbc], dim=1)
         conv = _conv_causal(conv_full, p.conv_w, p.conv_b)[:, -s:, :]
@@ -146,7 +164,7 @@ def mamba2_apply(
     h0 = state[1] if state is not None else None
     y, h_last = ssd_chunked(x, dt, A, bpart, cpart, cfg.ssm.chunk, h0)
     y = y + x.float() * p.D[None, None, :, None]
-    out = _gate_norm_out(p, cfg, y.reshape(b, s, d_in), z)
+    out = _gate_norm(p.norm_g, cfg, y.reshape(b, s, d_in), z, norm)
     prefix = (
         state[0]
         if state is not None
@@ -154,6 +172,14 @@ def mamba2_apply(
     )
     new_conv_state = torch.cat([prefix, xbc], dim=1)[:, -(width - 1):, :]
     return out, (new_conv_state, h_last)
+
+
+def mamba2_apply(
+    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State | None = None
+) -> tuple[torch.Tensor, State]:
+    """Full-sequence forward; returns (y, (conv_state, ssm_state))."""
+    y, new_state = mamba2_mix(p, cfg, u, state)
+    return y @ p.out_proj, new_state
 
 
 def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device) -> State:
@@ -165,15 +191,22 @@ def mamba2_init_state(cfg: ModelConfig, batch: int, dtype, device) -> State:
     )
 
 
-def mamba2_decode(
-    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State
+def mamba2_decode_mix(
+    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State, *, gather=None,
+    heads: slice = slice(None), norm=None
 ) -> tuple[torch.Tensor, State]:
-    """O(1) single-token step; ``u`` (B, 1, d).  Returns the output and
-    the new (conv_state, ssm_state); the caller writes them into its
-    cache."""
-    d_in, nh, hd, st = _dims(cfg)
+    """:func:`mamba2_decode` up to ``out_proj``: the gated, normalised
+    ``y`` (B, 1, d_in) and the new state.  The partitioned decode's
+    options: ``gather`` makes the projection's column blocks whole;
+    ``heads`` (a slice of the SSD heads) computes ``y`` of those heads
+    only (the state still whole), gated by their ``z`` and normalised by
+    ``norm``, as in :func:`mamba2_mix`."""
+    d_in, nh, hd, st = _widths(p)
     b = u.shape[0]
-    z, xbc, dt_raw = _split_proj(p, cfg, u)
+    zxbcdt = dense(p.in_proj, u)
+    if gather is not None:
+        zxbcdt = gather(zxbcdt)
+    z, xbc, dt_raw = _split_proj(zxbcdt, d_in, st)
     conv_state, h = state
     window = torch.cat([conv_state, xbc], dim=1)  # (B, W, C)
     conv = (window * p.conv_w[None, :, :]).sum(dim=1) + p.conv_b
@@ -185,6 +218,18 @@ def mamba2_decode(
     da = torch.exp(dt * A[None, :])  # (B, H)
     xd = x.float() * dt[..., None]
     h_new = h * da[..., None, None] + xd[..., None] * bpart.float()[:, None, None, :]
-    y = torch.einsum("bhpn,bn->bhp", h_new, cpart.float()) + x.float() * p.D[None, :, None]
-    out = _gate_norm_out(p, cfg, y.reshape(b, 1, d_in), z)
+    y = (torch.einsum("bhpn,bn->bhp", h_new[:, heads], cpart.float())
+         + x[:, heads].float() * p.D[heads][None, :, None])
+    cols = slice(*(None if i is None else i * hd for i in (heads.start, heads.stop)))
+    out = _gate_norm(p.norm_g[cols], cfg, y.reshape(b, 1, -1), z[..., cols], norm)
     return out, (window[:, 1:, :], h_new)
+
+
+def mamba2_decode(
+    p: Mamba2, cfg: ModelConfig, u: torch.Tensor, state: State
+) -> tuple[torch.Tensor, State]:
+    """O(1) single-token step; ``u`` (B, 1, d).  Returns the output and
+    the new (conv_state, ssm_state); the caller writes them into its
+    cache."""
+    y, new_state = mamba2_decode_mix(p, cfg, u, state)
+    return y @ p.out_proj, new_state

@@ -3,10 +3,11 @@
 The port's counterpart of ``repro/parallel`` on ``torch.distributed``
 (``DeviceMesh``, ``DTensor``).  The reference's ``compat.py`` (a shim
 over jax versions) has no counterpart; its ``set_mesh`` lives in
-:mod:`.constrain`.  :mod:`.partition` (the dense decoder's partitioned
-train and prefill steps: the ``model``-axis operators and the per-layer
-gather) imports the models, which import this package, so it is not
-re-exported here: import ``repro_torch.parallel.partition``.
+:mod:`.constrain`.  :mod:`.partition` (the partitioned train, prefill
+and decode steps: the ``model``-axis operators and the per-layer gather)
+and its helpers :mod:`.experts` and :mod:`.ssm` import the models, which
+import this package, so they are not re-exported here: import
+``repro_torch.parallel.partition``.
 """
 
 from .constrain import ambient_mesh, logical_spec, set_mesh, shard, split_batch

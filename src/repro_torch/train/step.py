@@ -26,19 +26,21 @@ held by several ranks counts once) and ``adamw_update`` runs on the
 blocks.  The rule of :func:`repro_torch.parallel.partition.strategy`
 picks how the rest is done:
 
-- ``"partitioned"`` (the dense decoder, ``dense`` and ``vlm``, and the
-  MoE families, ``moe`` and ``mla_moe``), as XLA partitions the
-  reference's step: each layer's weights gathered on the data axes inside
-  the recomputed layer (their gradients reduce-scattered back in its
-  backward, so each arrives at its block reduced), the projections split
-  on ``model`` (attention by heads, or replicated on ``model`` where the
-  heads do not split; an MoE's experts ``E/m`` a rank, dispatched with
-  the global batch's capacity: :mod:`repro_torch.parallel.experts`), the
-  logits and the cross-entropies split on the vocabulary, as the
-  reference's ``logits_sharding`` pins them; the loss adds the MoE aux
-  loss and the MTP head's cross-entropy (:mod:`repro_torch.parallel.
-  partition`);
-- ``"gathered"`` (Mamba2, Zamba2, Whisper): the full parameters gathered
+- ``"partitioned"`` (the dense decoder, ``dense`` and ``vlm``, the MoE
+  families, ``moe`` and ``mla_moe``, and the SSM families, ``mamba2``
+  and ``zamba2``), as XLA partitions the reference's step: each layer's
+  weights gathered on the data axes inside the recomputed layer (their
+  gradients reduce-scattered back in its backward, so each arrives at its
+  block reduced), the projections split on ``model`` (attention by heads,
+  or replicated on ``model`` where the heads do not split; an MoE's
+  experts ``E/m`` a rank, dispatched with the global batch's capacity:
+  :mod:`repro_torch.parallel.experts`; a Mamba2 mixer by its SSD heads,
+  or replicated: :mod:`repro_torch.parallel.ssm`; Zamba2's shared block
+  once a use), the logits and the cross-entropies split on the
+  vocabulary, as the reference's ``logits_sharding`` pins them; the loss
+  adds the MoE aux loss and the MTP head's cross-entropy
+  (:mod:`repro_torch.parallel.partition`);
+- ``"gathered"`` (Whisper): the full parameters gathered
   once a step into a model on plain tensors (the peak holds them, their
   fp32 gradients and this rank's blocks of the state), each rank's whole
   forward and backward on its rows, and each gradient reduced to its

@@ -3,8 +3,8 @@ math, the port's single-device step and the reference's sharded step, on
 the CPU.
 
 - With a group of one (or ``None``) every ``model``-axis operator is the
-  identity, and the strategy rule sends exactly the dense decoder's
-  train, prefill and decode steps to ``"partitioned"``.
+  identity, and the strategy rule sends every family's train, prefill
+  and decode steps to ``"partitioned"`` but Whisper's.
 - On 4 ``gloo`` ranks (``tests/torch_parallel_ranks.py``, task
   ``partition``), a (1, 4) mesh's ``model`` group: ``copy_in``,
   ``reduce_out``, ``vocab_embed`` and ``vocab_xent`` (outputs and
@@ -42,6 +42,18 @@ the CPU.
   reference's ``jax.jit(decode_step, in_shardings=(param_sharding,
   batch_sharding, cache_sharding))`` within 1e-4; the partition factor
   within 10 % of XLA's.
+- The MoE families (``parallel/experts.py``) and the Mamba2 and Zamba2
+  families (``parallel/ssm.py``: the SSD heads split on ``model``, or the
+  mixer replicated there at 6 heads on 4; Zamba2's shared block by the
+  dense rules) through the same train, prefill and decode checks, a
+  Mamba2 state bit-equal over the ``model`` ranks; on (2, 2) against the
+  reference's jitted sharded steps (the SSM steps' parameters within
+  1e-4); their partition factors; fake (2, 2) dry runs against hand
+  counts.
+- The decode's K/V layouts where the sequence does not lie on ``model``
+  (the KV heads on ``model``; the rows whole with the sequence on
+  ``data``) against ``decode_step``, and the head_dim layout routed to
+  the gathered decode.
 """
 
 import dataclasses
@@ -67,7 +79,9 @@ from repro_torch.launch.mesh import make_mesh
 from repro_torch.kernels import decode_attention as dak
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.ffn import drop_counts, reset_drop_counts
-from repro_torch.parallel import partition
+from repro_torch.models.ssm import _dims as ssm_dims
+from repro_torch.parallel import AbstractMesh, cache_sharding, partition, placements
+from repro_torch.parallel.ssm import ssm_mode
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.step import _sharded_train_step
 
@@ -171,11 +185,12 @@ for shape in ((2, 2), (1, 4)):
 np.savez(out + "/reference_partition.npz", **res)
 """
 
-# the MoE cases' reference side, one subprocess a family: for each case
-# the train and decode steps' FLOPs on one device and on its mesh (the
+# the MoE and SSM cases' reference side, one subprocess a family (beside
+# its rank group): for each
+# case the train and decode steps' FLOPs on one device and on its mesh (the
 # partition factor) and, for a case held against the reference, 2 train
 # steps and 4 decode steps on (2, 2) from its initial parameters
-REFERENCE_MOE = """
+REFERENCE_FAMILIES = """
 import dataclasses, json, sys
 import jax, jax.numpy as jnp, numpy as np
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
@@ -202,11 +217,14 @@ def flops(compiled):
     ca = compiled.cost_analysis()
     return float((ca[0] if isinstance(ca, list) else ca)["flops"])
 
+singles = {}  # one device's FLOPs, once a config (two cases may share one)
 for name, case in cases.items():
-    dispatch, cf, coef, *experts = case["moe"]
-    cfg = get_smoke_config(case["arch"])
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, dispatch=dispatch, capacity_factor=cf, router_aux_coef=coef))
+    key = json.dumps([case["arch"], case["overrides"], case["moe"]])
+    cfg = dataclasses.replace(get_smoke_config(case["arch"]), **case["overrides"])
+    if case["moe"]:
+        dispatch, cf, coef, *experts = case["moe"]
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=dispatch, capacity_factor=cf, router_aux_coef=coef))
     mesh = jax.make_mesh(tuple(case["mesh"]), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
     batch = {k: jnp.asarray(v) for k, v in np.load(f"{out}/batch_{name}.npz").items()}
     dec = dict(np.load(f"{out}/decode_{name}.npz"))
@@ -214,24 +232,35 @@ for name, case in cases.items():
     abstract = jax.eval_shape(lambda k: train_state_init(k, cfg, opt).as_dict(),
                               jax.random.PRNGKey(0))
 
+    train_step = make_train_step(cfg, opt)  # one function, so its compiles are reused
+
     def sharded(state):
         st = {"params": param_sharding(mesh, state["params"]),
               "opt": {"m": param_sharding(mesh, state["opt"]["m"]),
                       "v": param_sharding(mesh, state["opt"]["v"]),
                       "step": NamedSharding(mesh, P())}}
-        return jax.jit(make_train_step(cfg, opt), in_shardings=(st, batch_sharding(mesh, batch)))
+        return jax.jit(train_step, in_shardings=(st, batch_sharding(mesh, batch)))
 
-    res["train_single"] = flops(jax.jit(make_train_step(cfg, opt)).lower(abstract, batch).compile())
+    if key not in singles:
+        singles[key] = {"train_single": flops(
+            jax.jit(train_step).lower(abstract, batch).compile())}
+    res["train_single"] = singles[key]["train_single"]
     with compat.set_mesh(mesh):
         res["train_mesh"] = flops(sharded(abstract).lower(abstract, batch).compile())
-    params = (unflatten(dict(np.load(f"{out}/ref_init_{name}.npz"))) if case["reference"]
-              else init_params(jax.random.PRNGKey(0), cfg))
-    _, cache = prefill(params, cfg, {"tokens": jnp.asarray(dec["prompt"])},
-                       max_len=int(dec["length"]))
+    prompt = {"tokens": jnp.asarray(dec["prompt"])}
+    if case["reference"]:
+        params = unflatten(dict(np.load(f"{out}/ref_init_{name}.npz")))
+        _, cache = prefill(params, cfg, prompt, max_len=int(dec["length"]))
+    else:  # only counted: the parameters' and the cache's shapes
+        params = jax.eval_shape(lambda k: init_params(k, cfg), jax.random.PRNGKey(0))
+        cache = jax.eval_shape(lambda p: prefill(p, cfg, prompt, max_len=int(dec["length"]))[1],
+                               params)
     cache["pos"] = jnp.asarray(dec["pos"])
     decode = lambda p, t, c: decode_step(p, cfg, t, c)
     tok = jnp.asarray(dec["tokens"][:, :1])
-    res["decode_single"] = flops(jax.jit(decode).lower(params, tok, cache).compile())
+    if "decode_single" not in singles[key]:
+        singles[key]["decode_single"] = flops(jax.jit(decode).lower(params, tok, cache).compile())
+    res["decode_single"] = singles[key]["decode_single"]
     with compat.set_mesh(mesh):
         step = jax.jit(decode, in_shardings=(param_sharding(mesh, params),
                                              batch_sharding(mesh, {"tokens": tok})["tokens"],
@@ -241,6 +270,7 @@ for name, case in cases.items():
             logits, c = [], cache
             for i in range(dec["tokens"].shape[1]):
                 lg, c = step(params, jnp.asarray(dec["tokens"][:, i:i + 1]), c)
+                c = jax.device_put(c, cache_sharding(mesh, c))  # a state's own layout back
                 logits.append(np.asarray(lg))
             res["decode_logits"] = np.stack(logits)
     if case["reference"]:  # the state built outside the mesh's scope, as the dense case's
@@ -257,8 +287,14 @@ for name, case in cases.items():
             res["param/" + "/".join(p.key for p in path)] = np.asarray(leaf)
     np.savez(f"{out}/reference_{name}.npz", **res)
 """
-MOE_FACTOR_CASES = [c for c in ranks.FACTOR_CASES if not c.startswith("dense_")]
-MOE_REFERENCE_CASES = [c for c in ranks.REFERENCE_CASES if not c.startswith("dense_")]
+SSM_FAMILIES = ("mamba2", "zamba2")
+FAMILY_FACTOR_CASES = [c for c in ranks.FACTOR_CASES if not c.startswith("dense_")]
+MOE_FACTOR_CASES = [c for c in FAMILY_FACTOR_CASES if ranks.PARTITION_CASES[c][3]]
+MOE_REFERENCE_CASES = [c for c in ranks.REFERENCE_CASES if ranks.PARTITION_CASES[c][3]]
+SSM_FACTOR_CASES = [c for c in FAMILY_FACTOR_CASES
+                    if ranks.partition_config(c).block_pattern in SSM_FAMILIES]
+SSM_REFERENCE_CASES = [c for c in ranks.REFERENCE_CASES
+                       if ranks.partition_config(c).block_pattern in SSM_FAMILIES]
 
 
 def _flat(tree, prefix=()):
@@ -282,12 +318,11 @@ def _reference_process(out, script: str, *args: str) -> subprocess.Popen:
 def _save_reference_inputs(out, name: str) -> dict:
     """A case's reference-side inputs: its initial parameters (for a case
     held against the reference), batch and decode inputs; the case's
-    entry for ``REFERENCE_MOE``."""
-    arch, _, mesh, moe = ranks.PARTITION_CASES[name]
+    entry for ``REFERENCE_FAMILIES``."""
+    arch, overrides, mesh, moe = ranks.PARTITION_CASES[name]
     cfg = ranks.partition_config(name)
     if name in ranks.REFERENCE_CASES:
-        ref_cfg = dataclasses.replace(ref_smoke_config(arch), n_heads=cfg.n_heads,
-                                      n_kv_heads=cfg.n_kv_heads)
+        ref_cfg = dataclasses.replace(ref_smoke_config(arch), **(overrides or {}))
         if moe is not None:
             ref_cfg = dataclasses.replace(ref_cfg, moe=dataclasses.replace(
                 ref_cfg.moe, n_experts=cfg.moe.n_experts))
@@ -301,8 +336,8 @@ def _save_reference_inputs(out, name: str) -> dict:
     np.savez(out / f"decode_{name}.npz", prompt=prompt["tokens"].numpy().astype(np.int32),
              pos=pos.numpy(), tokens=tokens.numpy().astype(np.int32),
              length=ranks.decode_len(cfg))
-    return {"arch": arch, "mesh": list(mesh), "moe": list(moe) if moe else None,
-            "reference": name in ranks.REFERENCE_CASES}
+    return {"arch": arch, "overrides": overrides or {}, "mesh": list(mesh),
+            "moe": list(moe) if moe else None, "reference": name in ranks.REFERENCE_CASES}
 
 
 def _operator_inputs(rng) -> dict:
@@ -326,12 +361,14 @@ def _operator_inputs(rng) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The port's 4 gloo ranks and the reference's 4-device subprocess,
-    started together."""
+    """The port's 4 gloo ranks (task ``partition``: the dense and MoE
+    cases) and the reference's 4-device subprocesses (the dense cases',
+    and one for each MoE family), started together."""
     out = tmp_path_factory.mktemp("partition")
     np.savez(out / "operators.npz", **_operator_inputs(np.random.default_rng(31)))
-    moe = {name: _save_reference_inputs(out, name)
-           for name in dict.fromkeys(ranks.REFERENCE_CASES + ranks.FACTOR_CASES)}
+    names = [n for n in dict.fromkeys(ranks.REFERENCE_CASES + ranks.FACTOR_CASES)
+             if n not in ranks.SSM_CASES]
+    moe = {name: _save_reference_inputs(out, name) for name in names}
     batch = ranks.step_batch("dense", ref_smoke_config("qwen1.5-4b").vocab)
     np.savez(out / "batch.npz", **{k: v.numpy().astype(np.int32) for k, v in batch.items()})
     (out / "decode.npz").write_bytes((out / "decode_dense_2x2.npz").read_bytes())
@@ -339,9 +376,34 @@ def runs(tmp_path_factory):
     for name in MOE_FACTOR_CASES:
         families.setdefault(moe[name]["arch"], {})[name] = moe[name]
     references = [_reference_process(out, REFERENCE)] + [
-        _reference_process(out, REFERENCE_MOE, json.dumps(cases)) for cases in families.values()]
+        _reference_process(out, REFERENCE_FAMILIES, json.dumps(cases))
+        for cases in families.values()]
     ranks.wait_all([*ranks.start_ranks("partition", 4, out), *references])
     return out
+
+
+@pytest.fixture(scope="module")
+def ssm_runs(tmp_path_factory):
+    """The port's 4 gloo ranks (task ``partition_ssm``: the Mamba2 and
+    Zamba2 cases and the decode layouts) and the reference's 4-device
+    subprocesses, one for each SSM family, started together: a group of
+    its own, so that each group keeps within ``GROUP_TIMEOUT_S``."""
+    out = tmp_path_factory.mktemp("partition_ssm")
+    families: dict = {}
+    for name in ranks.SSM_CASES:
+        case = _save_reference_inputs(out, name)
+        families.setdefault(case["arch"], {})[name] = case
+    ranks.wait_all([*ranks.start_ranks("partition_ssm", 4, out),
+                    *(_reference_process(out, REFERENCE_FAMILIES, json.dumps(cases))
+                      for cases in families.values())])
+    return out
+
+
+def _dir(request, name: str):
+    """The folder of the rank group that ran case ``name`` (a partition
+    case, or a decode layout case)."""
+    apart = name in ranks.SSM_CASES or name in ranks.LAYOUT_CASES
+    return request.getfixturevalue("ssm_runs" if apart else "runs")
 
 
 def _single_device(cfg, batch, steps=ranks.STEPS):
@@ -381,18 +443,23 @@ def test_operators_are_the_identity_on_a_group_of_one():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_the_rule_partitions_the_dense_train_and_prefill_steps_only(arch):
-    """The dense decoder's and (since the partitioned MoE) the MoE and MLA
-    + MoE families' train, prefill and decode steps are partitioned;
-    Mamba2's, Zamba2's and Whisper's are gathered."""
+    """Every family's train, prefill and decode steps are partitioned (the
+    dense decoder's since PR 29-30, the MoE families' since PR 31, Mamba2's
+    and Zamba2's since PR 32) but Whisper's, which are gathered; the
+    attention and SSM modes on the production meshes' model axis of 16."""
     cfg = get_config(arch)
-    split = cfg.block_pattern in ("dense", "vlm", "moe", "mla_moe")
+    split = cfg.block_pattern != "encdec"
     for kind in ("train", "prefill", "decode"):
         want = "partitioned" if split else "gathered"
         assert partition.strategy(cfg, kind) == want
-    if split:  # the attention modes on the production meshes' model axis of 16
+    if split:
         heads = {"qwen2-72b", "qwen3-32b", "llava-next-mistral-7b", "qwen3-moe-235b-a22b",
-                 "deepseek-v3-671b"}
-        assert partition.attention_mode(cfg, 16) == ("heads" if arch in heads else "replicated")
+                 "deepseek-v3-671b", "zamba2-2.7b"}
+        if cfg.block_pattern != "mamba2":  # attention-free
+            assert partition.attention_mode(cfg, 16) == ("heads" if arch in heads
+                                                         else "replicated")
+        if cfg.block_pattern in SSM_FAMILIES:  # zamba2's 80 SSD heads; mamba2-130m's 24
+            assert ssm_mode(cfg, 16) == ("heads" if arch == "zamba2-2.7b" else "replicated")
     else:
         with pytest.raises(ValueError, match="not partitioned"):
             partition.Partitioned(cfg, None)
@@ -430,8 +497,8 @@ def test_model_axis_operators_equal_the_plain_ones(runs):
 
 
 @pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
-def test_partitioned_step_equals_the_single_device_step(runs, name):
-    got = torch.load(runs / "partition_rank0.pt")[name]
+def test_partitioned_step_equals_the_single_device_step(request, name):
+    got = torch.load(_dir(request, name) / "partition_rank0.pt")[name]
     cfg = ranks.partition_config(name)
     want_metrics, want, _ = _single_device(cfg, ranks.partition_batch(cfg))
     for g, w in zip(got["metrics"], want_metrics):
@@ -444,8 +511,36 @@ def test_partitioned_step_equals_the_single_device_step(runs, name):
         assert float((flat[n] - w).abs().max()) < PARAM_TOL, n
 
 
+def _at(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _prefill_share(cfg, path: tuple, want: torch.Tensor, b: slice, m: int, model: int):
+    """Model rank ``m`` 's share of rows ``b`` of the one-device prefill's
+    cache leaf at ``path``: KV heads by attention mode (MLA's latent
+    whole); a Mamba2 state by SSM mode, its heads' ``ssm`` and its ``x`` and
+    ``B`` / ``C`` channels of ``conv`` in ``"heads"`` mode, else whole."""
+    leaf = path[-1]
+    if leaf in ("conv", "ssm"):
+        if ssm_mode(cfg, model) != "heads":
+            return want[:, b]
+        d_in, nh, _, _ = ssm_dims(cfg)
+        if leaf == "ssm":
+            return want[:, b, m * nh // model:(m + 1) * nh // model]
+        w = d_in // model
+        return torch.cat([want[:, b, :, m * w:(m + 1) * w], want[:, b, :, d_in:]], dim=-1)
+    if cfg.block_pattern == "mla_moe" or partition.attention_mode(cfg, model) != "heads":
+        return want[:, b]
+    per = cfg.n_kv_heads // model or 1  # the KV heads this rank's query heads use
+    first = m * cfg.n_kv_heads // model if cfg.n_kv_heads >= model else (
+        m // (model // cfg.n_kv_heads))
+    return want[:, b, first:first + per]
+
+
 @pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
-def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(runs, name):
+def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(request, name):
     cfg = ranks.partition_config(name)
     data, model = ranks.PARTITION_CASES[name][2]
     batch = ranks.partition_batch(cfg)
@@ -456,23 +551,17 @@ def test_partitioned_prefill_is_each_ranks_share_of_the_single_device_prefill(ru
         logits, cache = prefill(ranks.initial_state(cfg).params, cfg, prompt)
     rows, vocab = logits.shape[0] // data, cfg.vocab // model
     heads = (partition.attention_mode(cfg, model) == "heads")
-    mla = cfg.block_pattern == "mla_moe"
     for r in range(4):
-        got = torch.load(runs / f"partition_rank{r}.pt")["prefill"][name]
+        got = torch.load(_dir(request, name) / f"partition_rank{r}.pt")["prefill"][name]
         d, m = divmod(r, model)
         b = slice(d * rows, (d + 1) * rows)
         assert got["attention"] == ("heads" if heads else "replicated")
         torch.testing.assert_close(got["logits"], logits[b, :, m * vocab:(m + 1) * vocab],
                                    rtol=0, atol=1e-5)
-        kv = slice(None)
-        if heads and not mla:  # the KV heads this rank's query heads use
-            per = cfg.n_kv_heads // model or 1
-            first = m * cfg.n_kv_heads // model if cfg.n_kv_heads >= model else (
-                m // (model // cfg.n_kv_heads))
-            kv = slice(first, first + per)
         assert set(got) - {"logits", "pos", "attention", "drops"} == set(cache["layers"])
-        for k, want in cache["layers"].items():  # MLA's latent: the rank's rows, whole
-            torch.testing.assert_close(got[k], want[:, b] if mla else want[:, b, kv],
+        for path, want in _flat(cache["layers"]):
+            torch.testing.assert_close(_at(got, path), _prefill_share(cfg, path, want, b, m,
+                                                                      model),
                                        rtol=0, atol=1e-5)
         assert torch.equal(got["pos"], cache["pos"][b])
 
@@ -552,32 +641,73 @@ def test_dry_run_partitioned_decode_cell_against_gathered_and_a_hand_count():
     assert "decode_attention" not in part.kernels
 
 
-def test_partitioned_decode_refuses_a_cache_not_split_by_the_sequence():
+def test_partitioned_decode_refuses_a_cache_not_split_by_the_sequence(ssm_runs):
     """A cache of 63 positions on a (2, 2) mesh: ``cache_sharding`` puts its
-    KV heads on ``model`` (63 does not divide by 2), which the partitioned
-    decode does not take; it says so instead of attending wrongly."""
+    KV heads on ``model`` (63 does not divide by 2).  The partitioned
+    decode refused that layout until PR 32; it takes it now: on 4 ``gloo``
+    ranks (the layout case ``dense_heads_2x2``) its 4 steps equal the
+    single-device decode (:func:`_check_decode`), and in a fake (2, 2)
+    world at Qwen3-32B's width each rank projects its heads' columns and
+    attends over its KV heads in K5's whole-cache mode, one launch a
+    layer, with no partial mode, no softmax combine and the hand count's
+    collectives."""
     cfg = get_config("qwen3-32b").scaled(n_layers=2)
     shape = ShapeSpec("odd_decode", "decode", 63, 4)
     opt = AdamWConfig()
+    _check_layout_case(ssm_runs, "dense_heads_2x2")
     with dryrun.fake_world(4):
         mesh = make_mesh((2, 2), ("data", "model"), "cpu")
         sh = dryrun.shardings_for(mesh, cfg, shape, opt)
         assert sh[2]["layers"]["k"] == (None, "data", "model", None, None)
+        assert partition.decode_strategy(cfg, mesh, sh[2]) == "partitioned"
         fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
-        with pytest.raises(ValueError, match="sequence on 'model'"):
-            dryrun.count_step(fn, args)
+        _, part = dryrun.count_step(fn, args)
+    assert part.kernels["decode_attention"]["calls"] == cfg.n_layers
+    assert "decode_attention_partial" not in part.kernels
+    assert part.collective_ops == dry_cases.partitioned_decode_collectives(cfg, (2, 2),
+                                                                           layout="heads")
+
+
+def test_a_cache_with_its_head_dim_on_model_takes_the_gathered_decode():
+    """Five KV heads of 16 wide and 63 positions on (1, 4): neither the
+    sequence nor the heads divide by 4, so ``cache_sharding`` puts the
+    head_dim on ``model``; :func:`decode_strategy` sends that layout (no
+    published cell's) to the gathered decode, which ``step_fn_for`` builds:
+    its step runs K5's whole mode over all heads, and its collectives are
+    the gathered step's."""
+    cfg = ranks.partition_config("odd_heads_1x4")
+    shape = ShapeSpec("head_dim_decode", "decode", 63, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        assert sh[2]["layers"]["k"] == (None, "data", None, None, "model")
+        assert partition.decode_strategy(cfg, mesh, sh[2]) == "gathered"
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, got = dryrun.count_step(fn, args)
+        _, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, gathered = dryrun.count_step(specs._gathered_step(cfg, "decode", mesh), args)
+    assert got.collective_ops == gathered.collective_ops
+    assert got.kernels["decode_attention"]["calls"] == cfg.n_layers
+    for shape_ in (ShapeSpec("seq_decode", "decode", 64, 4), shape):  # the rule, alone
+        cache = specs.cache_specs(cfg, 4, shape_.seq_len)
+        mesh = AbstractMesh((1, 4), ("data", "model"))
+        want = "partitioned" if shape_.seq_len == 64 else "gathered"
+        assert partition.decode_strategy(cfg, mesh, cache_sharding(mesh, cache)) == want
 
 
 # ---- the partitioned decode ------------------------------------------------------
 
 
-def _single_decode(cfg, count_flops: bool = False):
-    """``decode_step`` on one device from the cache the ranks start from:
+def _single_decode(cfg, count_flops: bool = False, inputs: tuple | None = None,
+                   length: int | None = None):
+    """``decode_step`` on one device from the cache the ranks start from
+    (``inputs``: prompt, positions and tokens; default ``decode_inputs``):
     each step's logits, the final cache, the first step's FLOPs."""
     with set_backend(device="cpu"):
         params = ranks.initial_state(cfg).params
-        prompt, pos, tokens = ranks.decode_inputs(cfg)
-        cache = ranks.single_prefill(params, cfg, prompt, pos)
+        prompt, pos, tokens = inputs or ranks.decode_inputs(cfg)
+        cache = ranks.single_prefill(params, cfg, prompt, pos, length)
         logits, flops = [], None
         for i in range(ranks.DECODE_STEPS):
             counter = FlopCounterMode(display=False)
@@ -588,39 +718,113 @@ def _single_decode(cfg, count_flops: bool = False):
     return logits, cache, flops
 
 
+def _block(full: torch.Tensor, spec: tuple, coord: tuple, sizes: tuple) -> torch.Tensor:
+    """The block of ``full`` that the rank at ``coord`` of a (data, model)
+    mesh of ``sizes`` holds under ``spec``."""
+    out = full
+    for dim, axes in enumerate(spec):
+        for a in (() if axes is None else (axes,) if isinstance(axes, str) else axes):
+            i = ("data", "model").index(a)
+            out = out.chunk(sizes[i], dim=dim)[coord[i]]
+    return out
+
+
+def _written(layers: dict, pos: torch.Tensor) -> dict:
+    """Per cache leaf, the entries the decode steps write: the K/V (MLA:
+    latent) rows at each row's positions ``pos .. pos + DECODE_STEPS - 1``;
+    a Mamba2 state whole."""
+    out = {}
+    for path, full in _flat(layers):
+        mask = torch.zeros(full.shape, dtype=torch.bool)
+        if path[-1] in ("conv", "ssm"):
+            mask[:] = True
+        seq = 2 if path[-1] in ("c_kv", "k_rope") else 3  # (L, B, S, r); (L, B, Hkv, S, hd)
+        for row, p in enumerate(pos.tolist()):
+            for step in range(ranks.DECODE_STEPS if path[-1] not in ("conv", "ssm") else 0):
+                if p + step < full.shape[seq]:
+                    index = [slice(None)] * full.dim()
+                    index[1], index[seq] = row, p + step
+                    mask[tuple(index)] = True
+        out[path] = mask
+    return out
+
+
+def _check_decode(got: list, want: list, cache: dict, pos: torch.Tensor, sizes: tuple):
+    """Each rank's logits its rows' (split on the data axes where they
+    divide, else all) vocabulary range of ``decode_step`` 's (float32,
+    1e-4) at every step; each cache leaf the one device's block under
+    ``cache_sharding`` (whatever its layout): the entries the steps wrote
+    within 1e-5 (their projections' column blocks round otherwise), every
+    other bit for bit, so each K/V row went into the block that holds its
+    position and nowhere else; a Mamba2 state bit-equal over the ``model``
+    ranks."""
+    data, model = sizes
+    specs_ = dict(_flat(cache_sharding(AbstractMesh(sizes, ("data", "model")), cache)["layers"]))
+    written = _written(cache["layers"], pos)
+    n = len(pos)
+    rows = n // data if n % data == 0 else n
+    for r in range(data * model):
+        d, m = divmod(r, model)
+        b = slice(d * rows, (d + 1) * rows) if rows < n else slice(None)
+        assert len(got[r]["logits"]) == ranks.DECODE_STEPS
+        for g, w in zip(got[r]["logits"], want):
+            v = w.shape[-1] // model
+            torch.testing.assert_close(g, w[b, :, m * v:(m + 1) * v], rtol=0, atol=1e-4)
+        for path, full in _flat(cache["layers"]):
+            block = _block(full, specs_[path], (d, m), sizes)
+            mask = _block(written[path], specs_[path], (d, m), sizes)
+            mine = _at(got[r], path)
+            torch.testing.assert_close(mine, block, rtol=0, atol=1e-5)
+            assert torch.equal(mine[~mask], block[~mask]), path
+            if path[-1] in ("conv", "ssm"):
+                assert torch.equal(mine, _at(got[d * model], path)), path
+        assert torch.equal(got[r]["pos"], cache["pos"])
+
+
 @pytest.mark.parametrize("name", list(ranks.PARTITION_CASES))
-def test_partitioned_decode_equals_the_single_device_decode(runs, name):
+def test_partitioned_decode_equals_the_single_device_decode(request, name):
     """Each rank's logits are its rows' vocabulary range of ``decode_step``'s
     (float32, 1e-4) at every step; its K/V blocks are the one device's
     blocks (the sequence on ``model``): the rows the steps wrote within
     1e-5 (their projections' column blocks round otherwise), every other
     position bit for bit, so each row was written into the shard that
-    holds its position and nowhere else."""
+    holds its position and nowhere else; a Mamba2 state (whole on
+    ``model``) its rows' within 1e-5 and bit-equal over the ``model``
+    ranks."""
     cfg = ranks.partition_config(name)
-    data, model = ranks.PARTITION_CASES[name][2]
     want, cache, _ = _single_decode(cfg)
     _, pos, _ = ranks.decode_inputs(cfg)
-    rows, vocab = len(pos) // data, cfg.vocab // model
-    seq = 2 if cfg.block_pattern == "mla_moe" else 3  # MLA's (L, B, S, r); (L, B, Hkv, S, hd)
-    length = next(iter(cache["layers"].values())).shape[seq]
-    width = length // model
-    written = torch.zeros(len(pos), length, dtype=torch.bool)
-    for step in range(ranks.DECODE_STEPS):
-        written[torch.arange(len(pos)), pos.long() + step] = True
-    for r in range(4):
-        got = torch.load(runs / f"partition_decode_rank{r}.pt")[name]
-        d, m = divmod(r, model)
-        b, s = slice(d * rows, (d + 1) * rows), slice(m * width, (m + 1) * width)
-        assert len(got["logits"]) == ranks.DECODE_STEPS
-        for g, w in zip(got["logits"], want):
-            torch.testing.assert_close(g, w[b, :, m * vocab:(m + 1) * vocab], rtol=0, atol=1e-4)
-        for k, full in cache["layers"].items():
-            block = full[:, b, :, s] if seq == 3 else full[:, b, s]
-            shape = (1, rows) + ((1, width, 1) if seq == 3 else (width, 1))
-            mask = written[b, s].reshape(shape).expand_as(got[k])
-            torch.testing.assert_close(got[k], block, rtol=0, atol=1e-5)
-            assert torch.equal(got[k][~mask], block[~mask])
-        assert torch.equal(got["pos"], cache["pos"])
+    got = [torch.load(_dir(request, name) / f"partition_decode_rank{r}.pt")[name]
+           for r in range(4)]
+    _check_decode(got, want, cache, pos, ranks.PARTITION_CASES[name][2])
+
+
+@pytest.mark.parametrize("name", [c for c in ranks.LAYOUT_CASES if c != "dense_heads_2x2"])
+def test_partitioned_decode_takes_every_kv_layout(ssm_runs, name):
+    """The K/V layouts ``cache_sharding`` gives where the sequence does not
+    lie on ``model``: the KV heads on ``model`` with the rows on ``data``
+    (63 positions; the dense case in the test above), and the rows whole
+    with the sequence on ``data`` and the heads on ``model`` (3 rows;
+    Zamba2 long_500k's layout), for the dense decoder and Zamba2's shared
+    block: each rank's logits and blocks as :func:`_check_decode` holds
+    them."""
+    _check_layout_case(ssm_runs, name)
+
+
+def _check_layout_case(runs, name: str) -> None:
+    """A layout case's cache laid out as its name says, and its ranks'
+    decode held by :func:`_check_decode`."""
+    cfg, prompt, pos, tokens, length = ranks.layout_inputs(name)
+    sizes = ranks.LAYOUT_CASES[name][1]
+    want, cache, _ = _single_decode(cfg, inputs=(prompt, pos, tokens), length=length)
+    mesh = AbstractMesh(sizes, ("data", "model"))
+    kv = cache_sharding(mesh, cache)["layers"]
+    spec = (kv["attn"] if cfg.block_pattern == "zamba2" else kv)["k"]
+    layout = partition.kv_layout(mesh, placements(mesh, spec))
+    assert layout == partition.KVLayout("data" if "sequence_on_data" in name else None, True)
+    got = [torch.load(runs / f"partition_decode_rank{r}.pt")[f"layout/{name}"]
+           for r in range(4)]
+    _check_decode(got, want, cache, pos, sizes)
 
 
 def test_partitioned_decode_equals_the_references_sharded_decode(runs):
@@ -660,12 +864,9 @@ def _ranks_flops(runs, name: str, decode: bool) -> float:
     return sum(torch.load(runs / f"partition_rank{r}.pt")["flops"][name] for r in range(4))
 
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
-@pytest.mark.parametrize("name", MOE_FACTOR_CASES)
-def test_moe_partition_factor_is_the_references(runs, name, kind):
-    """ranks x per-rank FLOPs / one device's FLOPs of a train or decode
-    step of the MoE families: the port's within 10 % of XLA's, or below
-    it (the gathered step routed the global batch on every rank)."""
+def _family_factor(runs, name: str, kind: str) -> tuple[float, float]:
+    """The port's and XLA's partition factor of a family case's train or
+    decode step: ranks x per-rank FLOPs / one device's FLOPs."""
     ref = dict(np.load(runs / f"reference_{name}.npz"))
     cfg = ranks.partition_config(name)
     if kind == "train":
@@ -675,15 +876,20 @@ def test_moe_partition_factor_is_the_references(runs, name, kind):
     port = _ranks_flops(runs, name, kind == "decode") / single
     want = 4 * ref[f"{kind}_mesh"] / ref[f"{kind}_single"]
     print(f"{name} {kind}: port {port:.4f}, XLA {want:.4f}")  # reprolint: disable=R008 the factors PERF.md records (pytest -s)
+    return port, want
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", MOE_FACTOR_CASES)
+def test_moe_partition_factor_is_the_references(runs, name, kind):
+    """ranks x per-rank FLOPs / one device's FLOPs of a train or decode
+    step of the MoE families: the port's within 10 % of XLA's, or below
+    it (the gathered step routed the global batch on every rank)."""
+    port, want = _family_factor(runs, name, kind)
     assert port <= (1 + FACTOR_TOL) * want, (port, want)
 
 
-@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
-def test_moe_partitioned_step_equals_the_references_sharded_step(runs, name):
-    """The MoE (drops at capacity factor 1.1, aux) and MLA + MoE (aux,
-    MTP) partitioned train steps from the reference's initial parameters
-    against the reference's jitted sharded step on (2, 2): losses within
-    1e-4, parameters within 5e-4."""
+def _held_against_reference_train(runs, name: str, param_tol: float = PARAM_TOL) -> None:
     ref = dict(np.load(runs / f"reference_{name}.npz"))
     got = torch.load(runs / "partition_rank0.pt")[f"reference/{name}"]
     losses = [m["loss"] for m in got["metrics"]]
@@ -692,11 +898,10 @@ def test_moe_partitioned_step_equals_the_references_sharded_step(runs, name):
         key, index = reference_leaf(".".join(path))
         want = ref["param/" + "/".join(key)]
         want = want if index is None else want[index]
-        assert np.abs(t.numpy() - want).max() < PARAM_TOL, path
+        assert np.abs(t.numpy() - want).max() < param_tol, path
 
 
-@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
-def test_moe_partitioned_decode_equals_the_references_sharded_decode(runs, name):
+def _held_against_reference_decode(runs, name: str) -> None:
     ref = dict(np.load(runs / f"reference_{name}.npz"))["decode_logits"]
     rows, vocab = ref.shape[1] // 2, ref.shape[-1] // 2
     for r in range(4):
@@ -705,6 +910,20 @@ def test_moe_partitioned_decode_equals_the_references_sharded_decode(runs, name)
         for step, g in enumerate(got):
             want = ref[step, d * rows:(d + 1) * rows, :, m * vocab:(m + 1) * vocab]
             assert np.abs(g.numpy() - want).max() < 1e-4, (r, step)
+
+
+@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
+def test_moe_partitioned_step_equals_the_references_sharded_step(runs, name):
+    """The MoE (drops at capacity factor 1.1, aux) and MLA + MoE (aux,
+    MTP) partitioned train steps from the reference's initial parameters
+    against the reference's jitted sharded step on (2, 2): losses within
+    1e-4, parameters within 5e-4."""
+    _held_against_reference_train(runs, name)
+
+
+@pytest.mark.parametrize("name", MOE_REFERENCE_CASES)
+def test_moe_partitioned_decode_equals_the_references_sharded_decode(runs, name):
+    _held_against_reference_decode(runs, name)
 
 
 @pytest.mark.parametrize("name", ["moe_2x2", "moe_1x4", "mla_moe_2x2"])
@@ -779,3 +998,70 @@ def test_partitioned_decode_refuses_a_latent_cache_not_split_by_the_sequence():
             else:
                 assert sh[2]["layers"]["c_kv"] == (None, "data", "model", None)
                 dryrun.count_step(fn, args)
+
+
+# ---- the Mamba2 and Zamba2 families ------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+@pytest.mark.parametrize("name", SSM_FACTOR_CASES)
+def test_ssm_partition_factor_is_the_references(ssm_runs, name, kind):
+    """ranks x per-rank FLOPs / one device's FLOPs of a Mamba2 or Zamba2
+    train or decode step: where the SSD heads split (``"heads"``), the
+    port's within 10 % of XLA's, or below it; the 6-head
+    ``"replicated"`` case's is recorded (every ``model`` rank runs the
+    whole mixer, as replicated attention does), and lies below the
+    gathered step's 4."""
+    port, want = _family_factor(ssm_runs, name, kind)
+    cfg = ranks.partition_config(name)
+    if ssm_mode(cfg, ranks.PARTITION_CASES[name][2][1]) == "heads":
+        assert port <= (1 + FACTOR_TOL) * want, (port, want)
+    else:
+        assert port < 4, port
+
+
+@pytest.mark.parametrize("name", SSM_REFERENCE_CASES)
+def test_ssm_partitioned_step_equals_the_references_sharded_step(ssm_runs, name):
+    """The Mamba2 and Zamba2 partitioned train steps from the reference's
+    initial parameters against the reference's jitted sharded step on (2,
+    2): losses and parameters within 1e-4."""
+    _held_against_reference_train(ssm_runs, name, param_tol=1e-4)
+
+
+@pytest.mark.parametrize("name", SSM_REFERENCE_CASES)
+def test_ssm_partitioned_decode_equals_the_references_sharded_decode(ssm_runs, name):
+    """4 partitioned decode steps against the reference's jitted
+    ``decode_step`` under ``cache_sharding`` on (2, 2): logits within 1e-4."""
+    _held_against_reference_decode(ssm_runs, name)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dry_run_partitioned_ssm_cell_against_gathered_and_a_hand_count(arch, kind):
+    """A small cell of each SSM family at full width (Mamba2-130M 2
+    layers; Zamba2-2.7B 4 layers, its shared block every 2, so used
+    twice), 4 rows x 64 positions, in a fake (2, 2) world: the partitioned
+    step's peak below the gathered step's, its collective calls the hand
+    count (``tests/torch_dryrun_cases.py``), its FLOPs under the gathered
+    step's."""
+    cfg = get_config(arch)
+    cfg = cfg.scaled(n_layers=4, hybrid_period=2) if cfg.block_pattern == "zamba2" \
+        else cfg.scaled(n_layers=2)
+    shape = ShapeSpec(f"small_{kind}", kind, 64, 4)
+    opt = AdamWConfig()
+    with dryrun.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        sh = dryrun.shardings_for(mesh, cfg, shape, opt)
+        fn, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, part = dryrun.count_step(fn, args)
+        gathered = (_sharded_train_step(cfg, opt, 1, True, mesh) if kind == "train"
+                    else specs._gathered_step(cfg, "decode", mesh))
+        _, args = specs.step_fn_for(cfg, shape, opt, mesh=mesh, in_shardings=sh)
+        _, full = dryrun.count_step(gathered, args)
+    print(f"{arch} {kind}: peak {part.peak_bytes} / {full.peak_bytes}, flops {part.flops} / "  # reprolint: disable=R008 the counts PERF.md records (pytest -s)
+          f"{full.flops}, collectives {part.collective_ops}")
+    assert part.peak_bytes < full.peak_bytes
+    hand = (dry_cases.partitioned_collectives if kind == "train"
+            else dry_cases.partitioned_decode_collectives)
+    assert part.collective_ops == hand(cfg, (2, 2))
+    assert part.flops < full.flops

@@ -40,6 +40,7 @@ from repro_torch.launch import dryrun, roofline
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import step_fn_for
 from repro_torch.models.model import FAMILIES
+from repro_torch.models.ssm import _dims as ssm_dims
 from repro_torch.obs.clock import perf_counter
 from repro_torch.parallel import AbstractMesh, param_sharding
 from repro_torch.train import AdamWConfig
@@ -113,9 +114,10 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
       its output all-reduce, in the forward only (the recomputation stops
       at the layer's last saved tensor, before it); by heads, attention's
       input all-reduce and its output all-reduce in both passes;
-    - once: the embedding's and the unembedding's all-reduces, the
-      cross-entropy's three (max, sum, the target's logit), its sum over
-      each data axis, and the global norm's over every mesh axis.
+    - once: where the vocabulary splits on ``model``, the embedding's and
+      the unembedding's all-reduces and the cross-entropy's three (max,
+      sum, the target's logit); the cross-entropy's sum over each data
+      axis, and the global norm's over every mesh axis.
 
     The MoE families (``parallel/experts.py``), the experts split on
     ``model``: the router's gradient all-reduced over ``model``; MLA by
@@ -126,7 +128,18 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
     two buffers' backward (an all-gather, a reduce-scatter).  DeepSeek's
     MTP head: its block one more recomputed layer, ``mtp/proj`` and
     ``mtp/norm`` gathered once, the second embedding lookup, the second
-    unembedding and cross-entropy, and its sum over each data axis."""
+    unembedding and cross-entropy, and its sum over each data axis.
+
+    The Mamba2 layers (``parallel/ssm.py``), where the SSD heads split on
+    ``model`` or ``out_proj`` 's row block takes the rank's slice of ``y``:
+    every mixer weight but ``out_proj`` summed over ``model`` (``in_proj``
+    gathered in each pass and reduce-scattered where ``model`` splits it,
+    else all-reduced); per layer, the mixer's input all-reduce and its
+    output all-reduce (forward only), and in ``"heads"`` mode the gated
+    norm's sums all-reduced in both passes and in the backward.  Where
+    neither, a split ``in_proj`` gathered in each pass.  Zamba2's shared
+    block: a decoder layer at each of its uses, its gathers and their
+    backward once a use."""
     sizes = dict(zip(names, mesh_shape))
     m = sizes["model"]
     data = [a for a in names if a != "model" and sizes[a] > 1]
@@ -136,7 +149,13 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
                            FAMILIES[cfg.block_pattern](cfg, device="meta"))
     experts_split = bool(cfg.moe.n_experts) and cfg.moe.n_experts % m == 0
     mtp = cfg.block_pattern == "mla_moe" and cfg.mtp_depth > 0
-    blocks = cfg.n_layers + mtp
+    ssm = cfg.block_pattern in ("mamba2", "zamba2")
+    uses = cfg.n_layers // cfg.hybrid_period if cfg.block_pattern == "zamba2" else 0
+    blocks = (uses if ssm else cfg.n_layers) + mtp  # attention + FFN blocks run
+    if ssm:
+        mixer = rules["layers"]["0"]["mamba"]
+        ssm_heads = ssm_dims(cfg)[1] % m == 0
+        partial = ssm_heads or mixer["out_proj"][0] == "model"
     ag = rs = ar = 0
     stack = [((), rules)]
     while stack:
@@ -146,27 +165,40 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
             continue
         axes = {a for entry in node if entry
                 for a in ((entry,) if isinstance(entry, str) else entry)}
-        passes = 2 if path[0] == "layers" or path[:2] == ("mtp", "block") else 1
+        times = uses if path[0] == "shared_attn" else 1
+        passes = 2 if path[0] in ("layers", "shared_attn") or path[:2] == ("mtp", "block") else 1
         for a in data:
             if a in axes:
-                ag, rs = ag + passes, rs + 1
+                ag, rs = ag + passes * times, rs + times
             else:
-                ar += 1
+                ar += times
         if m > 1 and experts_split and path[-2] == "router":
             ar += 1
+        if m > 1 and "mamba" in path:
+            if "out_proj" in path:
+                continue
+            if partial:
+                ag, rs, ar = ((ag + passes, rs + 1, ar) if "model" in axes
+                              else (ag, rs, ar + 1))
+            elif "model" in axes:
+                ag += passes
+            continue
         if m == 1 or "attn" not in path:
             continue
         if not heads:
-            ag += passes if "model" in axes else 0
+            ag += passes * times if "model" in axes else 0
         elif path[-2] in ("q_norm", "k_norm", "wq_a", "q_a_norm", "wkv_a", "kv_a_norm"):
-            ar += 1
+            ar += times
         elif kv_whole and path[-2] in ("wk", "wv"):
             if "model" in axes:
-                ag, rs = ag + passes, rs + 1
+                ag, rs = ag + passes * times, rs + times
             else:
-                ar += 1
+                ar += times
     if m > 1:
-        ar += blocks * (2 + (3 if heads else 0)) + (1 + 1 + 3) * (1 + mtp)
+        vocab = "model" in (rules["embed"]["table"][0],)  # the vocabulary split on model
+        ar += blocks * (2 + (3 if heads else 0)) + (1 + 1 + 3) * (1 + mtp) * vocab
+        if ssm and partial:
+            ar += cfg.n_layers * (2 + (3 if ssm_heads else 0))
     if cfg.moe.n_experts and cfg.moe.dispatch == "gspmd":
         ag += blocks * 5 * len(data)
         rs += blocks * 3 * len(data)
@@ -175,19 +207,27 @@ def partitioned_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> 
     return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": rs}
 
 
-def partitioned_decode_collectives(cfg, mesh_shape: tuple, names=("data", "model")) -> dict:
+def partitioned_decode_collectives(cfg, mesh_shape: tuple, names=("data", "model"),
+                                   layout: str = "sequence") -> dict:
     """The collective calls of one partitioned decode step (no gradient:
     forward only), counted by hand from ``parallel/partition.py``'s
     docstring: each parameter, on a data axis that splits it, one
-    all-gather; on ``model``, per layer, one all-gather of the split
-    projections' rows, the softmax combine's two all-reduces (max; the
-    weighted sums), ``wo`` 's and the FFN's all-reduces where ``model``
-    splits them; once, the embedding's all-reduce."""
+    all-gather (Zamba2's shared block's, once a use); on ``model``, per
+    attention + FFN block, with the cache's sequence on ``model``
+    (``layout="sequence"``) one all-gather of the split projections' rows
+    and the softmax combine's two all-reduces (max; the weighted sums),
+    with its KV heads on ``model`` (``"heads"``) neither, ``wo`` 's and the
+    FFN's all-reduces where ``model`` splits them; per Mamba2 layer, the
+    projection's rows all-gathered where ``model`` splits ``in_proj`` and
+    ``out_proj`` 's all-reduce where it splits ``out_proj`` and, where the
+    SSD heads split, the gated norm's sums all-reduced; once, the
+    embedding's all-reduce."""
     sizes = dict(zip(names, mesh_shape))
     m = sizes["model"]
     data = [a for a in names if a != "model" and sizes[a] > 1]
     rules = param_sharding(AbstractMesh(tuple(mesh_shape), tuple(names)),
                            FAMILIES[cfg.block_pattern](cfg, device="meta"))
+    uses = cfg.n_layers // cfg.hybrid_period if cfg.block_pattern == "zamba2" else 0
     ag = ar = 0
     split = {}
     stack = [((), rules)]
@@ -199,20 +239,33 @@ def partitioned_decode_collectives(cfg, mesh_shape: tuple, names=("data", "model
         axes = {a for entry in node if entry
                 for a in ((entry,) if isinstance(entry, str) else entry)}
         if path[0] != "mtp":  # decode never runs the MTP head
-            ag += sum(a in axes for a in data)
+            ag += sum(a in axes for a in data) * (uses if path[0] == "shared_attn" else 1)
         split[path] = "model" in axes
     if m > 1:
         # the MoE layers' outputs (the routed experts' and the shared
         # expert's) meet in one all-reduce; MLA gathers its query rows and
         # wkv_b over model
-        layer = ("layers", "0")
         mla = cfg.block_pattern == "mla_moe"
-        rows = ("wq_b",) if mla else ("wq", "wk", "wv")
-        qkv = any(split[layer + ("attn", n, "w")] for n in rows)
-        ffn = (split[layer + ("ffn", "experts", "wi_gate")] if cfg.moe.n_experts
-               else split[layer + ("ffn", "wo", "w")])
-        ag += cfg.n_layers * (qkv + (mla and split[layer + ("attn", "wkv_b", "w")]))
-        ar += cfg.n_layers * (2 + split[layer + ("attn", "wo", "w")] + ffn)
+        if cfg.block_pattern == "mamba2":
+            block, n_blocks = None, 0
+        else:
+            block, n_blocks = ((("shared_attn",), uses) if uses
+                               else (("layers", "0"), cfg.n_layers))
+        if block is not None:
+            rows = ("wq_b",) if mla else ("wq", "wk", "wv")
+            qkv = any(split[block + ("attn", n, "w")] for n in rows)
+            ffn = (split[block + ("ffn", "experts", "wi_gate")] if cfg.moe.n_experts
+                   else split[block + ("ffn", "wo", "w")])
+            wo = split[block + ("attn", "wo", "w")]
+            if layout == "heads":
+                ar += n_blocks * (1 + ffn)
+            else:
+                ag += n_blocks * (qkv + (mla and split[block + ("attn", "wkv_b", "w")]))
+                ar += n_blocks * (2 + wo + ffn)
+        if uses or cfg.block_pattern == "mamba2":
+            mixer = ("layers", "0", "mamba")
+            ag += cfg.n_layers * split[mixer + ("in_proj", "w")]
+            ar += cfg.n_layers * (split[mixer + ("out_proj",)] + (ssm_dims(cfg)[1] % m == 0))
         ar += split[("embed", "table")]
     return {k: v for k, v in (("all-gather", ag), ("all-reduce", ar)) if v}
 

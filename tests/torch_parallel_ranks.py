@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -244,23 +245,27 @@ def _task_launch(out: str) -> None:
 
 
 # the partitioned step's cases (``tests/test_torch_partition.py``): smoke
-# arch, n_heads = n_kv_heads override (None: the smoke config's), mesh and
-# the MoE's (dispatch, capacity factor, aux coefficient[, experts]).
-# qwen1.5-4b's 4 heads divide both model extents; 5 heads divide neither
-# (attention replicated on model); qwen2.5-32b's 2 KV heads on 4 are
-# shared by two ranks each; qwen3-32b adds the per-head norms; llava the
-# patch prefix.  The MoE cases: Qwen3-MoE's 2 KV heads on 4 shared, its
-# experts split on model; under "gspmd" at capacity factor 1.1 the global
-# capacity (35 of 128 tokens x 2) drops assignments and does not divide
-# the 2 data shards (rows padded); 5 experts divide neither the data
-# extent nor the model extent (experts whole on model); "shard_map" at
-# (1, 4); DeepSeek-V3's MLA by heads (2 on 2, 1 on 4), its shared expert
-# and the MTP head
+# arch, config overrides (None: the smoke config), mesh and the MoE's
+# (dispatch, capacity factor, aux coefficient[, experts]).  qwen1.5-4b's 4
+# heads divide both model extents; 5 heads divide neither (attention
+# replicated on model); qwen2.5-32b's 2 KV heads on 4 are shared by two
+# ranks each; qwen3-32b adds the per-head norms; llava the patch prefix.
+# The MoE cases: Qwen3-MoE's 2 KV heads on 4 shared, its experts split on
+# model; under "gspmd" at capacity factor 1.1 the global capacity (35 of
+# 128 tokens x 2) drops assignments and does not divide the 2 data shards
+# (rows padded); 5 experts divide neither the data extent nor the model
+# extent (experts whole on model); "shard_map" at (1, 4); DeepSeek-V3's
+# MLA by heads (2 on 2, 1 on 4), its shared expert and the MTP head.  The
+# SSM cases: Mamba2's and Zamba2's 8 SSD heads and 296 in_proj columns
+# split on both extents (Zamba2's shared block by heads, used twice); at
+# d_model 48, Mamba2's 6 heads and 230 in_proj columns divide neither by 4
+# (the mixer replicated on model, in_proj whole there, as mamba2-130m's on
+# 16)
 PARTITION_CASES = {
     "dense_2x2": ("qwen1.5-4b", None, (2, 2), None),
     "dense_1x4": ("qwen1.5-4b", None, (1, 4), None),
-    "odd_heads_2x2": ("qwen1.5-4b", 5, (2, 2), None),
-    "odd_heads_1x4": ("qwen1.5-4b", 5, (1, 4), None),
+    "odd_heads_2x2": ("qwen1.5-4b", {"n_heads": 5, "n_kv_heads": 5}, (2, 2), None),
+    "odd_heads_1x4": ("qwen1.5-4b", {"n_heads": 5, "n_kv_heads": 5}, (1, 4), None),
     "shared_kv_1x4": ("qwen2.5-32b", None, (1, 4), None),
     "qk_norm_1x4": ("qwen3-32b", None, (1, 4), None),
     "vlm_2x2": ("llava-next-mistral-7b", None, (2, 2), None),
@@ -270,15 +275,21 @@ PARTITION_CASES = {
     "moe_shard_map_1x4": ("qwen3-moe-235b-a22b", None, (1, 4), ("shard_map", 4.0, 0.001)),
     "mla_moe_2x2": ("deepseek-v3-671b", None, (2, 2), ("gspmd", 1.0, 0.001)),
     "mla_moe_1x4": ("deepseek-v3-671b", None, (1, 4), ("gspmd", 1.0, 0.001)),
+    "mamba2_2x2": ("mamba2-130m", None, (2, 2), None),
+    "mamba2_1x4": ("mamba2-130m", None, (1, 4), None),
+    "mamba2_replicated_1x4": ("mamba2-130m", {"d_model": 48}, (1, 4), None),
+    "zamba2_2x2": ("zamba2-2.7b", None, (2, 2), None),
+    "zamba2_1x4": ("zamba2-2.7b", None, (1, 4), None),
 }
 PREFILL_LEN = 12
+# the SSM cases, run by a rank group of their own (task partition_ssm)
+SSM_CASES = tuple(n for n, c in PARTITION_CASES.items() if c[0] in ("mamba2-130m", "zamba2-2.7b"))
+BASE_CASES = tuple(n for n in PARTITION_CASES if n not in SSM_CASES)
 
 
 def partition_config(name: str):
-    arch, heads, _, moe = PARTITION_CASES[name]
-    cfg = get_smoke_config(arch)
-    if heads is not None:
-        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    arch, overrides, _, moe = PARTITION_CASES[name]
+    cfg = dataclasses.replace(get_smoke_config(arch), **(overrides or {}))
     if moe is not None:
         dispatch, cf, coef, *experts = moe
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -329,19 +340,20 @@ def _train_run(mesh, cfg, state, batch, count_flops: bool) -> dict:
 
 # the cases held against the reference's jitted sharded steps on (2, 2),
 # each from the reference's initial parameters (``ref_init_{case}.npz``)
-REFERENCE_CASES = ("dense_2x2", "moe_2x2", "mla_moe_2x2")
+REFERENCE_CASES = ("dense_2x2", "moe_2x2", "mla_moe_2x2", "mamba2_2x2", "zamba2_2x2")
 
 
-def _task_partition(out: str) -> None:
-    """The partitioned train step on every case, 2 steps (rank 0 saves the
-    gathered state and each rank its first step's FLOPs); the partitioned
-    prefill (each rank saves its split logits and its cache: KV heads, or
-    MLA's latent); the same step from the reference's initial parameters
-    on (2, 2)."""
+def _task_partition(out: str, cases: tuple) -> None:
+    """The partitioned train step on each of ``cases``, 2 steps (rank 0
+    saves the gathered state and each rank its first step's FLOPs); the
+    partitioned prefill (each rank saves its split logits and its cache:
+    KV heads, MLA's latent, or a Mamba2 state); the same step from the
+    reference's initial parameters on (2, 2) for those of REFERENCE_CASES."""
     meshes: dict = {}
     results: dict = {"flops": {}, "prefill": {}}
     rank = dist.get_rank()
-    for name, (_, _, shape, _) in PARTITION_CASES.items():
+    for name in cases:
+        shape = PARTITION_CASES[name][2]
         mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
         cfg = partition_config(name)
         batch = partition_batch(cfg)
@@ -359,7 +371,7 @@ def _task_partition(out: str) -> None:
         results["prefill"][name] = {"logits": logits, "pos": cache["pos"], **cache["layers"],
                                     "attention": partition.attention_mode(cfg, mesh.shape[1]),
                                     "drops": drop_counts()}
-    for name in REFERENCE_CASES:
+    for name in (n for n in REFERENCE_CASES if n in cases):
         cfg = partition_config(name)
         results[f"reference/{name}"] = _train_run(
             meshes[(2, 2)], cfg, reference_state(out, cfg, f"ref_init_{name}"),
@@ -378,7 +390,8 @@ def _task_partition(out: str) -> None:
 DECODE_STEPS = 4
 DECODE_POS = (7, 0, 3, 5, 2, 7, 4, 1)  # sevenths of the last start position
 # the cases whose partition factor is held against XLA's, on both meshes
-FACTOR_CASES = ("dense_2x2", "dense_1x4", "moe_2x2", "moe_1x4", "mla_moe_2x2", "mla_moe_1x4")
+FACTOR_CASES = ("dense_2x2", "dense_1x4", "moe_2x2", "moe_1x4", "mla_moe_2x2", "mla_moe_1x4",
+                "mamba2_2x2", "mamba2_1x4", "mamba2_replicated_1x4", "zamba2_2x2", "zamba2_1x4")
 
 
 def decode_len(cfg) -> int:
@@ -401,18 +414,20 @@ def decode_inputs(cfg) -> tuple[dict, torch.Tensor, torch.Tensor]:
     return prompt, pos, tokens
 
 
-def single_prefill(params, cfg, prompt: dict, pos: torch.Tensor) -> dict:
-    """The one-device cache the partitioned decode starts from."""
-    _, cache = prefill(params, cfg, prompt, max_len=decode_len(cfg))
+def single_prefill(params, cfg, prompt: dict, pos: torch.Tensor, length: int | None = None) -> dict:
+    """The one-device cache of ``length`` positions (default
+    ``decode_len``) the partitioned decode starts from."""
+    _, cache = prefill(params, cfg, prompt, max_len=length or decode_len(cfg))
     cache["pos"] = pos.clone()
     return cache
 
 
-def _decode_run(mesh, cfg, params, prompt, pos, tokens, count_flops: bool = False) -> dict:
+def _decode_run(mesh, cfg, params, prompt, pos, tokens, count_flops: bool = False,
+                length: int | None = None) -> dict:
     """DECODE_STEPS partitioned decode steps (``step_fn_for``'s
     ``_partitioned_decode``) from the one-device prefill's cache, cut by
     ``cache_sharding``: each step's logits and the final cache blocks."""
-    cache = single_prefill(params, cfg, prompt, pos)
+    cache = single_prefill(params, cfg, prompt, pos, length)
     placed = shard_state(mesh, cache, cache_sharding(mesh, cache))
     blocks = shard_state(mesh, param_tree(params), param_sharding(mesh, params))
     step = specs._partitioned_decode(cfg, mesh)
@@ -427,25 +442,64 @@ def _decode_run(mesh, cfg, params, prompt, pos, tokens, count_flops: bool = Fals
             flops = counter.get_total_flops()
         logits.append(out)
     return {"logits": logits, "pos": placed["pos"].to_local(), "flops": flops,
-            **{k: v.to_local() for k, v in placed["layers"].items()}}
+            **_locals(placed["layers"])}
 
 
-def _task_partition_decode(out: str) -> None:
-    """The partitioned decode on every case (each rank saves its split
-    logits, its cache blocks and, for the dense cases, its first step's
-    FLOPs), and on (2, 2) from the reference's initial parameters."""
+def _locals(tree: dict) -> dict:
+    """The local blocks of a tree of ``DTensor`` s, nested as it is."""
+    return {k: _locals(v) if isinstance(v, dict) else v.to_local() for k, v in tree.items()}
+
+
+# the partitioned decode over the K/V layouts cache_sharding gives where
+# the sequence does not lie on model: arch, mesh, cache length and the
+# rows' positions.  63 positions on (2, 2) or (1, 4): the KV heads on
+# model, the rows on data; 3 rows on (2, 2): the rows whole, the sequence
+# on data (the first row's steps cross from one shard into the next), the
+# heads on model
+LAYOUT_CASES = {
+    "dense_heads_2x2": ("qwen1.5-4b", (2, 2), 63, (59, 0, 25, 42, 17, 34, 8, 50)),
+    "dense_sequence_on_data_2x2": ("qwen1.5-4b", (2, 2), 64, (30, 0, 60)),
+    "zamba2_heads_1x4": ("zamba2-2.7b", (1, 4), 63, (59, 0, 25, 42, 17, 34, 8, 50)),
+    "zamba2_sequence_on_data_2x2": ("zamba2-2.7b", (2, 2), 64, (30, 0, 60)),
+}
+
+
+def layout_inputs(name: str) -> tuple:
+    """A layout case's config, prompt (``partition_batch``'s first rows),
+    positions, tokens (one a step) and cache length."""
+    arch, _, length, positions = LAYOUT_CASES[name]
+    cfg = get_smoke_config(arch)
+    rows = len(positions)
+    prompt = {"tokens": partition_batch(cfg)["tokens"][:rows, :PREFILL_LEN]}
+    rng = np.random.default_rng(13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (rows, DECODE_STEPS)))
+    return cfg, prompt, torch.tensor(positions, dtype=torch.int32), tokens, length
+
+
+def _task_partition_decode(out: str, cases: tuple, layouts: tuple = ()) -> None:
+    """The partitioned decode on each of ``cases`` (each rank saves its
+    split logits, its cache blocks and, for FACTOR_CASES, its first step's
+    FLOPs), on (2, 2) from the reference's initial parameters for those
+    of REFERENCE_CASES, and on the ``layouts`` of LAYOUT_CASES."""
     meshes: dict = {}
     results: dict = {}
-    for name, (_, _, shape, _) in PARTITION_CASES.items():
+    for name in cases:
+        shape = PARTITION_CASES[name][2]
         mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
         cfg = partition_config(name)
         results[name] = _decode_run(mesh, cfg, initial_state(cfg).params, *decode_inputs(cfg),
                                     count_flops=name in FACTOR_CASES)
-    for name in REFERENCE_CASES:
+    for name in (n for n in REFERENCE_CASES if n in cases):
         cfg = partition_config(name)
         results[f"reference/{name}"] = _decode_run(
             meshes[(2, 2)], cfg, reference_state(out, cfg, f"ref_init_{name}").params,
             *decode_inputs(cfg))
+    for name in layouts:
+        shape = LAYOUT_CASES[name][1]
+        cfg, prompt, pos, tokens, length = layout_inputs(name)
+        mesh = meshes.setdefault(shape, make_mesh(shape, ("data", "model"), "cpu"))
+        results[f"layout/{name}"] = _decode_run(mesh, cfg, initial_state(cfg).params, prompt,
+                                                pos, tokens, length=length)
     torch.save(results, os.path.join(out, f"partition_decode_rank{dist.get_rank()}.pt"))
 
 
@@ -518,7 +572,12 @@ def wait_all(procs: list, timeout: float = GROUP_TIMEOUT_S) -> None:
 TASKS = {
     "parallel": (_task_train_step, _task_moe, _task_compress, _task_elastic, _task_constrain),
     "launch": (_task_launch,),
-    "partition": (_task_operators, _task_partition, _task_partition_decode),
+    "partition": (_task_operators, functools.partial(_task_partition, cases=BASE_CASES),
+                  functools.partial(_task_partition_decode, cases=BASE_CASES)),
+    # the SSM cases and the decode layouts, a group beside the first
+    "partition_ssm": (functools.partial(_task_partition, cases=SSM_CASES),
+                      functools.partial(_task_partition_decode, cases=SSM_CASES,
+                                        layouts=tuple(LAYOUT_CASES))),
 }
 
 
